@@ -1,0 +1,59 @@
+"""Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
+
+Transcribed from ``repro/kernels/ref.py``: they materialize the full score
+matrix and are the ground truth the CUDA kernels are held against.  The
+wrappers in ``kernels/ops.py`` run these only for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -2.0 ** 30
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
+                    softcap=None):
+    """q,k,v (B,S,H,hd) (k/v pre-expanded to H). Full-scores oracle."""
+    B, S, H, hd = q.shape
+    scale = hd ** -0.5 if scale is None else scale
+    s = torch.einsum("bqhd,bthd->bhqt", q.float(), k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= j <= i
+    if window is not None:
+        ok &= (i - j) < window
+    s = torch.where(ok[None, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqt,bthd->bqhd", w, v.float())
+    return o.to(q.dtype)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
+                           scale=None, softcap=None):
+    """Paged-KV oracle: gather pages, then dense masked decode attention.
+
+    q (B,H,hd); k_pages/v_pages (P,ps,Kv,hd); block_tables (B,nmax) int32
+    physical page ids; pos (B,) int32 — slots <= pos[b] are valid.
+    """
+    B, H, hd = q.shape
+    ps, Kv = k_pages.shape[1], k_pages.shape[2]
+    nmax = block_tables.shape[1]
+    T = nmax * ps
+    G = H // Kv
+    scale = hd ** -0.5 if scale is None else scale
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, T, Kv, hd)
+    v = v_pages[bt].reshape(B, T, Kv, hd)
+    qg = q.reshape(B, Kv, G, hd).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    ok = torch.arange(T, device=q.device)[None, :] <= pos.long()[:, None]
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", w, v.float())
+    return o.reshape(B, H, hd).to(q.dtype)

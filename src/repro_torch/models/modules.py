@@ -1,0 +1,88 @@
+"""Shared model primitives: norms, rotary embeddings, activations, FFN.
+
+Reference: ``repro/models/modules.py``.  JAX's ``dot_general`` of a bf16
+activation and an fp32 parameter promotes to fp32 and the reference then
+casts back to the activation dtype; torch refuses mixed dtypes, so every
+product here writes that promotion and the cast out explicitly.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "int8": torch.int8}
+
+
+def dt(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def matmul(x, w):
+    """fp32 product of the promoted operands, cast back to ``x.dtype``."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def softcap(x, cap: Optional[float]):
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    raise NotImplementedError(
+        f"activation {name!r} comes with the model family that uses it; "
+        "see ROADMAP.md")
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings (standard RoPE)
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def rope_angles(positions, head_dim: int, theta: float,
+                sections: Optional[Tuple[int, int, int]] = None):
+    """Angles (B, S, head_dim/2) for positions (B, S) int."""
+    if sections is not None:
+        raise NotImplementedError(
+            "M-RoPE (qwen2-vl) is not ported yet; see ROADMAP.md")
+    inv = rope_freqs(head_dim, theta, positions.device)
+    return positions[..., None].float() * inv
+
+
+def apply_rope(x, angles):
+    """x: (B, S, H, head_dim); angles: (B, S, head_dim/2). NeoX half-split,
+    computed in fp32."""
+    half = x.shape[-1] // 2
+    cos = torch.cos(angles)[..., None, :].float()     # (B,S,1,half)
+    sin = torch.sin(angles)[..., None, :].float()
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense FFN (SwiGLU / GeGLU / plain MLP)
+# ---------------------------------------------------------------------------
+def ffn_apply(p, cfg, x):
+    act = activation(cfg.act)
+    if cfg.gated_ffn:
+        h = act(matmul(x, p["w_gate"])) * matmul(x, p["w_up"])
+    else:
+        h = act(matmul(x, p["w_up"]))
+    return matmul(h, p["w_down"])

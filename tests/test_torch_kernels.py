@@ -1,0 +1,167 @@
+"""The port's kernel wrappers on the CPU against the JAX reference.
+
+On a CPU tensor each wrapper of ``repro_torch.kernels.ops`` runs its plain
+PyTorch version; these tests hold that version against the reference's
+Pallas kernels (interpret mode, as ``tests/test_kernels.py`` runs them) and
+against its ``ref.py`` oracles, on the same numpy inputs.  The CUDA
+kernels themselves are held against the same plain versions on the card by
+``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops, ref as jref
+from repro_torch.kernels import ops, ref
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _randn(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _both(x, dtype):
+    """The same values as a JAX array and a CPU torch tensor of ``dtype``
+    (both round fp32 -> bf16 to nearest even)."""
+    return (jnp.asarray(x).astype(JDT[dtype]),
+            torch.tensor(x).to(TDT[dtype]))
+
+
+def _err(j, t):
+    return float(np.abs(np.asarray(j, np.float32)
+                        - t.float().numpy()).max())
+
+
+def _modes(mode):
+    return dict(causal=mode != "bidir",
+                window=64 if mode == "window" else None,
+                softcap=30.0 if mode == "softcap" else None)
+
+
+# --- flash attention (tests/test_kernels.py:24-40) ---------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 128, 2, 64), (2, 256, 4, 64),
+                                   (1, 192, 3, 128)])
+@pytest.mark.parametrize("mode", ["causal", "window", "bidir", "softcap"])
+def test_flash_plain_matches_reference_oracle(shape, dtype, mode):
+    rng = np.random.default_rng(11)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(_randn(rng, shape), dtype)
+                                    for _ in range(3))
+    kw = _modes(mode)
+    o = ops.flash_attention(qt, kt, vt, **kw)
+    assert o.dtype == qt.dtype and o.shape == qt.shape
+    err = _err(jref.flash_attention(qj, kj, vj, **kw), o)
+    assert err < TOL[dtype], (shape, dtype, mode, err)
+
+
+@pytest.mark.parametrize("dtype,mode", [("float32", "causal"),
+                                        ("float32", "window"),
+                                        ("float32", "bidir"),
+                                        ("float32", "softcap"),
+                                        ("bfloat16", "causal")])
+def test_flash_plain_matches_pallas_kernel(dtype, mode):
+    rng = np.random.default_rng(12)
+    shape = (1, 128, 2, 64)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(_randn(rng, shape), dtype)
+                                    for _ in range(3))
+    kw = _modes(mode)
+    o_kernel = jops.flash_attention(qj, kj, vj, block_q=64, block_kv=64, **kw)
+    err = _err(o_kernel, ops.flash_attention(qt, kt, vt, **kw))
+    assert err < TOL[dtype], (dtype, mode, err)
+
+
+# --- paged decode attention (tests/test_serving.py:129-205) ------------------
+def _paged_inputs(rng, B, H, hd, Kv, ps, nmax, dtype):
+    P = 1 + B * nmax
+    q = _both(_randn(rng, (B, H, hd)), dtype)
+    kp = _both(_randn(rng, (P, ps, Kv, hd)), dtype)
+    vp = _both(_randn(rng, (P, ps, Kv, hd)), dtype)
+    bt = (1 + rng.permutation(B * nmax)).reshape(B, nmax).astype(np.int32)
+    return q, kp, vp, bt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ps,nmax,Kv,G", [(8, 4, 2, 4), (16, 2, 1, 8),
+                                          (4, 3, 4, 1)])
+def test_paged_decode_plain_matches_reference(ps, nmax, Kv, G, dtype):
+    rng = np.random.default_rng(3)
+    B, hd = 3, 64
+    (qj, qt), (kj, kt), (vj, vt), bt = _paged_inputs(rng, B, Kv * G, hd, Kv,
+                                                     ps, nmax, dtype)
+    pos = np.array([nmax * ps - 1, ps + 3, 0], np.int32)   # ragged, pos 0
+    o = ops.paged_decode_attention(qt, kt, vt, torch.tensor(bt),
+                                   torch.tensor(pos))
+    assert o.dtype == qt.dtype and o.shape == qt.shape
+    err = _err(jref.paged_decode_attention(qj, kj, vj, jnp.asarray(bt),
+                                           jnp.asarray(pos)), o)
+    assert err < TOL[dtype], err
+    if dtype == "float32":
+        o_kernel = jops.paged_decode_attention(qj, kj, vj, jnp.asarray(bt),
+                                               jnp.asarray(pos))
+        assert _err(o_kernel, o) < TOL[dtype]
+
+
+def test_paged_decode_matches_dense_decode_per_sequence():
+    """Gathering a sequence's pages and attending densely gives the same
+    output as the paged path (the reference's dense decode oracle)."""
+    rng = np.random.default_rng(4)
+    B, Kv, G, hd, ps, nmax = 2, 2, 2, 32, 4, 3
+    (qj, qt), (kj, kt), (vj, vt), bt = _paged_inputs(
+        rng, B, Kv * G, hd, Kv, ps, nmax, "float32")
+    pos = np.array([9, 4], np.int32)
+    o = ops.paged_decode_attention(qt, kt, vt, torch.tensor(bt),
+                                   torch.tensor(pos))
+    for b in range(B):
+        kc = kj[bt[b]].reshape(1, nmax * ps, Kv, hd)
+        vc = vj[bt[b]].reshape(1, nmax * ps, Kv, hd)
+        dense = jref.decode_attention(qj[b:b + 1], kc, vc, int(pos[b]))
+        assert _err(dense, o[b:b + 1]) < 1e-6
+
+
+@pytest.mark.parametrize("pos", [0, 3])
+def test_paged_decode_ignores_null_page_garbage(pos):
+    """Padded table slots name the null page 0; poisoning it must not
+    change a bit of the output (pos 0 reads slot 0 of page 1 only)."""
+    rng = np.random.default_rng(5)
+    q = torch.tensor(_randn(rng, (1, 4, 32)))
+    k = torch.tensor(_randn(rng, (4, 4, 2, 32)))
+    v = torch.tensor(_randn(rng, (4, 4, 2, 32)))
+    bt = torch.tensor([[1, 0, 0]], dtype=torch.int32)
+    p = torch.tensor([pos], dtype=torch.int32)
+    o1 = ops.paged_decode_attention(q, k, v, bt, p)
+    k[0], v[0] = 1e6, -1e6
+    assert torch.equal(o1, ops.paged_decode_attention(q, k, v, bt, p))
+
+
+# --- dispatch on the tensor's device ----------------------------------------
+def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    ops.reset_launches()
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.tensor(_randn(rng, (1, 16, 2, 16))) for _ in range(3))
+    assert torch.equal(ops.flash_attention(q, k, v),
+                       ref.flash_attention(q, k, v))
+    (_, qt), (_, kt), (_, vt), bt = _paged_inputs(rng, 2, 4, 16, 2, 4, 2,
+                                                  "float32")
+    pos = torch.tensor([7, 2], dtype=torch.int32)
+    bt = torch.tensor(bt)
+    assert torch.equal(ops.paged_decode_attention(qt, kt, vt, bt, pos),
+                       ref.paged_decode_attention(qt, kt, vt, bt, pos))
+    assert [fn.launches for fn in ops.KERNELS] == [0, 0]
+
+
+def test_non_cpu_tensor_without_a_kernel_raises():
+    """A tensor off the CPU goes to the kernel or raises: never to the
+    plain version."""
+    q = torch.empty((1, 16, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.flash_attention(q, q, q)
+    qd = torch.empty((2, 4, 16), device="meta")
+    pages = torch.empty((5, 4, 2, 16), device="meta")
+    idx = torch.empty((2, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.paged_decode_attention(qd, pages, pages, idx, idx[:, 0])
+    assert [fn.launches for fn in ops.KERNELS] == [0, 0]
