@@ -202,17 +202,20 @@ def check_flash(ops, ref):
         worst[dtype] = err
         if err > TOL[dtype]:
             fail(f"flash {dtype}: max abs err {err}")
-    # masks and ragged lengths (S not a multiple of the 64-row tiles)
+    # masks and ragged lengths (S not a multiple of the 64-row tiles), on
+    # both the tensor-core (bf16, hd <= 128) and the fp32-core paths
     for S in (77, 200):
         for kw in (dict(causal=True), dict(causal=False),
                    dict(causal=True, window=48),
                    dict(causal=True, softcap=30.0)):
-            for hd in (64, 128, 256):
-                q, k, v = qkv((2, S, 3, hd), torch.float32)
-                err = max_err(ops.flash_attention(q, k, v, **kw),
-                              ref.flash_attention(q, k, v, **kw))
-                if err > TOL[torch.float32]:
-                    fail(f"flash S={S} hd={hd} {kw}: max abs err {err}")
+            for hd in (16, 64, 128, 256):
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v = qkv((2, S, 3, hd), dtype)
+                    err = max_err(ops.flash_attention(q, k, v, **kw),
+                                  ref.flash_attention(q, k, v, **kw))
+                    if err > TOL[dtype]:
+                        fail(f"flash S={S} hd={hd} {dtype} {kw}: max abs "
+                             f"err {err}")
     q, k, v = qkv(shape, torch.bfloat16)
     ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
     plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=True))
@@ -228,7 +231,8 @@ def check_flash(ops, ref):
     line = (f"flash_attention B=1 S=512 H=16 hd=128 causal: max abs err "
             f"bf16 {worst[torch.bfloat16]:.3g}, fp32 "
             f"{worst[torch.float32]:.3g}; S in {{77,200}} x causal/bidir/"
-            f"window/softcap x hd in {{64,128,256}} within tolerance; kernel "
+            f"window/softcap x hd in {{16,64,128,256}} x {{fp32,bf16}} within "
+            f"tolerance; kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
     return rec, [line]

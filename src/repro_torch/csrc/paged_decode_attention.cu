@@ -29,26 +29,14 @@
 namespace {
 
 using repro::Chunk;
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::NEG_INF;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int TS = 32;  // slots per tile: one per lane in the softmax
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {

@@ -105,12 +105,12 @@ DECODE_TILE = 32   # cache slots per tile of the paged-decode kernel
 @functools.lru_cache(maxsize=None)
 def _decode_splits(device, pairs: int, max_slots: int):
     """(NS, tiles per split) for the paged-decode kernel: split each
-    (sequence, kv head) pair's slot range so that about two CTAs per SM
+    (sequence, kv head) pair's slot range so that about four CTAs per SM
     are in flight.  Sized from the table width, not from ``pos`` (which
     lives on the device); splits past a sequence's ``pos`` do no work."""
     n_tiles = -(-max_slots // DECODE_TILE)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ns = min(n_tiles, max(1, -(-2 * sms // pairs)))
+    ns = min(n_tiles, max(1, -(-4 * sms // pairs)))
     tps = -(-n_tiles // ns)
     return -(-n_tiles // tps), tps
 
