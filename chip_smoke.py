@@ -1,6 +1,8 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, holds each
 against its plain PyTorch version, serves qwen3-1.7b at full width through
-the paged engine, and checks the engine against the port's dense path.
+the paged engine and rwkv6-1.6b and recurrentgemma-2b at full width
+through the dense engine, and checks each served path at a cut depth
+against the port's plain path.
 
     python3 chip_smoke.py
 
@@ -238,6 +240,132 @@ def check_flash(ops, ref):
     return rec, [line]
 
 
+def check_flash_local(ops, ref):
+    """The flash kernel at recurrentgemma's local layers (hd 256, so the
+    fp32-core path even in bf16; window 2048 over a 2100-token prompt):
+    checked against the plain version and timed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    q, k, v = [torch.randn((4, 2100, 10, 256), generator=gen,
+                           device=DEVICE).to(torch.bfloat16)
+               for _ in range(3)]
+    kw = dict(causal=True, window=2048)
+    err = max_err(ops.flash_attention(q[:1], k[:1], v[:1], **kw),
+                  ref.flash_attention(q[:1], k[:1], v[:1], **kw))
+    if err > TOL[torch.bfloat16]:
+        fail(f"flash hd 256 window 2048: max abs err {err}")
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+    nbytes, flops = flash_bytes_flops(q, causal=True, window=2048)
+    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    return dict(shape=[4, 2100, 10, 256], window=2048, max_abs_err=err,
+                ms=ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def rwkv6_inputs(B, S, H, K, dtype, gen):
+    """r, k, v in ``dtype``; log-decay lw = -exp(N(0,1) - 1), bonus u and
+    a nonzero S0 in fp32 (the reference kernel test's distributions)."""
+    r, k, v = (torch.randn(B, S, H, K, generator=gen, device=DEVICE).to(dtype)
+               for _ in range(3))
+    lw = -torch.exp(torch.randn(B, S, H, K, generator=gen, device=DEVICE)
+                    - 1.0)
+    u = 0.1 * torch.randn(H, K, generator=gen, device=DEVICE)
+    S0 = torch.randn(B, H, K, K, generator=gen, device=DEVICE)
+    return r, k, v, lw, u, S0
+
+
+def rwkv6_bytes_flops(r, v):
+    """Each input read once (r, k, v in their dtype; lw, u, S0 fp32), o and
+    S_T written once in fp32; 7 K V fp32 operations per token and head
+    for the recurrence (k v^T, u k v^T, S + ., r (.), exp(lw) S + k v^T)."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    e = r.element_size()
+    nbytes = (2 * B * S * H * K * e + B * S * H * V * e + 4 * B * S * H * K
+              + 4 * H * K + 2 * 4 * B * H * K * V + 4 * B * S * H * V)
+    return nbytes, 7 * B * S * H * K * V
+
+
+# tolerance of rwkv6_scan against its plain version, abs on o and S_T: the
+# kernel computes the chunked log-space algorithm, the plain version steps
+# the recurrence; both read the same r/k/v values and compute in fp32, so
+# one tolerance holds for both dtypes.  It is the reference's own for its
+# chunked kernel against the stepwise oracle (tests/test_kernels.py:85).
+RWKV_TOL = 2e-3
+# rglru_scan rounds each step as the plain version does (a product, then a
+# sum), so the two agree bit for bit; 1e-5 is the reference's tolerance
+# (tests/test_kernels.py:69).
+RGLRU_TOL = 1e-5
+
+
+def check_rwkv6(ops, ref):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    B, H, K = 8, 32, 64
+    worst = {}
+    for S in (512, 1, 77, 509):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = rwkv6_inputs(B, S, H, K, dtype, gen)
+            o, sT = ops.rwkv6_scan(*x)
+            o_p, sT_p = ref.rwkv6_scan(*x)
+            err = max(max_err(o, o_p), max_err(sT, sT_p))
+            worst[(S, dtype)] = err
+            if err > RWKV_TOL:
+                fail(f"rwkv6_scan S={S} {dtype}: max abs err {err}")
+    x = rwkv6_inputs(B, 512, H, K, torch.bfloat16, gen)
+    ms = time_ms(lambda: ops.rwkv6_scan(*x))
+    plain_ms = time_ms(lambda: ref.rwkv6_scan(*x), iters=5)
+    nbytes, flops = rwkv6_bytes_flops(x[0], x[2])
+    b_ms, b_by = bound(nbytes, flops, torch.float32)
+    rec = dict(name="rwkv6_scan", route="cuda",
+               source="src/repro_torch/csrc/rwkv6_scan.cu",
+               replaces="src/repro/kernels/rwkv6_scan.py:73",
+               max_abs_err=worst[(512, torch.bfloat16)], ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None)
+    errs = ", ".join(f"S={S} {str(d)[6:]} {e:.3g}"
+                     for (S, d), e in worst.items())
+    line = (f"rwkv6_scan B={B} H={H} K=V={K}, nonzero S0: max abs err on o "
+            f"and S_T [{errs}] (tol {RWKV_TOL}); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) at S=512 bf16")
+    return rec, [line]
+
+
+def check_rglru(ops, ref):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+
+    def inputs(B, S, W):
+        a = torch.sigmoid(torch.randn(B, S, W, generator=gen,
+                                      device=DEVICE)) * 0.2 + 0.79
+        b = 0.1 * torch.randn(B, S, W, generator=gen, device=DEVICE)
+        h0 = torch.randn(B, W, generator=gen, device=DEVICE)
+        return a, b, h0
+
+    worst = {}
+    for shape in ((4, 2100, 2560), (3, 77, 1000), (2, 1, 2560)):
+        x = inputs(*shape)
+        hs, hT = ops.rglru_scan(*x)
+        hs_p, hT_p = ref.rglru_scan(*x)
+        err = max(max_err(hs, hs_p), max_err(hT, hT_p))
+        worst[shape] = err
+        if err > RGLRU_TOL:
+            fail(f"rglru_scan {shape}: max abs err {err}")
+    x = inputs(4, 2100, 2560)
+    ms = time_ms(lambda: ops.rglru_scan(*x))
+    plain_ms = time_ms(lambda: ref.rglru_scan(*x), iters=5)
+    n = x[0].numel()
+    nbytes = 4 * (2 * n + n + 2 * x[2].numel())
+    b_ms, b_by = bound(nbytes, 2 * n, torch.float32)
+    rec = dict(name="rglru_scan", route="cuda",
+               source="src/repro_torch/csrc/rglru_scan.cu",
+               replaces="src/repro/kernels/rglru_scan.py:47",
+               max_abs_err=worst[(4, 2100, 2560)], ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None)
+    errs = ", ".join(f"{s} {e:.3g}" for s, e in worst.items())
+    line = (f"rglru_scan fp32 (B,S,W) in [{errs}] max abs err on hs and hT "
+            f"(tol {RGLRU_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}) at (4, 2100, 2560)")
+    return rec, [line]
+
+
 # ---------------------------------------------------------------------------
 # phase 3 — serve at full width through the kernels
 # ---------------------------------------------------------------------------
@@ -282,8 +410,9 @@ def serve_full_width(ops):
     if launches["paged_decode_attention"] != decode_steps * L:
         fail(f"paged decode launches {launches['paged_decode_attention']} "
              f"!= {decode_steps} decode steps x {L} layers")
-    if min(launches.values()) == 0:
-        fail(f"a kernel of the main path never launched: {launches}")
+    if launches["rwkv6_scan"] or launches["rglru_scan"]:
+        fail(f"a recurrent scan launched on an attention-only path: "
+             f"{launches}")
     # a finite logit check on one decode step of the served pools
     logits, _ = _one_step_logits(eng)
     if not torch.isfinite(logits).all():
@@ -316,6 +445,130 @@ def serve_full_width(ops):
     return stats, launches, line
 
 
+# the recurrent families at full width through the dense engine: the
+# kernel of each layer kind, and the number of layers of that kind
+DENSE_RUNS = {
+    "rwkv6-1.6b": dict(requests=16, batch=8, prompt_len=512, gen=64),
+    "recurrentgemma-2b": dict(requests=8, batch=4, prompt_len=2100, gen=32),
+}
+
+
+def serve_dense_full_width(ops, arch):
+    """``run_dense`` at the config's published widths and depth, random
+    fp32 weights from the seed, bf16 activations, impl=pallas.  Checks
+    every request's tokens and that each scan kernel ran in every layer
+    of its kind: rwkv6_scan in every prefill and decode step, rglru_scan
+    and flash in every prefill (RG-LRU and local-attention decode steps
+    are plain, as in the reference)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_parser, run_dense
+    from repro_torch.weights import init_params
+
+    cfg = get_config(arch).replace(impl="pallas")
+    run = DENSE_RUNS[arch]
+    args = build_parser().parse_args(
+        [f"--{k.replace('_', '-')}={v}" for k, v in run.items()]
+        + [f"--seed={SEED}"])
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = init_params(cfg, g, DEVICE)
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    ops.reset_launches()                     # counts of this path only
+    out, st = run_dense(args, cfg, params=params, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    if sorted(out) != list(range(args.requests)) or any(
+            len(t) != args.gen for t in out.values()):
+        fail(f"{arch}: not every request got its {args.gen} tokens")
+    if any(not (0 <= t < cfg.vocab_size) for ts in out.values() for t in ts):
+        fail(f"{arch}: token ids out of range (NaN logits?)")
+    # +1 each: the warmup prefill and decode step before the clock
+    prefills, steps = st["prefills"] + 1, st["decode_steps"] + 1
+    kinds = cfg.layer_kinds
+    want = {"rwkv6_scan": kinds.count("rwkv6") * (prefills + steps),
+            "rglru_scan": kinds.count("rglru") * prefills,
+            "flash_attention": kinds.count("local") * prefills,
+            "paged_decode_attention": 0}
+    if launches != want:
+        fail(f"{arch}: launches {launches} != expected {want} for "
+             f"{prefills} prefills and {steps} decode steps")
+    prof = _profile_dense(cfg, params, args)
+    stats = dict(arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                 n_params=n_params, **run, wall_s=st["seconds"],
+                 tok_per_s=st["tokens"] / st["seconds"],
+                 decode_step_ms=st["step_s"] * 1e3,
+                 prefill_ms=st["prefill_s"] * 1e3, prefills=prefills,
+                 decode_steps=steps, launches=launches, profile=prof)
+    line = (f"serve {arch} dense ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {n_params / 1e9:.3f} B params, bf16 "
+            f"activations, impl=pallas): {args.requests} requests x "
+            f"{args.gen} tokens, batch {args.batch}, prompt "
+            f"{args.prompt_len}, in {st['seconds']:.2f} s, "
+            f"{stats['tok_per_s']:.1f} tok/s, decode step "
+            f"{stats['decode_step_ms']:.3f} ms, prefill (batch of "
+            f"{args.batch}) {stats['prefill_ms']:.3f} ms; launches "
+            f"{launches} (incl. warmup); profiled decode step "
+            f"{prof['decode']['wall_ms'] / prof['decode']['steps']:.3f} ms "
+            f"wall, device busy "
+            f"{prof['decode']['busy_share']:.3f}, "
+            f"{prof['decode']['launches_per_step']:.0f} launches, top "
+            f"{prof['decode']['top']}; profiled prefill "
+            f"{prof['prefill']['wall_ms']:.3f} ms wall, device busy "
+            f"{prof['prefill']['busy_share']:.3f}, top "
+            f"{prof['prefill']['top']}")
+    del params
+    torch.cuda.empty_cache()
+    return stats, launches, line
+
+
+def _profile(fn):
+    """Run ``fn`` under torch.profiler; ``fn`` returns the number of
+    model steps it ran.  Returns the wall time, the device busy share
+    (kernel time over wall time), device launches per step and the
+    kernels that take most of the device time (ms per step)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        k = max(fn(), 1)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: e.self_device_time_total for e in kernels}
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:4]
+    return dict(steps=k, wall_ms=wall * 1e3,
+                busy_share=sum(dev_us.values()) / 1e6 / wall,
+                launches_per_step=sum(e.count for e in kernels) / k,
+                top=[(name[:48], round(us / 1e3 / k, 4)) for name, us in top])
+
+
+def _profile_dense(cfg, params, args):
+    """One batched prefill and four decode steps of the dense engine,
+    each profiled on its own."""
+    from repro_torch import steps
+    from repro_torch.launch.serve import make_prompts
+    prefill = steps.make_prefill_step(cfg, args.prompt_len + args.gen)
+    serve = steps.make_serve_step(cfg)
+    prompts = make_prompts(args.batch, args.prompt_len, cfg.vocab_size, SEED)
+    tok = torch.tensor(np.stack(prompts), device=DEVICE)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["caches"] = prefill(params, tok)
+        return 1
+
+    def run_decode(n=4):
+        t = state["logits"].argmax(-1).to(torch.int32)
+        for i in range(n):
+            t, _, state["caches"] = serve(params, t, state["caches"],
+                                          args.prompt_len + i)
+        return n
+
+    return dict(prefill=_profile(run_prefill), decode=_profile(run_decode))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -334,32 +587,18 @@ def _one_step_logits(eng):
 
 
 def _profile_window(eng, prompts):
-    """One fused window with every slot decoding, under torch.profiler:
-    device busy share (kernel time over wall time), device launches per
-    decode step, and the kernels that take most of the device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """One fused window with every slot decoding, under torch.profiler."""
     for i, p in enumerate(prompts[:eng.max_batch]):
         eng.submit(p, 64, rid=f"prof{i}")
     while eng.sched.waiting:         # the prefills and first windows
         eng.step()
-    torch.cuda.synchronize()
     steps0 = eng.decode_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
+
+    def one_window():
         eng.step()                   # one pure decode window
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    k = eng.decode_steps - steps0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = {e.key: e.self_device_time_total for e in kernels}
-    busy = sum(dev_us.values()) / 1e6 / wall
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:4]
-    return dict(steps=k, wall_ms=wall * 1e3, busy_share=busy,
-                launches_per_step=sum(e.count for e in kernels) / max(k, 1),
-                top=[(name[:48], round(us / 1e3 / max(k, 1), 4))
-                     for name, us in top])
+        return eng.decode_steps - steps0
+
+    return _profile(one_window)
 
 
 def _mean_prefill_ms(eng, prompt, n=5):
@@ -456,6 +695,79 @@ def engine_parity():
     return dict(depth=depth, logit_err=logit_err, near_ties=ties), line
 
 
+# full width with the depth cut, fp32: each recurrent family's kernel path
+# (impl=pallas) against the port's plain path (impl=ref).  First-token
+# logits: the scans differ only in summation order (rwkv6: chunked vs
+# stepwise) or not at all (rglru), and flash vs the full-scores attention
+# in fp32 in the order of 1e-6 relative; the tied 256000-row head of
+# recurrentgemma gives logits of magnitude ~100, so its tolerance is
+# scaled up.  Greedy tokens must match, except at a near-tie: a step
+# where the plain path's top-2 margin is below twice the tolerance.
+DENSE_PARITY = {
+    "rwkv6-1.6b": dict(depth=4, batch=4, prompt_len=512, gen=16, tol=1e-3),
+    "recurrentgemma-2b": dict(depth=6, batch=2, prompt_len=2100, gen=16,
+                              tol=1e-2),
+}
+
+
+def dense_parity(arch):
+    from repro_torch import steps
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.weights import init_params
+
+    run = DENSE_PARITY[arch]
+    full = get_config(arch)
+    cfg = full.replace(n_layers=run["depth"], activation_dtype="float32",
+                       impl="pallas")
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    params = init_params(cfg, g, DEVICE)
+    plen, gen_len = run["prompt_len"], run["gen"]
+    tok0 = torch.tensor(np.stack(make_prompts(
+        run["batch"], plen, cfg.vocab_size, SEED + 6)), device=DEVICE)
+    seqs, margins, first = {}, {}, {}
+    for impl in ("pallas", "ref"):
+        c = cfg.replace(impl=impl)
+        prefill = steps.make_prefill_step(c, plen + gen_len)
+        serve = steps.make_serve_step(c)
+        logits, caches = prefill(params, tok0)
+        first[impl] = logits
+        toks, mg = [], []
+        for j in range(gen_len):
+            top2 = logits[:, 0].topk(2).values
+            mg.append((top2[:, 0] - top2[:, 1]).tolist())
+            tok = logits.argmax(-1).to(torch.int32)
+            toks.append(tok[:, 0].tolist())
+            if j < gen_len - 1:
+                tok, logits, caches = serve(params, tok, caches, plen + j)
+        seqs[impl], margins[impl] = toks, mg
+        del caches
+    logit_err = max_err(first["pallas"], first["ref"])
+    if logit_err > run["tol"]:
+        fail(f"{arch}: first-token logits differ by {logit_err} > "
+             f"{run['tol']}")
+    ties = []
+    for b in range(run["batch"]):
+        for j in range(gen_len):
+            if seqs["pallas"][j][b] != seqs["ref"][j][b]:
+                m = margins["ref"][j][b]
+                ties.append((b, j, m))
+                if m >= 2 * run["tol"]:
+                    fail(f"{arch} row {b} step {j}: kernel-path token "
+                         f"{seqs['pallas'][j][b]} != plain {seqs['ref'][j][b]}"
+                         f" with top-2 margin {m}")
+                break
+    line = (f"parity {arch} full width, depth cut {full.n_layers} -> "
+            f"{run['depth']} layers, fp32: kernel path (impl=pallas) vs plain "
+            f"path (impl=ref) on {run['batch']} prompts of {plen} x "
+            f"{gen_len} tokens: first-token logits max abs err "
+            f"{logit_err:.3g} (atol {run['tol']}); greedy tokens "
+            + ("identical" if not ties else f"differ only at near-ties {ties}"))
+    del params
+    torch.cuda.empty_cache()
+    return dict(depth=run["depth"], logit_err=logit_err, near_ties=ties), line
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -477,23 +789,48 @@ def main():
     print(f"[setup] kernels built from {build.CSRC.relative_to(ROOT)} in "
           f"{build_s:.2f} s (nvcc, sm_90a); TF32 off")
 
-    paged, lines_p = check_paged(ops, ref)
-    flash, lines_f = check_flash(ops, ref)
-    for line in lines_p + lines_f:
+    recs, lines = {}, []
+    for check in (check_paged, check_flash, check_rwkv6, check_rglru):
+        rec, ls = check(ops, ref)
+        recs[rec["name"]] = rec
+        lines += ls
+    flash_local = check_flash_local(ops, ref)
+    lines.append(f"flash_attention at recurrentgemma's local layers "
+                 f"(B=4, S=2100, H=10, hd 256, window 2048, bf16, fp32-core "
+                 f"path): max abs err {flash_local['max_abs_err']:.3g}; kernel "
+                 f"{flash_local['ms']:.4f} ms, bound "
+                 f"{flash_local['bound_ms']:.4f} ms ({flash_local['bound_by']})")
+    for line in lines:
         print(f"[kernels] {line}")
-    stats, launches, line = serve_full_width(ops)
-    print(f"[serve] {line}")
-    parity, line = engine_parity()
-    print(f"[parity] {line}")
 
-    for rec in (flash, paged):
-        rec["launches"] = launches[rec["name"]]
-    kernels = {"kernels": [flash, paged]}
+    # each served path with the counts set to 0 just before it; a kernel's
+    # launches are the sum over the paths
+    serve_stats, path_launches = {}, {}
+    stats, launches, line = serve_full_width(ops)
+    serve_stats["qwen3-1.7b"], path_launches["qwen3-1.7b"] = stats, launches
+    print(f"[serve] {line}")
+    for arch in DENSE_RUNS:
+        stats, launches, line = serve_dense_full_width(ops, arch)
+        serve_stats[arch], path_launches[arch] = stats, launches
+        print(f"[serve] {line}")
+    parity = {}
+    parity["qwen3-1.7b"], line = engine_parity()
+    print(f"[parity] {line}")
+    for arch in DENSE_PARITY:
+        parity[arch], line = dense_parity(arch)
+        print(f"[parity] {line}")
+
+    for name, rec in recs.items():
+        rec["launches"] = sum(l[name] for l in path_launches.values())
+        if rec["launches"] == 0:
+            fail(f"{name} never launched on a served path")
+    kernels = {"kernels": [recs[fn.__name__] for fn in ops.KERNELS]}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         dict(gpu=info, torch=torch.__version__, build_s=build_s,
-             kernels=kernels["kernels"], serve=stats, parity=parity),
+             kernels=kernels["kernels"], flash_local=flash_local,
+             path_launches=path_launches, serve=serve_stats, parity=parity),
         indent=2))
     print(json.dumps(kernels))
     print(gpu_info())

@@ -12,6 +12,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     "tiny-100m": "repro_torch.configs.tiny_100m",
 }
 

@@ -25,6 +25,10 @@ _SIGNATURES = {
     # q, k_pages, v_pages, block_tables, pos, out, scratch, B, Kv, G, hd,
     # ps, nmax, NS, tps, scale, softcap, bf16, stream
     "paged_decode_attention": [_P] * 7 + [_I] * 8 + [_F] * 2 + [_I, _P],
+    # a, b, h0, hs, hT, B, S, W, stream
+    "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
+    # r, k, v, lw, u, S0, o, S_T, B, S, H, K, V, bf16, stream
+    "rwkv6_scan": [_P] * 8 + [_I] * 6 + [_P],
 }
 _LAUNCHERS = {}
 
@@ -39,15 +43,16 @@ def _launcher(name: str):
     return fn
 
 
-def _check(name, device, tensors, float_names, int_names=()):
+def _check(name, device, tensors, float_names, int_names=(), fp32_names=()):
     """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
-    tensor on ``device``; float operands share one dtype of fp32/bf16 and
-    index operands are int32."""
+    tensor on ``device``; ``float_names`` operands share one dtype of
+    fp32/bf16, ``fp32_names`` operands are fp32, and index operands are
+    int32."""
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
     build.check_device(device)
-    dtype = tensors[float_names[0]].dtype
-    if dtype not in (torch.float32, torch.bfloat16):
+    dtype = tensors[float_names[0]].dtype if float_names else None
+    if float_names and dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: float32 or bfloat16 only, got {dtype}")
     for key, t in tensors.items():
         if t.device != device:
@@ -56,8 +61,10 @@ def _check(name, device, tensors, float_names, int_names=()):
             raise ValueError(f"{name}: {key} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
-        want = dtype if key in float_names else torch.int32
-        if key in float_names + tuple(int_names) and t.dtype != want:
+        want = dtype if key in float_names else \
+            torch.float32 if key in fp32_names else torch.int32
+        if key in float_names + tuple(int_names) + tuple(fp32_names) \
+                and t.dtype != want:
             raise TypeError(f"{name}: {key} is {t.dtype}, expected {want}")
 
 
@@ -156,9 +163,62 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
     return out
 
 
+def rwkv6_scan(r, k, v, lw, u, S0):
+    """RWKV-6 wkv.  r, k (B,S,H,K) and v (B,S,H,V) share one dtype, fp32
+    or bf16; the log-decay lw (B,S,H,K), u (H,K) and S0 (B,H,K,V) are fp32
+    whatever that dtype is (the reference keeps the decay and the state in
+    fp32).  Returns (o (B,S,H,V), S_T (B,H,K,V)), fp32.  Any S >= 1;
+    K, V <= 64."""
+    if r.device.type == "cpu":
+        return ref.rwkv6_scan(r, k, v, lw, u, S0)
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    _check("rwkv6_scan", r.device,
+           {"r": r, "k": k, "v": v, "lw": lw, "u": u, "S0": S0},
+           ("r", "k", "v"), fp32_names=("lw", "u", "S0"))
+    if k.shape != r.shape or lw.shape != r.shape \
+            or tuple(v.shape) != (B, S, H, V) or tuple(u.shape) != (H, K) \
+            or tuple(S0.shape) != (B, H, K, V):
+        raise ValueError(
+            f"rwkv6_scan: bad shapes r {tuple(r.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}, lw {tuple(lw.shape)}, u {tuple(u.shape)}, "
+            f"S0 {tuple(S0.shape)}")
+    if S < 1 or K > 64 or V > 64:
+        raise ValueError(f"rwkv6_scan: S={S} must be >= 1 and K={K}, V={V} "
+                         "at most 64")
+    o = torch.empty((B, S, H, V), dtype=torch.float32, device=r.device)
+    S_T = torch.empty_like(S0)
+    _launch("rwkv6_scan", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lw.data_ptr(), u.data_ptr(), S0.data_ptr(), o.data_ptr(),
+            S_T.data_ptr(), B, S, H, K, V, int(r.dtype == torch.bfloat16))
+    rwkv6_scan.launches += 1
+    return o, S_T
+
+
+def rglru_scan(a, b, h0):
+    """h_t = a_t * h_{t-1} + b_t with h0 the carry into step 0.  a, b
+    (B,S,W) fp32; h0 (B,W) fp32.  Returns (hs (B,S,W), hT (B,W)), fp32."""
+    if a.device.type == "cpu":
+        return ref.rglru_scan(a, b, h0)
+    B, S, W = a.shape
+    _check("rglru_scan", a.device, {"a": a, "b": b, "h0": h0}, (),
+           fp32_names=("a", "b", "h0"))
+    if b.shape != a.shape or tuple(h0.shape) != (B, W) or S < 1:
+        raise ValueError(f"rglru_scan: bad shapes a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, h0 {tuple(h0.shape)}")
+    hs = torch.empty_like(a)
+    hT = torch.empty_like(h0)
+    _launch("rglru_scan", a.device, a.data_ptr(), b.data_ptr(),
+            h0.data_ptr(), hs.data_ptr(), hT.data_ptr(), B, S, W)
+    rglru_scan.launches += 1
+    return hs, hT
+
+
 flash_attention.launches = 0
 paged_decode_attention.launches = 0
-KERNELS = (flash_attention, paged_decode_attention)
+rwkv6_scan.launches = 0
+rglru_scan.launches = 0
+KERNELS = (flash_attention, paged_decode_attention, rwkv6_scan, rglru_scan)
 
 
 def reset_launches() -> None:

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
 
 Transcribed from ``repro/kernels/ref.py``: they materialize the full score
-matrix and are the ground truth the CUDA kernels are held against.  The
+matrix or step a recurrence one timestep at a time, and are the ground
+truth the CUDA kernels are held against.  The
 wrappers in ``kernels/ops.py`` run these only for tensors on the CPU.
 """
 from __future__ import annotations
@@ -57,3 +58,29 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", w, v.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def rglru_scan(a, b, h0):
+    """h_t = a_t * h_{t-1} + b_t, stepwise. a,b (B,S,W) f32; h0 (B,W).
+    Returns (hs (B,S,W), hT (B,W))."""
+    h = h0
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def rwkv6_scan(r, k, v, lw, u, S0):
+    """Stepwise RWKV-6 wkv. r,k,v,lw (B,S,H,K); u (H,K); S0 (B,H,K,V).
+    Returns (o (B,S,H,V) fp32, S_T (B,H,K,V) fp32)."""
+    S = S0.float()
+    u = u.float()
+    os = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, lwt = (x[:, t].float() for x in (r, k, v, lw))
+        kv = torch.einsum("bhk,bhv->bhkv", kt, vt)
+        os.append(torch.einsum("bhk,bhkv->bhv", rt,
+                               S + u[None, :, :, None] * kv))
+        S = torch.exp(lwt)[..., None] * S + kv
+    return torch.stack(os, dim=1), S

@@ -1,14 +1,20 @@
-"""CLI serving driver of the port: the paged continuous-batching engine.
+"""CLI serving driver of the port: dense fixed batches or the paged
+continuous-batching engine.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
       --requests 16 --prompt-len 512 --gen 64 --batch 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+      --engine paged --requests 16 --prompt-len 512 --gen 64 --batch 8
 
-Reference: ``repro/launch/serve.py --engine paged``.  Runs on the GPU
-(``--device cpu`` for the CPU) with ``impl="pallas"``, so prefill goes
-through the flash-attention kernel and every decode step through the
-paged-decode kernel.  Weights are random, from ``--seed``; prompts are
-drawn with numpy from the same seed.  Flags of engine features this port
-does not have yet are rejected with exit code 2.
+Reference: ``repro/launch/serve.py``.  ``--engine dense`` (the default) is
+the fixed-size-batch loop: one batched prefill, then ``gen - 1`` decode
+steps at a shared position; it serves every ported config, the recurrent
+families included.  ``--engine paged`` is the paged continuous-batching
+engine, for global-attention configs only.  Runs on the GPU (``--device
+cpu`` for the CPU) with ``impl="pallas"``, so every kernel of the path
+goes through ``kernels/ops.py``.  Weights are random, from ``--seed``;
+prompts are drawn with numpy from the same seed.  Flags of engine
+features this port does not have yet are rejected with exit code 2.
 """
 from __future__ import annotations
 
@@ -31,6 +37,77 @@ def make_prompts(n_requests: int, prompt_len: int, vocab_size: int,
     rng = np.random.default_rng(seed)
     return [rng.integers(2, vocab_size, prompt_len, dtype=np.int32)
             for _ in range(n_requests)]
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_dense(args, cfg, params=None, device=None):
+    """Fixed-batch loop.  Requests are served ``args.batch`` at a time; a
+    short last batch is padded by repeating its last prompt.  Each batch
+    runs one batched prefill, then ``args.gen - 1`` greedy decode steps at
+    the shared position ``prompt_len + i``.  A warmup prefill and decode
+    step run before the clock starts.  Returns (request id -> token list,
+    stats)."""
+    import torch
+    from repro_torch import steps
+    from repro_torch.weights import init_params, resolve_device
+
+    device = resolve_device(device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = init_params(cfg, gen, device)
+    max_len = args.prompt_len + args.gen
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    serve = steps.make_serve_step(cfg)
+    prompts = make_prompts(args.requests, args.prompt_len, cfg.vocab_size,
+                           args.seed)
+
+    def tokens_of(batch):
+        return torch.tensor(np.stack(batch), device=device)
+
+    wl, wc = prefill(params, tokens_of([prompts[0]] * args.batch))
+    serve(params, wl.argmax(-1).to(torch.int32), wc, args.prompt_len)
+    del wl, wc
+    _sync(device)
+
+    pending = list(enumerate(prompts))
+    outputs = {}
+    prefills, decode_steps, prefill_s, decode_s = 0, 0, 0.0, 0.0
+    t0 = time.time()
+    while pending:
+        batch = pending[:args.batch]
+        pending = pending[args.batch:]
+        rows = [p for _, p in batch]
+        rows += [rows[-1]] * (args.batch - len(rows))   # pad the last batch
+        tp = time.time()
+        logits, caches = prefill(params, tokens_of(rows))
+        tok = logits.argmax(-1).to(torch.int32)
+        outs = [tok]
+        _sync(device)
+        td = time.time()
+        prefill_s += td - tp
+        prefills += 1
+        for i in range(args.gen - 1):
+            tok, logits, caches = serve(params, tok, caches,
+                                        args.prompt_len + i)
+            outs.append(tok)
+            decode_steps += 1
+        seq = torch.cat(outs, -1).cpu()          # (batch, gen); syncs
+        decode_s += time.time() - td
+        for row, (rid, _) in enumerate(batch):
+            outputs[rid] = [int(t) for t in seq[row]]
+        del caches
+    dt = time.time() - t0
+    tokens = sum(len(t) for t in outputs.values())
+    stats = dict(requests=len(outputs), tokens=tokens, seconds=dt,
+                 prefills=prefills, prefill_s=prefill_s / max(prefills, 1),
+                 decode_steps=decode_steps,
+                 step_s=decode_s / max(decode_steps, 1))
+    return outputs, stats
 
 
 def run_paged(args, cfg, params=None, device=None):
@@ -63,8 +140,7 @@ def run_paged(args, cfg, params=None, device=None):
         eng.submit(p, args.gen, rid=f"req{i}", slo=args.slo)
     t0 = time.time()
     finished = eng.run()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     dt = time.time() - t0
     outputs = {int(r.rid[3:]): r.tokens for r in finished}
     m = eng.metrics()
@@ -76,6 +152,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tiny-100m")
     ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--engine", default="dense", choices=["dense", "paged"])
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu for the CPU)")
     ap.add_argument("--seed", type=int, default=0,
@@ -123,9 +200,23 @@ def main(argv=None):
               file=sys.stderr)
         raise SystemExit(2)
     from repro_torch.configs import get_config, get_tiny_config
+    from repro_torch.models import lm
 
     cfg = get_tiny_config(args.arch) if args.tiny else get_config(args.arch)
     cfg = cfg.replace(impl="pallas")
+    if args.engine == "dense":
+        outputs, m = run_dense(args, cfg, device=args.device)
+        print(f"[dense] {cfg.name}: served {m['requests']} requests, "
+              f"{m['tokens']} tokens in {m['seconds']:.2f}s "
+              f"({m['tokens'] / max(m['seconds'], 1e-9):.1f} tok/s); "
+              f"prefill {m['prefill_s'] * 1e3:.2f} ms, decode step "
+              f"{m['step_s'] * 1e3:.2f} ms over {m['decode_steps']} steps")
+        return
+    if not lm.paged_decodable(cfg):
+        print(f"error: --engine paged serves global-attention configs only; "
+              f"{cfg.name} has layer kinds {sorted(set(cfg.layer_kinds))} "
+              "(use --engine dense)", file=sys.stderr)
+        raise SystemExit(2)
     outputs, m, eng = run_paged(args, cfg, device=args.device)
     tokens = sum(len(t) for t in outputs.values())
     print(f"[paged] {eng.device}: served {m['finished']} requests, {tokens} "

@@ -9,10 +9,12 @@ prefill implementations (``cfg.impl``):
             (the hand-written CUDA kernel on a CUDA tensor).
 
 Caches are stored FLAT (B, T, Kv*hd) and paged pools (P, ps, Kv*hd), as in
-the reference.  The reference's caches are immutable and its jitted steps
-donate them; here the update functions write the cache tensors in place
-(``index_put_`` / slice assignment) and return them, which saves the copy.
-The sharded decode branches wait for the sharded-serving slice.
+the reference; T is the max length for global layers and min(window,
+max_len) for the ring cache of local (sliding-window) layers.  The
+reference's caches are immutable and its jitted steps donate them; here
+the update functions write the cache tensors in place (``index_put_`` /
+slice assignment) and return them, which saves the copy.  The sharded
+decode branches wait for the sharded-serving slice.
 """
 from __future__ import annotations
 
@@ -41,13 +43,15 @@ def _scale(cfg) -> float:
 
 
 def expand_kv(k, n_heads: int):
-    """(B,T,Kv,hd) -> (B,T,H,hd) by repeating each kv head G times."""
+    """(B,T,Kv,hd) -> (B,T,H,hd) by repeating each kv head G times, as a
+    contiguous tensor (with Kv = 1 the reshape alone would be a stride-0
+    view, which the kernels do not take)."""
     B, T, Kv, hd = k.shape
     G = n_heads // Kv
     if G == 1:
         return k
     return k[:, :, :, None, :].expand(B, T, Kv, G, hd).reshape(
-        B, T, n_heads, hd)
+        B, T, n_heads, hd).contiguous()
 
 
 def _qkv(p, cfg, x, angles):
@@ -109,9 +113,9 @@ def attend_blocked(q, k, v, *, causal, window, scale, softcap,
     while S % bkv:
         bkv -= 1
     if window is not None and window + bq < S and causal:
-        raise NotImplementedError(
-            "sliding-window blocked attention comes with the gemma2 slice "
-            "of the port; see ROADMAP.md")
+        # sliding-window fast path: slices just the kv window per q block
+        return _attend_local_blocked(q, k, v, causal=causal, window=window,
+                                     scale=scale, softcap=softcap, bq=bq)
     dev = q.device
     outs = []
     for qi in range(S // bq):
@@ -140,13 +144,39 @@ def attend_blocked(q, k, v, *, causal, window, scale, softcap,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def _attend_local_blocked(q, k, v, *, causal, window, scale, softcap, bq):
+    """Sliding-window attention: per q block, slice only the kv window
+    (O(S * (window + bq)) work)."""
+    B, S, H, hd = q.shape
+    span = window + bq
+    dev = q.device
+    outs = []
+    for qi in range(S // bq):
+        q_blk = q[:, qi * bq:(qi + 1) * bq]
+        start = min(max(qi * bq + bq - span, 0), S - span)
+        k_w = k[:, start:start + span]
+        v_w = v[:, start:start + span]
+        s = _einsum32("bqhd,bthd->bhqt", q_blk, k_w) * scale
+        s = nn.softcap(s, softcap)
+        iq = qi * bq + torch.arange(bq, device=dev)
+        jk = start + torch.arange(span, device=dev)
+        s = torch.where(_mask_ok(iq, jk, causal, window)[None, None], s,
+                        NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        outs.append(_einsum32("bhqt,bthd->bqhd", w.to(v_w.dtype), v_w))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # dense decode — one query against the cache (the oracle's path)
 # ---------------------------------------------------------------------------
-def attend_decode(q, cache: AttnCache, pos, *, scale, softcap, n_kv: int):
-    """q (B,1,H,hd); cache.k/v FLAT (B,T,Kv*hd); pos scalar.  Global
-    cache (the ring cache of local layers comes with the gemma2 slice):
-    slot = t, valid slots are <= pos."""
+def attend_decode(q, cache: AttnCache, pos, *, window, scale, softcap,
+                  n_kv: int):
+    """q (B,1,H,hd); cache.k/v FLAT (B,T,Kv*hd); pos scalar.
+
+    Global cache: slot = t, valid slots are <= pos.
+    Local (ring) cache: slot = t % T; a slot is valid when the absolute
+    position it holds lies inside the window."""
     B, _, H, hd = q.shape
     T = cache.k.shape[1]
     Kv = n_kv
@@ -155,34 +185,57 @@ def attend_decode(q, cache: AttnCache, pos, *, scale, softcap, n_kv: int):
     qg = q.reshape(B, Kv, H // Kv, hd)
     s = _einsum32("bkgd,btkd->bkgt", qg, k) * scale
     s = nn.softcap(s, softcap)
-    ok = torch.arange(T, device=q.device) <= pos
+    slots = torch.arange(T, device=q.device)
+    if window is None:
+        ok = slots <= pos
+    else:
+        abs_pos = pos - ((pos - slots) % T)    # T == window for ring caches
+        ok = (abs_pos >= 0) & (abs_pos > pos - window)
     s = torch.where(ok[None, None, None], s, NEG_INF)
     w = torch.softmax(s.float(), dim=-1)
     o = _einsum32("bkgt,btkd->bkgd", w.to(v.dtype), v).to(q.dtype)
     return o.reshape(B, 1, H * hd)
 
 
-def cache_init(cfg, batch: int, max_len: int, dtype, device):
-    shape = (batch, max_len, cfg.n_kv_heads * cfg.head_dim)
+def cache_init(cfg, batch: int, max_len: int, window, dtype, device):
+    T = min(window, max_len) if window is not None else max_len
+    shape = (batch, T, cfg.n_kv_heads * cfg.head_dim)
     return AttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
                      v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def cache_update_decode(cache: AttnCache, k_new, v_new, pos):
-    """Write the step-t k/v (B,1,Kv,hd) into slot t, in place."""
+def cache_update_decode(cache: AttnCache, k_new, v_new, pos, window):
+    """Write the step-t k/v (B,1,Kv,hd) into slot t (global) or t % T
+    (ring), in place."""
     B = k_new.shape[0]
-    cache.k[:, pos:pos + 1] = k_new.reshape(B, 1, -1)
-    cache.v[:, pos:pos + 1] = v_new.reshape(B, 1, -1)
+    slot = pos % cache.k.shape[1] if window is not None else pos
+    cache.k[:, slot:slot + 1] = k_new.reshape(B, 1, -1)
+    cache.v[:, slot:slot + 1] = v_new.reshape(B, 1, -1)
     return cache
 
 
-def cache_from_prefill(k, v, max_len):
-    """Build the flat decode cache from prefill k/v (B,S,Kv,hd)."""
+def cache_from_prefill(k, v, window, max_len):
+    """Build the flat decode cache from prefill k/v (B,S,Kv,hd): padded to
+    max_len (global), or the last min(window, max_len) positions placed
+    at their ring slots (local)."""
     B, S, Kv, hd = k.shape
-    pad = max(max_len - S, 0)
-    k = torch.nn.functional.pad(k.reshape(B, S, Kv * hd), (0, 0, 0, pad))
-    v = torch.nn.functional.pad(v.reshape(B, S, Kv * hd), (0, 0, 0, pad))
-    return AttnCache(k, v)
+    k = k.reshape(B, S, Kv * hd)
+    v = v.reshape(B, S, Kv * hd)
+    if window is None:
+        pad = max(max_len - S, 0)
+        return AttnCache(torch.nn.functional.pad(k, (0, 0, 0, pad)),
+                         torch.nn.functional.pad(v, (0, 0, 0, pad)))
+    W = min(window, max_len)
+    ck = k.new_zeros((B, W, Kv * hd))
+    cv = v.new_zeros((B, W, Kv * hd))
+    if S >= W:
+        slots = torch.arange(S - W, S, device=k.device) % W
+        ck[:, slots] = k[:, S - W:]
+        cv[:, slots] = v[:, S - W:]
+    else:
+        ck[:, :S] = k
+        cv[:, :S] = v
+    return AttnCache(ck, cv)
 
 
 # ---------------------------------------------------------------------------
@@ -303,11 +356,11 @@ def apply(p, cfg, x, *, kind: str, angles):
     return nn.matmul(o, p["wo"]), (k, v)
 
 
-def apply_decode(p, cfg, x, cache: AttnCache, pos, *, angles):
-    """Dense decode path (global attention): x (B,1,D). Returns (out,
-    cache)."""
+def apply_decode(p, cfg, x, cache: AttnCache, pos, *, kind: str, angles):
+    """Dense decode path: x (B,1,D). Returns (out, cache)."""
+    window = cfg.sliding_window if kind == "local" else None
     q, k_new, v_new = _qkv(p, cfg, x, angles)
-    cache = cache_update_decode(cache, k_new, v_new, pos)
-    o = attend_decode(q, cache, pos, scale=_scale(cfg),
+    cache = cache_update_decode(cache, k_new, v_new, pos, window)
+    o = attend_decode(q, cache, pos, window=window, scale=_scale(cfg),
                       softcap=cfg.attn_softcap, n_kv=cfg.n_kv_heads)
     return nn.matmul(o, p["wo"]), cache

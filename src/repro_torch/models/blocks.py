@@ -1,13 +1,16 @@
 """Per-layer block assembly: norm -> mixer -> residual -> norm -> FFN.
 
-Reference: ``repro/models/blocks.py``.  The port has the global-attention
-block with a dense FFN; local-window, MLA, RG-LRU, RWKV-6 and MoE blocks
-raise until their slices land.
+Reference: ``repro/models/blocks.py``.  The port has the global and local
+(sliding-window) attention blocks and the RG-LRU block, each with a dense
+FFN, and the RWKV-6 layer, which is complete in itself (its channel-mix
+takes the place of the FFN and its second norm sits inside the branch).
+MLA and MoE blocks raise until their slices land.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ATTN
+from repro_torch.configs.base import ATTN, LOCAL, RGLRU, RWKV6
 from repro_torch.models import attention, modules as nn
+from repro_torch.models import rglru as rglru_mod, rwkv6 as rwkv6_mod
 
 
 def _unported(what) -> NotImplementedError:
@@ -29,26 +32,51 @@ def _ffn_part(p, cfg, x):
     return nn.ffn_apply(p["ffn"], cfg, x)
 
 
+def _rwkv(p, cfg, x, h, cache):
+    """The complete RWKV-6 layer on the normed input ``h``: time-mix,
+    residual, second norm, channel-mix, residual.  Returns (x, cache)."""
+    out, c1 = rwkv6_mod.time_mix(p["rwkv"], cfg, h, cache)
+    x = x + out
+    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
+    out2, c2 = rwkv6_mod.channel_mix(p["rwkv"], cfg, h2, c1)
+    return x + out2, c2
+
+
 def apply(p, cfg, kind: str, x, *, angles):
-    """Full-sequence (prefill) path.  Returns (x, the layer's raw (k, v)
-    before max-len padding)."""
-    if kind != ATTN:
-        raise _unported(f"layer kind {kind!r}")
+    """Full-sequence (prefill) path.  Returns (x, the layer's raw cache
+    contribution: (k, v) before max-len padding, or the recurrent
+    cache)."""
     h = nn.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
-    out, kv = attention.apply(p["attn"], cfg, h, kind=kind, angles=angles)
+    if kind in (ATTN, LOCAL):
+        out, cache = attention.apply(p["attn"], cfg, h, kind=kind,
+                                     angles=angles)
+    elif kind == RGLRU:
+        out, cache = rglru_mod.apply(p["rglru"], cfg, h)
+    elif kind == RWKV6:
+        cache0 = rwkv6_mod.cache_init(cfg, x.shape[0], x.dtype, x.device)
+        return _rwkv(p, cfg, x, h, cache0)
+    else:
+        raise _unported(f"layer kind {kind!r}")
     x = x + _post(p, cfg, "ln1_post", out)
     h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
     x = x + _post(p, cfg, "ln2_post", _ffn_part(p, cfg, h2))
-    return x, kv
+    return x, cache
 
 
 def apply_decode(p, cfg, kind: str, x, cache, pos, *, angles):
-    """Single-token decode path. Returns (x, cache)."""
-    if kind != ATTN:
-        raise _unported(f"layer kind {kind!r}")
+    """Single-token decode path. Returns (x, the layer's new cache): the
+    attention caches are written in place and returned, the recurrent
+    states are new tensors."""
     h = nn.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
-    out, cache = attention.apply_decode(p["attn"], cfg, h, cache, pos,
-                                        angles=angles)
+    if kind in (ATTN, LOCAL):
+        out, cache = attention.apply_decode(p["attn"], cfg, h, cache, pos,
+                                            kind=kind, angles=angles)
+    elif kind == RGLRU:
+        out, cache = rglru_mod.apply_decode(p["rglru"], cfg, h, cache)
+    elif kind == RWKV6:
+        return _rwkv(p, cfg, x, h, cache)
+    else:
+        raise _unported(f"layer kind {kind!r}")
     x = x + _post(p, cfg, "ln1_post", out)
     h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
     x = x + _post(p, cfg, "ln2_post", _ffn_part(p, cfg, h2))
@@ -89,13 +117,23 @@ def paged_cache_from_prefill(cfg, kind: str, pool, raw, block_row):
 
 def cache_init(cfg, kind: str, batch: int, max_len: int, dtype, device):
     if kind == ATTN:
-        return attention.cache_init(cfg, batch, max_len, dtype, device)
+        return attention.cache_init(cfg, batch, max_len, None, dtype, device)
+    if kind == LOCAL:
+        return attention.cache_init(cfg, batch, max_len, cfg.sliding_window,
+                                    dtype, device)
+    if kind == RGLRU:
+        return rglru_mod.cache_init(cfg, batch, dtype, device)
+    if kind == RWKV6:
+        return rwkv6_mod.cache_init(cfg, batch, dtype, device)
     raise _unported(f"the decode cache of layer kind {kind!r}")
 
 
 def cache_from_prefill(cfg, kind: str, raw, max_len: int):
     """Convert the prefill cache contribution into decode-ready form."""
-    if kind == ATTN:
+    if kind in (ATTN, LOCAL):
         k, v = raw
-        return attention.cache_from_prefill(k, v, max_len)
+        window = cfg.sliding_window if kind == LOCAL else None
+        return attention.cache_from_prefill(k, v, window, max_len)
+    if kind in (RGLRU, RWKV6):
+        return raw       # the recurrent caches are already decode-ready
     raise _unported(f"the decode cache of layer kind {kind!r}")

@@ -6,9 +6,13 @@ scanned segment's parameters and caches on a leading ``n_cycles`` axis and
 ``lax.scan``s over it; the port keeps one entry per cycle instead:
 
     params["segments"][seg][cycle][j]   block params of kind seg.kinds[j]
+    caches[seg][cycle][j]               that layer's decode cache
     pools[seg][cycle][j]                that layer's PagedAttnCache
 
-and runs the cycles as a Python loop over device tensors.
+and runs the cycles as a Python loop over device tensors.  As in the
+reference, ``decode_step`` returns the new cache nesting: attention caches
+are written in place and returned, the recurrent states (RG-LRU, RWKV-6)
+are new tensors, so the caller must use the caches it gets back.
 """
 from __future__ import annotations
 
@@ -125,7 +129,8 @@ def head_logits(params, cfg, h):
 def forward(params, cfg: ModelConfig, tokens):
     """Prefill forward (the training path is not ported yet).  tokens:
     (B,S) int ids.  Returns (h_final (B,S,D) pre-final-norm, raw caches):
-    the per-layer (k, v) nesting, converted by ``caches_from_prefill``."""
+    the per-layer nesting of (k, v) or recurrent caches, converted by
+    ``caches_from_prefill``."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[:2]
     angles = _angles(cfg, default_positions(B, S, device=x.device))
@@ -161,16 +166,17 @@ def init_caches(cfg, batch: int, max_len: int, device):
 def decode_step(params, cfg, tokens, caches, pos):
     """One decode step. tokens (B,1) ids; pos int (shared position).
 
-    Returns (logits (B,1,V), caches updated in place)."""
+    Returns (logits (B,1,V), new caches)."""
     x = embed_tokens(params, cfg, tokens)
     positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32,
                            device=x.device)
     angles = _angles(cfg, positions)
-    for kind, p, cache, _ in _layers(cfg, params, caches):
-        x, _ = blocks.apply_decode(p, cfg, kind, x, cache, int(pos),
-                                   angles=angles)
+    new = {}
+    for kind, p, cache, key in _layers(cfg, params, caches):
+        x, new[key] = blocks.apply_decode(p, cfg, kind, x, cache, int(pos),
+                                          angles=angles)
     h = nn.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return head_logits(params, cfg, h), caches
+    return head_logits(params, cfg, h), _nest(cfg, lambda kind, key: new[key])
 
 
 # ---------------------------------------------------------------------------

@@ -41,9 +41,11 @@ def softcap(x, cap: Optional[float]):
 def activation(name: str):
     if name == "silu":
         return F.silu
-    raise NotImplementedError(
-        f"activation {name!r} comes with the model family that uses it; "
-        "see ROADMAP.md")
+    if name == "gelu":       # the reference's jax.nn.gelu(approximate=True)
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(name)
 
 
 # ---------------------------------------------------------------------------

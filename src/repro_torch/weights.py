@@ -3,7 +3,8 @@ reference's parameter tree.
 
 Layout (see ``models/lm.py``): ``params["segments"][seg][cycle][j]`` holds
 the block parameters of layer kind ``seg.kinds[j]`` as the reference's
-per-block dict (``ln1``, ``attn``, ``ln2``, ``ffn``), unstacked per cycle.
+per-block dict (``ln1``, the mixer's ``attn`` / ``rglru`` / ``rwkv``,
+``ln2``, and ``ffn`` except in RWKV-6 layers), unstacked per cycle.
 """
 from __future__ import annotations
 
@@ -12,8 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, LOCAL
-from repro_torch.models import lm, modules as nn
+from repro_torch.configs.base import ATTN, LOCAL, RGLRU, RWKV6
+from repro_torch.models import lm, modules as nn, rglru, rwkv6
 
 
 def resolve_device(device=None) -> torch.device:
@@ -70,46 +71,105 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
                 device=None):
     """Random parameters drawn from the reference's distributions
     (``repro/models/modules.py`` dense/embed init, ``attention.init``,
-    ``lm.init_params``).  The bits differ from the reference's: torch and
-    JAX generators differ."""
+    ``rglru.init``, ``rwkv6.init``, ``lm.init_params``).  The bits differ
+    from the reference's: torch and JAX generators differ."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     dtype = nn.dt(cfg.param_dtype)
 
-    def normal(shape, std=1.0):
+    def normal(shape, std=1.0, to=dtype):
         x = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (x * std).to(dtype)
+        return (x * std).to(to)
 
     def dense(d_in, d_out, scale=1.0):
         return normal((d_in, d_out), scale * d_in ** -0.5)
 
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+
     def ones(n):
-        return {"scale": torch.ones(n, dtype=torch.float32, device=device)}
+        return {"scale": full((n,), 1.0)}
 
     d, hd = cfg.d_model, cfg.head_dim
     layer_scale = 1.0 / max(1, cfg.n_layers) ** 0.5
 
+    def attn():
+        p = {"wq": dense(d, cfg.n_heads * hd),
+             "wk": dense(d, cfg.n_kv_heads * hd),
+             "wv": dense(d, cfg.n_kv_heads * hd),
+             "wo": dense(cfg.n_heads * hd, d, layer_scale)}
+        if cfg.qk_norm:
+            p["q_norm"] = full((hd,), 1.0)
+            p["k_norm"] = full((hd,), 1.0)
+        return p
+
+    def rglru_block():
+        w = cfg.lru_width or d
+        heads = cfg.n_heads
+        ghd = w // heads
+        # Lambda so that a ~ U[0.9, 0.999]^(1/c) (Griffin app. A)
+        u = 0.9 + 0.099 * torch.rand((w,), generator=generator,
+                                     device=device, dtype=torch.float32)
+        return {
+            "lru_in_x": dense(d, w),
+            "lru_in_gate": dense(d, w),
+            "conv_w": normal((cfg.conv1d_width, w), cfg.conv1d_width ** -0.5),
+            "conv_b": full((w,), 0.0),
+            "lru_a_gate_w": normal((heads, ghd, ghd), ghd ** -0.5),
+            "lru_a_gate_b": full((heads, ghd), 0.0),
+            "lru_x_gate_w": normal((heads, ghd, ghd), ghd ** -0.5),
+            "lru_x_gate_b": full((heads, ghd), 0.0),
+            "lru_a_param": torch.log(torch.expm1(-torch.log(u)
+                                                 / rglru.C_FACTOR)),
+            "lru_out": dense(w, d, layer_scale),
+        }
+
+    def rwkv_block():
+        return {
+            "rwkv_mix_x": full((d,), 0.0),
+            "rwkv_mix_base": full((5, d), 0.0),
+            "rwkv_mix_lora_a": normal((d, 5, rwkv6.LORA_MIX), d ** -0.5),
+            "rwkv_mix_lora_b": normal((5, rwkv6.LORA_MIX, d),
+                                      rwkv6.LORA_MIX ** -0.5),
+            "rwkv_decay_base": full((d,), -1.0),
+            "rwkv_decay_lora_a": normal((d, rwkv6.LORA_DECAY), d ** -0.5),
+            "rwkv_decay_lora_b": normal((rwkv6.LORA_DECAY, d),
+                                        rwkv6.LORA_DECAY ** -0.5),
+            "rwkv_u": normal((cfg.n_heads, hd), 0.1, to=torch.float32),
+            "rwkv_wr": dense(d, d),
+            "rwkv_wk": dense(d, d),
+            "rwkv_wv": dense(d, d),
+            "rwkv_wg": dense(d, d),
+            "rwkv_wo": dense(d, d, layer_scale),
+            "rwkv_ln_scale": full((d,), 1.0),
+            "rwkv_ln_bias": full((d,), 0.0),
+            "rwkv_cm_mix_k": full((d,), 0.5),
+            "rwkv_cm_mix_r": full((d,), 0.5),
+            "rwkv_cm_wk": dense(d, cfg.d_ff),
+            "rwkv_cm_wv": dense(cfg.d_ff, d, layer_scale),
+            "rwkv_cm_wr": dense(d, d),
+        }
+
     def block(kind, is_moe):
-        if kind not in (ATTN, LOCAL) or is_moe:
+        if is_moe or kind not in (ATTN, LOCAL, RGLRU, RWKV6):
             raise NotImplementedError(
                 f"init of {kind!r}{' MoE' if is_moe else ''} blocks is not "
                 "ported yet; see ROADMAP.md")
-        attn = {"wq": dense(d, cfg.n_heads * hd),
-                "wk": dense(d, cfg.n_kv_heads * hd),
-                "wv": dense(d, cfg.n_kv_heads * hd),
-                "wo": dense(cfg.n_heads * hd, d, layer_scale)}
-        if cfg.qk_norm:
-            attn["q_norm"] = torch.ones(hd, dtype=torch.float32,
-                                        device=device)
-            attn["k_norm"] = torch.ones(hd, dtype=torch.float32,
-                                        device=device)
-        ffn = {"w_up": dense(d, cfg.d_ff),
-               "w_down": dense(cfg.d_ff, d, layer_scale)}
-        if cfg.gated_ffn:
-            ffn["w_gate"] = dense(d, cfg.d_ff)
-        p = {"ln1": ones(d), "attn": attn, "ln2": ones(d), "ffn": ffn}
+        p = {"ln1": ones(d)}
+        if kind == RWKV6:
+            p["rwkv"] = rwkv_block()
+        elif kind == RGLRU:
+            p["rglru"] = rglru_block()
+        else:
+            p["attn"] = attn()
+        p["ln2"] = ones(d)
+        if kind != RWKV6:
+            p["ffn"] = {"w_up": dense(d, cfg.d_ff),
+                        "w_down": dense(cfg.d_ff, d, layer_scale)}
+            if cfg.gated_ffn:
+                p["ffn"]["w_gate"] = dense(d, cfg.d_ff)
         if cfg.post_norm:
             p["ln1_post"] = ones(d)
             p["ln2_post"] = ones(d)

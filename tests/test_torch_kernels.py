@@ -137,6 +137,64 @@ def test_paged_decode_ignores_null_page_garbage(pos):
     assert torch.equal(o1, ops.paged_decode_attention(q, k, v, bt, p))
 
 
+# --- recurrent scans (tests/test_kernels.py:59-86), plus S=1 and a prime S --
+def _rglru_inputs(rng, B, S, W):
+    a = 1 / (1 + np.exp(-_randn(rng, (B, S, W)))) * 0.2 + 0.79
+    return (a.astype(np.float32), _randn(rng, (B, S, W)) * 0.1,
+            _randn(rng, (B, W)))
+
+
+@pytest.mark.parametrize("S,W", [(64, 128), (256, 256), (128, 512), (1, 128),
+                                 (37, 96)])
+def test_rglru_scan_plain_matches_reference(S, W):
+    rng = np.random.default_rng(7)
+    a, b, h0 = _rglru_inputs(rng, 2, S, W)
+    hs, hT = ops.rglru_scan(*(torch.tensor(x) for x in (a, b, h0)))
+    assert hs.dtype == hT.dtype == torch.float32
+    assert hs.shape == (2, S, W) and hT.shape == (2, W)
+    for fn in (jref.rglru_scan, jops.rglru_scan):
+        hs_j, hT_j = fn(*(jnp.asarray(x) for x in (a, b, h0)))
+        assert _err(hs_j, hs) < 1e-5 and _err(hT_j, hT) < 1e-5
+
+
+def _rwkv_inputs(rng, B, S, H, K):
+    r, k, v = (_randn(rng, (B, S, H, K)) for _ in range(3))
+    lw = -np.exp(_randn(rng, (B, S, H, K)) - 1.0).astype(np.float32)
+    u = _randn(rng, (H, K)) * 0.1
+    S0 = _randn(rng, (B, H, K, K))
+    return r, k, v, lw, u, S0
+
+
+@pytest.mark.parametrize("S,H,K,chunk", [(64, 2, 32, 16), (128, 1, 64, 32),
+                                         (96, 3, 16, 32), (1, 2, 16, 32),
+                                         (67, 2, 16, 32)])
+def test_rwkv6_scan_plain_matches_reference(S, H, K, chunk):
+    rng = np.random.default_rng(8)
+    inputs = _rwkv_inputs(rng, 2, S, H, K)
+    o, s = ops.rwkv6_scan(*(torch.tensor(x) for x in inputs))
+    assert o.dtype == s.dtype == torch.float32
+    assert o.shape == (2, S, H, K) and s.shape == (2, H, K, K)
+    o_r, s_r = jref.rwkv6_scan(*(jnp.asarray(x) for x in inputs))
+    assert _err(o_r, o) < 2e-3 and _err(s_r, s) < 2e-3
+    o_k, s_k = jops.rwkv6_scan(*(jnp.asarray(x) for x in inputs),
+                               chunk=chunk)
+    assert _err(o_k, o) < 2e-3 and _err(s_k, s) < 2e-3
+
+
+def test_rwkv6_scan_plain_takes_bf16_rkv_with_fp32_state():
+    """The model's mixed operands: r/k/v in the activation dtype, lw, u
+    and S0 in fp32; the output and state are fp32 either way."""
+    rng = np.random.default_rng(9)
+    r, k, v, lw, u, S0 = _rwkv_inputs(rng, 2, 9, 2, 16)
+    rkv = [_both(x, "bfloat16") for x in (r, k, v)]
+    o, s = ops.rwkv6_scan(*(t for _, t in rkv), torch.tensor(lw),
+                          torch.tensor(u), torch.tensor(S0))
+    assert o.dtype == s.dtype == torch.float32
+    o_r, s_r = jref.rwkv6_scan(*(j for j, _ in rkv), jnp.asarray(lw),
+                               jnp.asarray(u), jnp.asarray(S0))
+    assert _err(o_r, o) < 2e-3 and _err(s_r, s) < 2e-3
+
+
 # --- dispatch on the tensor's device ----------------------------------------
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.reset_launches()
@@ -150,7 +208,13 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     bt = torch.tensor(bt)
     assert torch.equal(ops.paged_decode_attention(qt, kt, vt, bt, pos),
                        ref.paged_decode_attention(qt, kt, vt, bt, pos))
-    assert [fn.launches for fn in ops.KERNELS] == [0, 0]
+    a, b, h0 = (torch.tensor(x) for x in _rglru_inputs(rng, 2, 5, 8))
+    assert all(torch.equal(x, y) for x, y in zip(
+        ops.rglru_scan(a, b, h0), ref.rglru_scan(a, b, h0)))
+    rw = [torch.tensor(x) for x in _rwkv_inputs(rng, 2, 5, 2, 8)]
+    assert all(torch.equal(x, y) for x, y in zip(ops.rwkv6_scan(*rw),
+                                                 ref.rwkv6_scan(*rw)))
+    assert [fn.launches for fn in ops.KERNELS] == [0] * len(ops.KERNELS)
 
 
 def test_non_cpu_tensor_without_a_kernel_raises():
@@ -164,4 +228,11 @@ def test_non_cpu_tensor_without_a_kernel_raises():
     idx = torch.empty((2, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.paged_decode_attention(qd, pages, pages, idx, idx[:, 0])
-    assert [fn.launches for fn in ops.KERNELS] == [0, 0]
+    a = torch.empty((2, 5, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.rglru_scan(a, a, a[:, 0])
+    r = torch.empty((2, 5, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.rwkv6_scan(r, r, r, r, r[0, 0], r[:, 0, :, :, None].expand(
+            2, 2, 8, 8))
+    assert [fn.launches for fn in ops.KERNELS] == [0] * len(ops.KERNELS)

@@ -188,8 +188,9 @@ def test_engine_warmup_and_cli_on_cpu(tiny, capsys):
     for i, p in enumerate(prompts):
         eng.submit(p, 5, rid=f"r{i}")
     assert {r.rid: r.tokens for r in eng.run()} == base
-    serve.main(["--tiny", "--device", "cpu", "--requests", "3",
-                "--prompt-len", "8", "--gen", "4", "--batch", "2"])
+    serve.main(["--tiny", "--device", "cpu", "--engine", "paged",
+                "--requests", "3", "--prompt-len", "8", "--gen", "4",
+                "--batch", "2"])
     assert "[paged] cpu: served 3 requests, 12 tokens" in \
         capsys.readouterr().out
 
