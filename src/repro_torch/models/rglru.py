@@ -10,7 +10,8 @@ arXiv:2402.19427):
 The block: x -> [linear gate branch -> GeLU] * [linear -> conv1d -> RG-LRU]
            -> linear out.
 
-Implementations (``cfg.impl``): ref = a loop over time (oracle); blocked =
+Implementations (``cfg.impl``): ref = a loop over time (the kernel's
+plain version, ``kernels/ref.rglru_scan``); blocked =
 a log-step doubling scan over the sequence; pallas = the ``rglru_scan``
 kernel through ``kernels/ops.py`` (the hand-written CUDA kernel on a CUDA
 tensor).  Decode is one plain step under every impl, as in the reference.
@@ -22,6 +23,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ref as kref
 from repro_torch.models import modules as nn
 
 C_FACTOR = 8.0
@@ -72,16 +74,6 @@ def _gates(p, cfg, u):
     return a, gated
 
 
-def _scan_ref(a, b, h0):
-    """h_t = a_t h_{t-1} + b_t, a loop over time. a,b (B,S,W) fp32."""
-    h = h0
-    hs = []
-    for t in range(a.shape[1]):
-        h = a[:, t] * h + b[:, t]
-        hs.append(h)
-    return torch.stack(hs, dim=1), h
-
-
 def _scan_assoc(a, b, h0):
     """Log-step doubling scan over the sequence axis (Hillis-Steele):
     after the step with offset d every position holds the composition of
@@ -111,7 +103,7 @@ def apply(p, cfg, x, *, cache: RGLRUCache = None):
     h0 = cache.h if cache is not None else torch.zeros(
         (x.shape[0], u.shape[-1]), dtype=torch.float32, device=x.device)
     if cfg.impl == "ref":
-        hs, hT = _scan_ref(a, b, h0)
+        hs, hT = kref.rglru_scan(a, b, h0)
     elif cfg.impl == "blocked":
         hs, hT = _scan_assoc(a, b, h0)
     elif cfg.impl == "pallas":

@@ -7,7 +7,8 @@ Reference: ``repro/models/rwkv6.py``.  Time-mix recurrence per head
 with data-dependent per-channel decay w_t = exp(-exp(dd_t)) and token-shift
 low-rank interpolation for the five projections (w,k,v,r,g).
 
-Implementations (``cfg.impl``): ref = a loop over time; blocked = the
+Implementations (``cfg.impl``): ref = a loop over time (the kernel's
+plain version, ``kernels/ref.rwkv6_scan``); blocked = the
 chunked algorithm with exact log-space intra-chunk decays; pallas = the
 ``rwkv6_scan`` kernel through ``kernels/ops.py`` (the hand-written CUDA
 kernel on a CUDA tensor).  The LoRA products promote a bf16 activation
@@ -22,6 +23,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ref as kref
 from repro_torch.models import modules as nn
 
 LORA_MIX = 32
@@ -76,20 +78,6 @@ def _group_norm(p, o, eps=64e-5):
 # ---------------------------------------------------------------------------
 # wkv recurrence
 # ---------------------------------------------------------------------------
-def _wkv_ref(r, k, v, lw, u, S0):
-    """Loop over time. r,k,v (B,S,H,K); lw (B,S,H,K) log decay; u (H,K);
-    S0 (B,H,K,V). Returns (o (B,S,H,V) fp32, S_T)."""
-    S = S0
-    os = []
-    for t in range(r.shape[1]):
-        rt, kt, vt = (x[:, t].float() for x in (r, k, v))
-        kv = torch.einsum("bhk,bhv->bhkv", kt, vt)
-        os.append(torch.einsum("bhk,bhkv->bhv", rt,
-                               S + u[None, :, :, None] * kv))
-        S = torch.exp(lw[:, t])[..., None] * S + kv
-    return torch.stack(os, dim=1), S
-
-
 def _wkv_chunked(r, k, v, lw, u, S0, chunk=CHUNK):
     """Chunked algorithm, exact in fp32 log space.
 
@@ -150,7 +138,7 @@ def time_mix(p, cfg, x, cache: RWKVCache):
     lw = _decay(p, xw).reshape(B, S, H, hd)
     u = p["rwkv_u"].float()
     if cfg.impl == "ref":
-        o, S_T = _wkv_ref(r, k, v, lw, u, cache.state)
+        o, S_T = kref.rwkv6_scan(r, k, v, lw, u, cache.state)
     elif cfg.impl == "blocked":
         o, S_T = _wkv_chunked(r, k, v, lw, u, cache.state)
     elif cfg.impl == "pallas":

@@ -25,6 +25,7 @@ from repro.models import attention as jattn, lm as jlm, rglru as jrglru
 from repro.models import rwkv6 as jrwkv6
 from repro_torch import steps
 from repro_torch.configs import get_config, get_tiny_config
+from repro_torch.kernels import ref as kref
 from repro_torch.launch import serve
 from repro_torch.models import attention, lm, rglru, rwkv6
 from repro_torch.weights import from_reference, init_params
@@ -177,7 +178,7 @@ def test_rwkv_chunked_matches_loop_at_a_prime_length():
     lw = -torch.exp(torch.tensor(_randn(rng, B, S, H, K)) - 1.0)
     u = torch.tensor(_randn(rng, H, K)) * 0.1
     S0 = torch.tensor(_randn(rng, B, H, K, K))
-    o1, s1 = rwkv6._wkv_ref(r, k, v, lw, u, S0)
+    o1, s1 = kref.rwkv6_scan(r, k, v, lw, u, S0)
     o2, s2 = rwkv6._wkv_chunked(r, k, v, lw, u, S0)
     assert float((o1 - o2).abs().max()) < 1e-3
     assert float((s1 - s2).abs().max()) < 1e-3
@@ -240,7 +241,7 @@ def test_rglru_doubling_scan_matches_loop_and_reference():
     b = _randn(rng, B, S, W) * 0.1
     h0 = _randn(rng, B, W)
     at, bt, ht = (torch.tensor(np.asarray(z, np.float32)) for z in (a, b, h0))
-    hs1, hT1 = rglru._scan_ref(at, bt, ht)
+    hs1, hT1 = kref.rglru_scan(at, bt, ht)
     hs2, hT2 = rglru._scan_assoc(at, bt, ht)
     assert float((hs1 - hs2).abs().max()) < 1e-5
     assert float((hT1 - hT2).abs().max()) < 1e-5
