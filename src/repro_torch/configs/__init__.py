@@ -11,6 +11,7 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 _ARCH_MODULES: Dict[str, str] = {
+    "grok-1-314b": "repro_torch.configs.grok_1_314b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",

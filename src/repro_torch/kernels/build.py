@@ -22,8 +22,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "paged_decode_attention", "rglru_scan",
-           "rwkv6_scan")
+KERNELS = ("decode_attention", "flash_attention", "moe_gemm",
+           "paged_decode_attention", "rglru_scan", "rmsnorm", "rwkv6_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

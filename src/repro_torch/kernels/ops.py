@@ -25,6 +25,13 @@ _SIGNATURES = {
     # q, k_pages, v_pages, block_tables, pos, out, scratch, B, Kv, G, hd,
     # ps, nmax, NS, tps, scale, softcap, bf16, stream
     "paged_decode_attention": [_P] * 7 + [_I] * 8 + [_F] * 2 + [_I, _P],
+    # q, k, v, out, scratch, B, T, Kv, G, hd, pos, NS, tps, scale,
+    # softcap, bf16, stream
+    "decode_attention": [_P] * 5 + [_I] * 8 + [_F] * 2 + [_I, _P],
+    # x, w, out, E, C, D, F, x bf16, w bf16, out bf16, stream
+    "moe_gemm": [_P] * 3 + [_I] * 7 + [_P],
+    # x, scale, out, N, D, eps, bf16, stream
+    "rmsnorm": [_P] * 3 + [_I] * 2 + [_F, _I, _P],
     # a, b, h0, hs, hT, B, S, W, stream
     "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
     # r, k, v, lw, u, S0, o, S_T, B, S, H, K, V, bf16, stream
@@ -43,11 +50,12 @@ def _launcher(name: str):
     return fn
 
 
-def _check(name, device, tensors, float_names, int_names=(), fp32_names=()):
+def _check(name, device, tensors, float_names, int_names=(), fp32_names=(),
+           free_names=()):
     """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
     tensor on ``device``; ``float_names`` operands share one dtype of
-    fp32/bf16, ``fp32_names`` operands are fp32, and index operands are
-    int32."""
+    fp32/bf16, ``free_names`` operands are each fp32 or bf16 on their own,
+    ``fp32_names`` operands are fp32, and index operands are int32."""
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
     build.check_device(device)
@@ -57,6 +65,10 @@ def _check(name, device, tensors, float_names, int_names=(), fp32_names=()):
     for key, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {key} is on {t.device}, not {device}")
+        if key in free_names and t.dtype not in (torch.float32,
+                                                  torch.bfloat16):
+            raise TypeError(f"{name}: {key} must be float32 or bfloat16, "
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
         if t.data_ptr() % 16:
@@ -106,15 +118,16 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
     return out
 
 
-DECODE_TILE = 32   # cache slots per tile of the paged-decode kernel
+DECODE_TILE = 32   # cache slots per tile of the decode kernels
 
 
 @functools.lru_cache(maxsize=None)
 def _decode_splits(device, pairs: int, max_slots: int):
-    """(NS, tiles per split) for the paged-decode kernel: split each
-    (sequence, kv head) pair's slot range so that about four CTAs per SM
-    are in flight.  Sized from the table width, not from ``pos`` (which
-    lives on the device); splits past a sequence's ``pos`` do no work."""
+    """(NS, tiles per split) for the decode kernels: split each (sequence,
+    kv head) pair's slot range so that about four CTAs per SM are in
+    flight.  The paged kernel sizes it from the table width, not from
+    ``pos`` (which lives on the device): splits past a sequence's ``pos``
+    do no work."""
     n_tiles = -(-max_slots // DECODE_TILE)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     ns = min(n_tiles, max(1, -(-4 * sms // pairs)))
@@ -160,6 +173,90 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
             H // Kv, hd, ps, nmax, ns, tps, scale, softcap or 0.0,
             int(q.dtype == torch.bfloat16))
     paged_decode_attention.launches += 1
+    return out
+
+
+def decode_attention(q, k, v, pos, *, scale=None, softcap=None):
+    """q (B,H,hd); k, v (B,T,Kv,hd) a contiguous cache; pos an int, the
+    last valid slot of every sequence (slots <= pos are attended, and the
+    kernel reads no other).  Returns (B,H,hd).  ``pos`` is a host int: the
+    dense engine holds it on the host, and it sizes the launch."""
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, k, v, pos, scale=scale,
+                                    softcap=softcap)
+    B, H, hd = q.shape
+    _, T, Kv, hd_k = k.shape
+    _check("decode_attention", q.device, {"q": q, "k": k, "v": v},
+           ("q", "k", "v"))
+    if v.shape != k.shape or k.shape[0] != B or hd_k != hd or H % Kv:
+        raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if hd % 16 or hd > 256:
+        raise ValueError(f"decode_attention: head_dim {hd} must be a "
+                         "multiple of 16 and at most 256")
+    pos = int(pos)
+    if not 0 <= pos < T:
+        raise ValueError(f"decode_attention: pos {pos} outside the cache "
+                         f"of {T} slots")
+    scale = hd ** -0.5 if scale is None else scale
+    ns, tps = _decode_splits(q.device, B * Kv, pos + 1)
+    out = torch.empty_like(q)
+    scratch = torch.empty(B * Kv * ns * (H // Kv) * (hd + 2),
+                          dtype=torch.float32, device=q.device)
+    _launch("decode_attention", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, T, Kv,
+            H // Kv, hd, pos, ns, tps, scale, softcap or 0.0,
+            int(q.dtype == torch.bfloat16))
+    decode_attention.launches += 1
+    return out
+
+
+def moe_gemm(x, w, *, out_dtype=None):
+    """Grouped GEMM x (E,C,D) @ w (E,D,F) -> (E,C,F), fp32 accumulation.
+    x and w are each fp32 or bf16 (the tiny configs and the fp32 parity
+    runs pair fp32 with bf16); bf16 x bf16 runs on the tensor cores.  The
+    output is ``out_dtype``, fp32 or bf16, by default x's dtype (what the
+    TPU kernel writes).  Any C, D, F."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if x.device.type == "cpu":
+        return ref.moe_gemm(x, w, out_dtype)
+    E, C, D = x.shape
+    F = w.shape[-1]
+    _check("moe_gemm", x.device, {"x": x, "w": w}, (),
+           free_names=("x", "w"))
+    if tuple(w.shape) != (E, D, F):
+        raise ValueError(f"moe_gemm: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} do not chain")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"moe_gemm: out_dtype float32 or bfloat16 only, "
+                        f"got {out_dtype}")
+    out = torch.empty((E, C, F), dtype=out_dtype, device=x.device)
+    bf16 = torch.bfloat16
+    _launch("moe_gemm", x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            E, C, D, F, int(x.dtype == bf16), int(w.dtype == bf16),
+            int(out_dtype == bf16))
+    moe_gemm.launches += 1
+    return out
+
+
+def rmsnorm(x, scale, *, eps=1e-6):
+    """Row RMSNorm of x (..., D), fp32 or bf16, by scale (D,) fp32: fp32
+    mean of squares, rsqrt, fp32 scale, cast to x's dtype.  D a multiple
+    of 8 (bf16) or 4 (fp32)."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm(x, scale, eps)
+    D = x.shape[-1]
+    _check("rmsnorm", x.device, {"x": x, "scale": scale}, ("x",),
+           fp32_names=("scale",))
+    if tuple(scale.shape) != (D,) or D % (16 // x.element_size()):
+        raise ValueError(f"rmsnorm: x {tuple(x.shape)} with scale "
+                         f"{tuple(scale.shape)}; D must be a multiple of "
+                         f"{16 // x.element_size()}")
+    out = torch.empty_like(x)
+    _launch("rmsnorm", x.device, x.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), x.numel() // D, D, eps,
+            int(x.dtype == torch.bfloat16))
+    rmsnorm.launches += 1
     return out
 
 
@@ -214,13 +311,13 @@ def rglru_scan(a, b, h0):
     return hs, hT
 
 
-flash_attention.launches = 0
-paged_decode_attention.launches = 0
-rwkv6_scan.launches = 0
-rglru_scan.launches = 0
-KERNELS = (flash_attention, paged_decode_attention, rwkv6_scan, rglru_scan)
+KERNELS = (flash_attention, paged_decode_attention, rwkv6_scan, rglru_scan,
+           moe_gemm, decode_attention, rmsnorm)
 
 
 def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = 0
+
+
+reset_launches()

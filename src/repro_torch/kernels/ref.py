@@ -33,6 +33,23 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
     return o.to(q.dtype)
 
 
+def decode_attention(q, k, v, pos, *, scale=None, softcap=None):
+    """q (B,H,hd); k,v (B,T,Kv,hd); pos scalar. Valid slots are <= pos."""
+    B, H, hd = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    scale = hd ** -0.5 if scale is None else scale
+    qg = q.reshape(B, Kv, G, hd).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    ok = torch.arange(k.shape[1], device=q.device) <= pos
+    s = torch.where(ok[None, None, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", w, v.float())
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
                            scale=None, softcap=None):
     """Paged-KV oracle: gather pages, then dense masked decode attention.
@@ -84,3 +101,16 @@ def rwkv6_scan(r, k, v, lw, u, S0):
                                S + u[None, :, :, None] * kv))
         S = torch.exp(lwt)[..., None] * S + kv
     return torch.stack(os, dim=1), S
+
+
+def moe_gemm(x, w, out_dtype=None):
+    """Grouped GEMM: x (E,C,D) @ w (E,D,F) -> (E,C,F), fp32 accumulate,
+    written in ``out_dtype`` (default x's dtype, as the TPU kernel)."""
+    out = torch.einsum("ecd,edf->ecf", x.float(), w.float())
+    return out.to(x.dtype if out_dtype is None else out_dtype)
+
+
+def rmsnorm(x, scale, eps=1e-6):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

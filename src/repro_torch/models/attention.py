@@ -6,7 +6,9 @@ prefill implementations (``cfg.impl``):
   ref     — naive (S,S) scores; the oracle.
   blocked — q-block x kv-block online softmax; bounded memory.
   pallas  — the flash-attention kernel through ``kernels/ops.py``
-            (the hand-written CUDA kernel on a CUDA tensor).
+            (the hand-written CUDA kernel on a CUDA tensor); in decode,
+            the paged-decode kernel, and the decode-attention kernel on
+            a global layer's dense cache.
 
 Caches are stored FLAT (B, T, Kv*hd) and paged pools (P, ps, Kv*hd), as in
 the reference; T is the max length for global layers and min(window,
@@ -62,8 +64,8 @@ def _qkv(p, cfg, x, angles):
     k = _split_heads(nn.matmul(x, p["wk"]), cfg.n_kv_heads, cfg.head_dim)
     v = _split_heads(nn.matmul(x, p["wv"]), cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = nn.rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = nn.rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = nn.rmsnorm(q, p["q_norm"], cfg.norm_eps, cfg.impl)
+        k = nn.rmsnorm(k, p["k_norm"], cfg.norm_eps, cfg.impl)
     if cfg.rope and angles is not None:
         q = nn.apply_rope(q, angles)
         k = nn.apply_rope(k, angles)
@@ -357,10 +359,24 @@ def apply(p, cfg, x, *, kind: str, angles):
 
 
 def apply_decode(p, cfg, x, cache: AttnCache, pos, *, kind: str, angles):
-    """Dense decode path: x (B,1,D). Returns (out, cache)."""
+    """Dense decode path: x (B,1,D), pos an int. Returns (out, cache).
+
+    A global layer under ``impl == "pallas"`` runs the decode-attention
+    kernel on the cache viewed as (B,T,Kv,hd); a local layer's ring cache
+    falls outside the kernel's ``slot <= pos`` mask and stays plain."""
     window = cfg.sliding_window if kind == "local" else None
     q, k_new, v_new = _qkv(p, cfg, x, angles)
     cache = cache_update_decode(cache, k_new, v_new, pos, window)
-    o = attend_decode(q, cache, pos, window=window, scale=_scale(cfg),
-                      softcap=cfg.attn_softcap, n_kv=cfg.n_kv_heads)
+    kw = dict(scale=_scale(cfg), softcap=cfg.attn_softcap)
+    if window is None and cfg.impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        B, T = cache.k.shape[:2]
+        H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        o = kops.decode_attention(q.reshape(B, H, hd),
+                                  cache.k.view(B, T, Kv, hd),
+                                  cache.v.view(B, T, Kv, hd), pos, **kw)
+        o = o.reshape(B, 1, H * hd)
+    else:
+        o = attend_decode(q, cache, pos, window=window, n_kv=cfg.n_kv_heads,
+                          **kw)
     return nn.matmul(o, p["wo"]), cache

@@ -2,14 +2,15 @@
 
 Reference: ``repro/models/blocks.py``.  The port has the global and local
 (sliding-window) attention blocks and the RG-LRU block, each with a dense
-FFN, and the RWKV-6 layer, which is complete in itself (its channel-mix
-takes the place of the FFN and its second norm sits inside the branch).
-MLA and MoE blocks raise until their slices land.
+FFN or an MoE FFN (routed experts only), and the RWKV-6 layer, which is
+complete in itself (its channel-mix takes the place of the FFN and its
+second norm sits inside the branch).  MLA blocks and shared experts raise
+until their slice lands.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ATTN, LOCAL, RGLRU, RWKV6
-from repro_torch.models import attention, modules as nn
+from repro_torch.models import attention, modules as nn, moe as moe_mod
 from repro_torch.models import rglru as rglru_mod, rwkv6 as rwkv6_mod
 
 
@@ -21,14 +22,17 @@ def _unported(what) -> NotImplementedError:
 
 def _post(p, cfg, name, y):
     if cfg.post_norm:
-        y = nn.rmsnorm(y, p[name]["scale"], cfg.norm_eps)
+        y = nn.rmsnorm(y, p[name]["scale"], cfg.norm_eps, cfg.impl)
     return y
 
 
 def _ffn_part(p, cfg, x):
-    """Dense FFN (the MoE branch comes with the MoE slice)."""
-    if "ffn" not in p:
-        raise _unported("the MoE FFN")
+    """Dense FFN or MoE.  The MoE load-balance loss is dropped: the serving
+    paths drop it in the reference too."""
+    if "moe" in p:
+        if cfg.moe.n_shared:
+            raise _unported("shared experts (the DeepSeek slice)")
+        return moe_mod.apply(p["moe"], cfg, x)[0]
     return nn.ffn_apply(p["ffn"], cfg, x)
 
 
@@ -37,7 +41,7 @@ def _rwkv(p, cfg, x, h, cache):
     residual, second norm, channel-mix, residual.  Returns (x, cache)."""
     out, c1 = rwkv6_mod.time_mix(p["rwkv"], cfg, h, cache)
     x = x + out
-    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
+    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps, cfg.impl)
     out2, c2 = rwkv6_mod.channel_mix(p["rwkv"], cfg, h2, c1)
     return x + out2, c2
 
@@ -46,7 +50,7 @@ def apply(p, cfg, kind: str, x, *, angles):
     """Full-sequence (prefill) path.  Returns (x, the layer's raw cache
     contribution: (k, v) before max-len padding, or the recurrent
     cache)."""
-    h = nn.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
+    h = nn.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps, cfg.impl)
     if kind in (ATTN, LOCAL):
         out, cache = attention.apply(p["attn"], cfg, h, kind=kind,
                                      angles=angles)
@@ -58,7 +62,7 @@ def apply(p, cfg, kind: str, x, *, angles):
     else:
         raise _unported(f"layer kind {kind!r}")
     x = x + _post(p, cfg, "ln1_post", out)
-    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
+    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps, cfg.impl)
     x = x + _post(p, cfg, "ln2_post", _ffn_part(p, cfg, h2))
     return x, cache
 
@@ -67,7 +71,7 @@ def apply_decode(p, cfg, kind: str, x, cache, pos, *, angles):
     """Single-token decode path. Returns (x, the layer's new cache): the
     attention caches are written in place and returned, the recurrent
     states are new tensors."""
-    h = nn.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
+    h = nn.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps, cfg.impl)
     if kind in (ATTN, LOCAL):
         out, cache = attention.apply_decode(p["attn"], cfg, h, cache, pos,
                                             kind=kind, angles=angles)
@@ -78,7 +82,7 @@ def apply_decode(p, cfg, kind: str, x, cache, pos, *, angles):
     else:
         raise _unported(f"layer kind {kind!r}")
     x = x + _post(p, cfg, "ln1_post", out)
-    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
+    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps, cfg.impl)
     x = x + _post(p, cfg, "ln2_post", _ffn_part(p, cfg, h2))
     return x, cache
 
@@ -89,12 +93,12 @@ def apply_decode_paged(p, cfg, kind: str, x, pool, block_tables, pos, *,
     if kind != ATTN:
         raise NotImplementedError(
             f"paged decode supports global-attention layers only, got {kind!r}")
-    h = nn.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
+    h = nn.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps, cfg.impl)
     out, pool = attention.apply_decode_paged(p["attn"], cfg, h, pool,
                                              block_tables, pos,
                                              angles=angles)
     x = x + _post(p, cfg, "ln1_post", out)
-    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
+    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps, cfg.impl)
     x = x + _post(p, cfg, "ln2_post", _ffn_part(p, cfg, h2))
     return x, pool
 

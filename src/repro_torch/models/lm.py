@@ -153,7 +153,7 @@ def prefill(params, cfg, tokens, *, max_len: int):
     h, raw = forward(params, cfg, tokens)
     caches = caches_from_prefill(cfg, raw, max_len)
     h_last = nn.rmsnorm(h[:, -1:], params["final_norm"]["scale"],
-                        cfg.norm_eps)
+                        cfg.norm_eps, cfg.impl)
     return head_logits(params, cfg, h_last), caches
 
 
@@ -175,7 +175,7 @@ def decode_step(params, cfg, tokens, caches, pos):
     for kind, p, cache, key in _layers(cfg, params, caches):
         x, new[key] = blocks.apply_decode(p, cfg, kind, x, cache, int(pos),
                                           angles=angles)
-    h = nn.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    h = nn.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps, cfg.impl)
     return head_logits(params, cfg, h), _nest(cfg, lambda kind, key: new[key])
 
 
@@ -222,7 +222,7 @@ def decode_step_paged(params, cfg, tokens, pools, block_tables, pos):
     for kind, p, pool, _ in _layers(cfg, params, pools):
         x, _ = blocks.apply_decode_paged(p, cfg, kind, x, pool, block_tables,
                                          pos, angles=angles)
-    h = nn.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    h = nn.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps, cfg.impl)
     return head_logits(params, cfg, h), pools
 
 

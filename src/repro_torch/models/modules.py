@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ref as kref
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8}
 
@@ -25,11 +27,14 @@ def matmul(x, w):
     return (x.float() @ w.float()).to(x.dtype)
 
 
-def rmsnorm(x, scale, eps: float = 1e-6):
-    xf = x.float()
-    var = xf.square().mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(x.dtype)
+def rmsnorm(x, scale, eps: float = 1e-6, impl: Optional[str] = None):
+    """fp32 mean of squares, rsqrt, fp32 scale, cast to x's dtype (the
+    kernel's plain version); ``impl == "pallas"`` runs the rmsnorm
+    kernel."""
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        return kops.rmsnorm(x.contiguous(), scale, eps=eps)
+    return kref.rmsnorm(x, scale, eps)
 
 
 def softcap(x, cap: Optional[float]):

@@ -35,7 +35,7 @@ def make_paged_prefill_step(cfg: ModelConfig):
         h, raw = lm.forward(params, cfg, tokens)
         pools = lm.paged_from_prefill(cfg, pools, raw, block_row)
         h_last = nn.rmsnorm(h[:, -1:], params["final_norm"]["scale"],
-                            cfg.norm_eps)
+                            cfg.norm_eps, cfg.impl)
         return lm.head_logits(params, cfg, h_last), pools
     return prefill_paged
 

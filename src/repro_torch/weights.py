@@ -4,7 +4,8 @@ reference's parameter tree.
 Layout (see ``models/lm.py``): ``params["segments"][seg][cycle][j]`` holds
 the block parameters of layer kind ``seg.kinds[j]`` as the reference's
 per-block dict (``ln1``, the mixer's ``attn`` / ``rglru`` / ``rwkv``,
-``ln2``, and ``ffn`` except in RWKV-6 layers), unstacked per cycle.
+``ln2``, and ``ffn`` or ``moe`` except in RWKV-6 layers), unstacked per
+cycle.
 """
 from __future__ import annotations
 
@@ -71,20 +72,23 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
                 device=None):
     """Random parameters drawn from the reference's distributions
     (``repro/models/modules.py`` dense/embed init, ``attention.init``,
-    ``rglru.init``, ``rwkv6.init``, ``lm.init_params``).  The bits differ
-    from the reference's: torch and JAX generators differ."""
+    ``moe.init``, ``rglru.init``, ``rwkv6.init``, ``lm.init_params``).
+    The bits differ from the reference's: torch and JAX generators
+    differ."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     dtype = nn.dt(cfg.param_dtype)
 
     def normal(shape, std=1.0, to=dtype):
+        # scaled in place: at grok's widths one expert tensor is 6.4 GB
+        # in fp32 before the cast
         x = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (x * std).to(to)
+        return x.mul_(std).to(to)
 
-    def dense(d_in, d_out, scale=1.0):
-        return normal((d_in, d_out), scale * d_in ** -0.5)
+    def dense(d_in, d_out, scale=1.0, to=dtype):
+        return normal((d_in, d_out), scale * d_in ** -0.5, to)
 
     def full(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=device)
@@ -152,11 +156,24 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
             "rwkv_cm_wr": dense(d, d),
         }
 
-    def block(kind, is_moe):
-        if is_moe or kind not in (ATTN, LOCAL, RGLRU, RWKV6):
+    def moe_block():
+        m = cfg.moe
+        if m.n_shared:
             raise NotImplementedError(
-                f"init of {kind!r}{' MoE' if is_moe else ''} blocks is not "
-                "ported yet; see ROADMAP.md")
+                "init of shared experts (the DeepSeek slice) is not ported "
+                "yet; see ROADMAP.md")
+        E, fe = m.n_experts, m.d_ff_expert
+        p = {"router_w": dense(d, E, to=torch.float32),
+             "e_up": normal((E, d, fe), d ** -0.5),
+             "e_down": normal((E, fe, d), layer_scale * fe ** -0.5)}
+        if cfg.gated_ffn:
+            p["e_gate"] = normal((E, d, fe), d ** -0.5)
+        return p
+
+    def block(kind, is_moe):
+        if kind not in (ATTN, LOCAL, RGLRU, RWKV6):
+            raise NotImplementedError(
+                f"init of {kind!r} blocks is not ported yet; see ROADMAP.md")
         p = {"ln1": ones(d)}
         if kind == RWKV6:
             p["rwkv"] = rwkv_block()
@@ -165,7 +182,9 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
         else:
             p["attn"] = attn()
         p["ln2"] = ones(d)
-        if kind != RWKV6:
+        if is_moe and kind != RWKV6:
+            p["moe"] = moe_block()
+        elif kind != RWKV6:
             p["ffn"] = {"w_up": dense(d, cfg.d_ff),
                         "w_down": dense(cfg.d_ff, d, layer_scale)}
             if cfg.gated_ffn:

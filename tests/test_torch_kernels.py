@@ -195,6 +195,109 @@ def test_rwkv6_scan_plain_takes_bf16_rkv_with_fp32_state():
     assert _err(o_r, o) < 2e-3 and _err(s_r, s) < 2e-3
 
 
+# --- contiguous decode attention (tests/test_kernels.py:43-56) --------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,Kv,G,pos", [(128, 2, 4, 17), (256, 1, 8, 255),
+                                        (192, 4, 1, 100), (96, 2, 6, 0)])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_decode_attention_plain_matches_reference(T, Kv, G, pos, dtype,
+                                                  softcap):
+    rng = np.random.default_rng(13)
+    B, hd = 2, 64
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _both(_randn(rng, shape), dtype)
+        for shape in ((B, Kv * G, hd), (B, T, Kv, hd), (B, T, Kv, hd)))
+    o = ops.decode_attention(qt, kt, vt, pos, softcap=softcap)
+    assert o.dtype == qt.dtype and o.shape == qt.shape
+    err = _err(jref.decode_attention(qj, kj, vj, pos, softcap=softcap), o)
+    assert err < TOL[dtype], err
+    o_kernel = jops.decode_attention(qj, kj, vj, jnp.int32(pos), block_t=64,
+                                     softcap=softcap)
+    assert _err(o_kernel, o) < TOL[dtype]
+
+
+# --- grouped GEMM (tests/test_kernels.py:89-99) ------------------------------
+def _moe_rel(j, t):
+    ref_ = np.asarray(j, np.float32)
+    return float(np.abs(ref_ - t.float().numpy()).max() / np.abs(ref_).max())
+
+
+MOE_REL_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,D,F", [(2, 64, 128, 256), (4, 32, 256, 128),
+                                     (3, 9, 40, 24)])
+def test_moe_gemm_plain_matches_reference(E, C, D, F, dtype):
+    rng = np.random.default_rng(14)
+    xj, xt = _both(_randn(rng, (E, C, D)), dtype)
+    wj, wt = _both(_randn(rng, (E, D, F)), dtype)
+    o = ops.moe_gemm(xt, wt)
+    assert o.dtype == xt.dtype and o.shape == (E, C, F)
+    assert _moe_rel(jref.moe_gemm(xj, wj), o) < MOE_REL_TOL[dtype]
+    o_kernel = jops.moe_gemm(xj, wj, block_c=32, block_f=128, block_d=64)
+    assert _moe_rel(o_kernel, o) < MOE_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("xt,wt", [("bfloat16", "float32"),
+                                   ("float32", "bfloat16"),
+                                   ("bfloat16", "bfloat16")])
+def test_moe_gemm_plain_takes_mixed_operands_and_an_fp32_output(xt, wt):
+    """The MoE path's calls: x and w each fp32 or bf16, widened to fp32
+    as the TPU kernel widens them, the fp32 sum kept with
+    ``out_dtype=float32`` (the reference's einsum with
+    ``preferred_element_type=float32``)."""
+    rng = np.random.default_rng(15)
+    (xj, x), (wj, w) = (_both(_randn(rng, (2, 24, 48)), xt),
+                        _both(_randn(rng, (2, 48, 40)), wt))
+    o = ops.moe_gemm(x, w, out_dtype=torch.float32)
+    assert o.dtype == torch.float32
+    want = jnp.einsum("ecd,edf->ecf", xj, wj,
+                      preferred_element_type=jnp.float32)
+    assert _moe_rel(want, o) < 1e-6
+    assert ops.moe_gemm(x, w).dtype == x.dtype
+
+
+# --- RMSNorm (tests/test_kernels.py:102-111) ---------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,D", [(64, 128), (96, 256), (5, 2048)])
+def test_rmsnorm_plain_matches_reference(N, D, dtype):
+    rng = np.random.default_rng(16)
+    xj, xt = _both(_randn(rng, (N, D)), dtype)
+    s = _randn(rng, (D,))
+    o = ops.rmsnorm(xt, torch.tensor(s))
+    assert o.dtype == xt.dtype and o.shape == xt.shape
+    assert _err(jref.rmsnorm(xj, jnp.asarray(s)), o) < TOL[dtype]
+    o_kernel = jops.rmsnorm(xj, jnp.asarray(s), block_rows=32)
+    assert _err(o_kernel, o) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_modules_rmsnorm_routes_through_the_kernel_wrapper(dtype):
+    """``impl="pallas"`` sends a norm to ``ops.rmsnorm`` (and counts a
+    launch only on a CUDA tensor); the plain path matches the reference's
+    ``modules.rmsnorm``, on a (B,S,H,hd) q-norm input and on a strided
+    last-token slice."""
+    from repro.models import modules as jnn
+    from repro_torch.models import modules as nn
+    rng = np.random.default_rng(17)
+    xn = _randn(rng, (2, 5, 3, 16))
+    s = _randn(rng, (16,))
+    x, st = torch.tensor(xn).to(TDT[dtype]), torch.tensor(s)
+    xj = jnp.asarray(xn).astype(JDT[dtype])
+    seen = []
+    wrapped = ops.rmsnorm
+    ops.rmsnorm = lambda *a, **k: seen.append(a[0].shape) or wrapped(*a, **k)
+    try:
+        for xi, xji in ((x, xj), (x[:, -1:, 0], xj[:, -1:, 0])):
+            o = nn.rmsnorm(xi, st, 1e-6, "pallas")
+            assert torch.equal(o, nn.rmsnorm(xi, st, 1e-6))
+            assert _err(jnn.rmsnorm(xji, jnp.asarray(s)), o) < TOL[dtype]
+    finally:
+        ops.rmsnorm = wrapped
+    assert seen == [x.shape, (2, 1, 16)]
+
+
 # --- dispatch on the tensor's device ----------------------------------------
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.reset_launches()
@@ -214,6 +317,14 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     rw = [torch.tensor(x) for x in _rwkv_inputs(rng, 2, 5, 2, 8)]
     assert all(torch.equal(x, y) for x, y in zip(ops.rwkv6_scan(*rw),
                                                  ref.rwkv6_scan(*rw)))
+    kc, vc = (torch.tensor(_randn(rng, (2, 9, 2, 16))) for _ in range(2))
+    assert torch.equal(ops.decode_attention(qt, kc, vc, 4),
+                       ref.decode_attention(qt, kc, vc, 4))
+    x, w = torch.tensor(_randn(rng, (2, 3, 8))), torch.tensor(
+        _randn(rng, (2, 8, 5)))
+    assert torch.equal(ops.moe_gemm(x, w), ref.moe_gemm(x, w))
+    s = torch.tensor(_randn(rng, (8,)))
+    assert torch.equal(ops.rmsnorm(x, s), ref.rmsnorm(x, s))
     assert [fn.launches for fn in ops.KERNELS] == [0] * len(ops.KERNELS)
 
 
@@ -235,4 +346,11 @@ def test_non_cpu_tensor_without_a_kernel_raises():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.rwkv6_scan(r, r, r, r, r[0, 0], r[:, 0, :, :, None].expand(
             2, 2, 8, 8))
+    kc = torch.empty((2, 9, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.decode_attention(qd, kc, kc, 3)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.moe_gemm(a, a.transpose(1, 2))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.rmsnorm(a, a[0, 0])
     assert [fn.launches for fn in ops.KERNELS] == [0] * len(ops.KERNELS)
