@@ -32,6 +32,19 @@ PEAK_BW = 3.35e12                                   # H100 SXM HBM3, B/s
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s
 SEED = 0
 DEVICE = "cuda"
+# times of the earlier designs of the redesigned attention kernels (the
+# fp32-core and mma.sync flash, the scalar decode body with a separate
+# merge launch), as PERF.md section 6 records them from this script on an
+# NVIDIA H100 80GB HBM3 at 700 W; printed beside this run's times
+EARLIER_MS = {
+    "flash (1, 512, 16, 128)": 0.0441,
+    "flash (1, 512, 48, 128) softcap 30": 0.0963,
+    "flash (8, 512, 48, 128) softcap 30": 0.4896,
+    "flash (4, 2100, 10, 256) window 2048": 7.079,
+    "decode_attention B=8 H=48 pos 575 softcap 30": 0.0781,
+    "paged B=8 H=16 pos 575": 0.0345,
+    "paged B=8 H=48 pos 575 softcap 30": 0.0786,
+}
 
 
 def fail(msg):
@@ -163,9 +176,10 @@ def check_paged(ops, ref):
     if not max_err(ops.paged_decode_attention(q, kp, vp, bt0, p0),
                    ref.paged_decode_attention(q, kp, vp, bt0, p0)) <= 1e-4:
         fail("paged decode on all-null rows")
-    # GQA group sizes and head dims
-    for G in (1, 2, 4, 8):
-        for hd_ in (16, 64, 128):
+    # GQA group sizes and head dims: G up to 16 fills the bf16 kernel's 16
+    # tensor-core rows, hd 256 its widest tiles
+    for G in (1, 2, 4, 6, 8, 12, 16):
+        for hd_ in (16, 64, 128, 256):
             for dtype in (torch.float32, torch.bfloat16):
                 q, kp, vp, bt, p = paged_inputs(3, 2 * G, 2, hd_, 16, 5,
                                                 [79, 0, 33], dtype, gen)
@@ -182,9 +196,9 @@ def check_paged(ops, ref):
             ref.paged_decode_attention(q, kp, vp, bt, p, softcap=30.0))
         if not err <= TOL[dtype]:
             fail(f"paged decode H=48 softcap 30 {dtype}: err {err}")
-    lines.append("null-page poisoning exact; G in {1,2,4,8} x hd in "
-                 "{16,64,128} x {fp32,bf16} and grok's H=48 Kv=8 with "
-                 "softcap 30 x {fp32,bf16} within tolerance")
+    lines.append("null-page poisoning exact; G in {1,2,4,6,8,12,16} x hd "
+                 "in {16,64,128,256} x {fp32,bf16} and grok's H=48 Kv=8 "
+                 "with softcap 30 x {fp32,bf16} within tolerance")
     # time at the main path's shapes and type (bf16, every pos 575)
     q, kp, vp, bt, p = paged_inputs(B, H, Kv, hd, ps, nmax, [575] * B,
                                     torch.bfloat16, gen)
@@ -207,20 +221,25 @@ def check_paged(ops, ref):
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=None,
                shapes=[dict(shape="B=8 H=16 Kv=8 hd=128 pos 575", ms=ms,
-                            plain_ms=plain_ms, bound_ms=b_ms),
+                            plain_ms=plain_ms, bound_ms=b_ms,
+                            earlier_ms=EARLIER_MS["paged B=8 H=16 pos 575"]),
                        dict(shape="B=8 H=48 Kv=8 hd=128 pos 575 softcap 30",
                             ms=g_ms, plain_ms=g_plain,
-                            bound_ms=g_bound[0])])
+                            bound_ms=g_bound[0], earlier_ms=EARLIER_MS[
+                                "paged B=8 H=48 pos 575 softcap 30"])])
     lines.append(f"paged_decode_attention at grok's B=8 H=48 pos 575 "
-                 f"softcap 30 bf16: kernel {g_ms:.4f} ms, plain "
-                 f"{g_plain:.4f} ms, bound {g_bound[0]:.4f} ms "
-                 f"({g_bound[1]})")
+                 f"softcap 30 bf16: kernel {g_ms:.4f} ms (earlier design "
+                 f"{EARLIER_MS['paged B=8 H=48 pos 575 softcap 30']} ms), "
+                 f"plain {g_plain:.4f} ms, bound {g_bound[0]:.4f} ms "
+                 f"({g_bound[1]}), no library call")
     errs = ", ".join(f"{n} {str(d)[6:]} {e:.3g}" for (n, d), e in worst.items())
     lines.insert(0, f"paged_decode_attention B={B} H={H} Kv={Kv} hd={hd} "
                     f"ps={ps} pos<=575: max abs err [{errs}] (tol fp32 "
                     f"{TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}); "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                    f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+                    f"kernel {ms:.4f} ms (earlier design "
+                    f"{EARLIER_MS['paged B=8 H=16 pos 575']} ms), plain "
+                    f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                    f"{nbytes / 1e6:.2f} MB), no library call")
     return rec, lines
 
 
@@ -242,7 +261,7 @@ def check_flash(ops, ref):
         if not err <= TOL[dtype]:
             fail(f"flash {dtype}: max abs err {err}")
     # masks and ragged lengths (S not a multiple of the 64-row tiles), on
-    # both the tensor-core (bf16, hd <= 128) and the fp32-core paths
+    # both the wgmma (bf16) and the fp32-core paths
     for S in (77, 200):
         for kw in (dict(causal=True), dict(causal=False),
                    dict(causal=True, window=48),
@@ -255,6 +274,36 @@ def check_flash(ops, ref):
                     if not err <= TOL[dtype]:
                         fail(f"flash S={S} hd={hd} {dtype} {kw}: max abs "
                              f"err {err}")
+    # the wgmma kernel's edges (bf16): S around its 64-key and 128-row
+    # tiles and past a window, every padding of hd to its 64-column boxes,
+    # a window of 40 that starts in the middle of a tile, softcap 30
+    for S in (63, 64, 65, 129):
+        for kw in (dict(causal=True), dict(causal=False),
+                   dict(causal=True, window=40),
+                   dict(causal=True, softcap=30.0)):
+            for hd in (16, 64, 128, 192, 256):
+                q, k, v = qkv((2, S, 3, hd), torch.bfloat16)
+                err = max_err(ops.flash_attention(q, k, v, **kw),
+                              ref.flash_attention(q, k, v, **kw))
+                if not err <= TOL[torch.bfloat16]:
+                    fail(f"flash S={S} hd={hd} bf16 {kw}: max abs err {err}")
+    # grids large enough for 128-row CTAs (the cases above run 64-row CTAs
+    # whose two consumer warpgroups split the kv tiles)
+    for hd in (16, 64, 128, 192, 256):
+        for kw in (dict(causal=True), dict(causal=True, window=40),
+                   dict(causal=False, softcap=30.0)):
+            q, k, v = qkv((2, 300, 40, hd), torch.bfloat16)
+            err = max_err(ops.flash_attention(q, k, v, **kw),
+                          ref.flash_attention(q, k, v, **kw))
+            if not err <= TOL[torch.bfloat16]:
+                fail(f"flash (2, 300, 40, {hd}) bf16 {kw}: max abs err {err}")
+    for hd in (16, 64, 128, 192, 256):
+        for kw in (dict(causal=True), dict(causal=True, window=1000)):
+            q, k, v = qkv((1, 2100, 2, hd), torch.bfloat16)
+            err = max_err(ops.flash_attention(q, k, v, **kw),
+                          ref.flash_attention(q, k, v, **kw))
+            if not err <= TOL[torch.bfloat16]:
+                fail(f"flash S=2100 hd={hd} bf16 {kw}: max abs err {err}")
     # grok's prefill: H=48, hd 128, attention softcap 30
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = qkv((1, 512, 48, 128), dtype)
@@ -271,7 +320,8 @@ def check_flash(ops, ref):
     nbytes, flops = flash_bytes_flops(q, causal=True)
     b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
     shapes = [dict(shape=list(shape), softcap=None, ms=ms,
-                   plain_ms=plain_ms, bound_ms=b_ms, library_ms=lib_ms)]
+                   plain_ms=plain_ms, bound_ms=b_ms, library_ms=lib_ms,
+                   earlier_ms=EARLIER_MS["flash (1, 512, 16, 128)"])]
     # grok's prefills: one paged prompt and the dense batch of 8, with
     # softcap 30 (no SDPA backend takes a softcap)
     for gshape in ((1, 512, 48, 128), (8, 512, 48, 128)):
@@ -282,7 +332,8 @@ def check_flash(ops, ref):
             ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
             plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, **kw)),
             bound_ms=bound(*flash_bytes_flops(q, causal=True),
-                           torch.bfloat16)[0], library_ms=None))
+                           torch.bfloat16)[0], library_ms=None,
+            earlier_ms=EARLIER_MS[f"flash {gshape} softcap 30"]))
     rec = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention.py:93",
@@ -292,22 +343,26 @@ def check_flash(ops, ref):
     line = (f"flash_attention B=1 S=512 H=16 hd=128 causal: max abs err "
             f"bf16 {worst[torch.bfloat16]:.3g}, fp32 "
             f"{worst[torch.float32]:.3g}; S in {{77,200}} x causal/bidir/"
-            f"window/softcap x hd in {{16,64,128,256}} x {{fp32,bf16}} and "
-            f"grok's H=48 with softcap 30 x {{fp32,bf16}} within tolerance; "
-            f"kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"window/softcap x hd in {{16,64,128,256}} x {{fp32,bf16}}, bf16 "
+            f"S in {{63,64,65,129}} x causal/bidir/window 40/softcap x hd in "
+            f"{{16,64,128,192,256}}, bf16 S=2100 causal and window 1000 and "
+            f"(2, 300, 40, hd) causal/window 40/bidir softcap x the same hd, "
+            f"and grok's H=48 with softcap 30 x {{fp32,bf16}} "
+            f"within tolerance; kernel {ms:.4f} ms (earlier design "
+            f"{shapes[0]['earlier_ms']} ms), plain {plain_ms:.4f} ms, SDPA "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     lines = [line] + [
         f"flash_attention at grok's {tuple(r['shape'])} causal softcap 30 "
-        f"bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-        f"{r['bound_ms']:.4f} ms" for r in shapes[1:]]
+        f"bf16: kernel {r['ms']:.4f} ms (earlier design {r['earlier_ms']} "
+        f"ms), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
+        f"no library call (SDPA takes no softcap)" for r in shapes[1:]]
     return rec, lines
 
 
 def check_flash_local(ops, ref):
-    """The flash kernel at recurrentgemma's local layers (hd 256, so the
-    fp32-core path even in bf16; window 2048 over a 2100-token prompt):
-    checked against the plain version on the whole batch and timed.
+    """The flash kernel at recurrentgemma's local layers (hd 256, window
+    2048 over a 2100-token prompt): checked against the plain version on
+    the whole batch and timed.
 
     Outputs here average over ~2000 keys and are ~0.03, so the O(1)
     tolerance would hide a wrong window.  In fp32 the check is 1e-4 abs,
@@ -347,7 +402,8 @@ def check_flash_local(ops, ref):
     return dict(shape=list(shape), window=2048,
                 max_abs_err=errs[torch.bfloat16],
                 max_abs_err_fp32=errs[torch.float32], ms=ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, library_note=lib_note)
+                bound_by=b_by, library_ms=lib_ms, library_note=lib_note,
+                earlier_ms=EARLIER_MS["flash (4, 2100, 10, 256) window 2048"])
 
 
 def rwkv6_inputs(B, S, H, K, dtype, gen):
@@ -598,8 +654,8 @@ def check_decode(ops, ref):
     worst = {}
     cases = [((B, H, Kv, hd, T), pos, cap) for pos in (0, 300, 575)
              for cap in (30.0, None)]
-    cases += [((3, 2 * G, 2, d, 77), 60, None) for G in (1, 4, 8)
-              for d in (16, 64)]
+    cases += [((3, 2 * G, 2, d, 77), 60, None) for G in (1, 4, 6, 8, 12, 16)
+              for d in (16, 64, 256)]
     for shape, pos, cap in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = inputs(dtype, shape)
@@ -624,21 +680,45 @@ def check_decode(ops, ref):
     e = q.element_size()
     nbytes = 2 * q.numel() * e + 2 * B * (pos + 1) * Kv * hd * e
     b_ms, b_by = bound(nbytes, 4 * B * H * (pos + 1) * hd, torch.bfloat16)
+    # longer caches, beside SDPA: grok's batch at pos 4095, and one
+    # sequence of qwen3's heads at pos 32767 (8 kv heads, so 8 clusters)
+    shapes = []
+    for b_, h_, t_, cap_ in ((8, 48, 4096, 30.0), (1, 16, 32768, None)):
+        q2, k2, v2 = inputs(torch.bfloat16, (b_, h_, Kv, hd, t_))
+        p_ = t_ - 1
+        qt2 = q2[:, :, None]
+        kt2, vt2 = (t[:, :p_ + 1].transpose(1, 2) for t in (k2, v2))
+        nb = 2 * q2.numel() * e + 2 * b_ * (p_ + 1) * Kv * hd * e
+        shapes.append(dict(
+            shape=f"B={b_} H={h_} Kv={Kv} hd={hd} pos {p_}"
+                  + (" softcap 30" if cap_ else ""),
+            ms=time_ms(lambda: ops.decode_attention(q2, k2, v2, p_,
+                                                    softcap=cap_)),
+            library_ms=time_ms(lambda: sdpa(qt2, kt2, vt2,
+                                            enable_gqa=True)),
+            bound_ms=bound(nb, 4 * b_ * h_ * (p_ + 1) * hd,
+                           torch.bfloat16)[0]))
+        del q2, k2, v2, kt2, vt2
     rec = dict(name="decode_attention", route="cuda",
                source="src/repro_torch/csrc/decode_attention.cu",
                replaces="src/repro/kernels/decode_attention.py:75",
                max_abs_err=worst[(575, 30.0, torch.bfloat16)], ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms)
+               library_ms=lib_ms, shapes=shapes)
     errs = ", ".join(f"pos {p} cap {c} {str(d)[6:]} {x:.3g}"
                      for (p, c, d), x in worst.items())
     line = (f"decode_attention B={B} H={H} Kv={Kv} hd={hd} T={T}: max abs "
-            f"err [{errs}] (tol fp32 {tol}, bf16 {tol} + 2**-7 |plain|); G in {{1,4,8}} x hd "
-            f"in {{16,64}} at T=77 within tolerance; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, SDPA (enable_gqa, slots 0..pos) "
+            f"err [{errs}] (tol fp32 {tol}, bf16 {tol} + 2**-7 |plain|); "
+            f"G in {{1,4,6,8,12,16}} x hd in {{16,64,256}} at T=77 within "
+            f"tolerance; kernel {ms:.4f} ms (earlier design "
+            f"{EARLIER_MS['decode_attention B=8 H=48 pos 575 softcap 30']} "
+            f"ms), plain {plain_ms:.4f} ms, SDPA (enable_gqa, slots 0..pos) "
             f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) at pos 575, "
             f"softcap 30, bf16")
-    return rec, [line]
+    lines = [line] + [f"decode_attention at {r['shape']} bf16: kernel "
+                      f"{r['ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms" for r in shapes]
+    return rec, lines
 
 
 # rmsnorm rows on the served paths: (rows, D) — decode rows of d_model
@@ -1376,6 +1456,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print(f"[setup] kernels built from {build.CSRC.relative_to(ROOT)} in "
           f"{build_s:.2f} s (nvcc, sm_90a); TF32 off")
+    ptxas = {name: build.ptxas_report(name) for name in build.KERNELS}
+    for name in ("flash_attention", "decode_attention",
+                 "paged_decode_attention"):
+        print(f"[setup] ptxas {name}: " + "; ".join(
+            f"{r['kernel']} {r.get('registers')} registers, "
+            f"{r['spill_stores']}/{r['spill_loads']} B spilled"
+            for r in ptxas[name]))
 
     recs, lines = {}, []
     for check in (check_paged, check_flash, check_rwkv6, check_rglru,
@@ -1385,12 +1472,13 @@ def main():
         lines += ls
     flash_local = check_flash_local(ops, ref)
     lines.append(f"flash_attention at recurrentgemma's local layers "
-                 f"(B=4, S=2100, H=10, hd 256, window 2048, fp32-core path): "
+                 f"(B=4, S=2100, H=10, hd 256, window 2048): "
                  f"max abs err fp32 {flash_local['max_abs_err_fp32']:.3g} "
                  f"(tol {TOL[torch.float32]}), bf16 "
                  f"{flash_local['max_abs_err']:.3g} (tol 2**-7 |plain| + "
                  f"{TOL[torch.float32]}); bf16 kernel "
-                 f"{flash_local['ms']:.4f} ms, bound "
+                 f"{flash_local['ms']:.4f} ms (earlier design "
+                 f"{flash_local['earlier_ms']} ms), bound "
                  f"{flash_local['bound_ms']:.4f} ms "
                  f"({flash_local['bound_by']}), "
                  f"SDPA with the band mask "
@@ -1450,7 +1538,7 @@ def main():
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        dict(gpu=info, torch=torch.__version__, build_s=build_s,
+        dict(gpu=info, torch=torch.__version__, build_s=build_s, ptxas=ptxas,
              seconds=time.time() - t0,
              kernels=[recs[fn.__name__] for fn in ops.KERNELS],
              flash_local=flash_local,

@@ -51,6 +51,27 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// (x, y) as bf16x2 ``hi`` and the bf16x2 ``lo`` of what rounding leaves:
+// hi + lo holds the pair to about 16 bits (the bf16 kernels' P in P V)
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 f = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - f.x, y - f.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// cap * tanh(x / cap) from one exp and one reciprocal,
+// cap - 2 cap / (1 + exp(2 x / cap)), for the bf16 kernels: tanhf and an
+// IEEE division per score made softcapped attention ALU-bound.  Absolute
+// error a few 1e-6 at cap 30 (the cancellation near x = 0), against
+// scores of order 1 to 30.
+__device__ __forceinline__ float softcap_fast(float x, float cap,
+                                              float inv_cap) {
+  return cap - __fdividef(2.f * cap, 1.f + __expf(2.f * inv_cap * x));
+}
+
 // Asynchronous 16-byte global -> shared copies (sm_80+), both addresses
 // 16-byte aligned; commit closes a group, wait<N> leaves N groups pending.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -67,6 +88,62 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers in shared memory: TMA and bulk copies complete on them
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// arrive, and expect ``bytes`` more of asynchronous copies in this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// cp.async.bulk: ``bytes`` (a multiple of 16) from global to shared memory,
+// both 16-byte aligned, completion counted on the mbarrier ``bar``
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// order this thread's generic-proxy accesses of shared memory before
+// later async-proxy (bulk copy, TMA) writes to it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Kernels that need more than 48 KB of dynamic shared memory must opt in.

@@ -11,14 +11,16 @@
 // far below the H100's ~295 FLOP/byte ridge, so the floor is
 // (q + K + V bytes of slots 0..pos + out) / 3.35 TB/s.
 //
-// What the design does about it: it is the paged kernel's design
-// (decode_attention.cuh, see paged_decode_attention.cu) with an identity
-// block table: slot t of sequence b is row b*T + t of the (B,T,Kv,hd)
-// cache.  The G query heads of a kv head share every K/V row staged; each
-// (sequence, kv head) pair's slots are split over NS CTAs, each
-// double-buffering its tiles with cp.async; only slots <= pos are read; a
-// second kernel merges the NS online-softmax partials.  ``pos`` arrives
-// by value (the engine holds it on the host), so nothing is read back.
+// What the design does about it: it is the paged kernel's body
+// (decode_attention.cuh) with an identity block table: slot t of sequence
+// b is row b*T + t of the (B,T,Kv,hd) cache.  In bf16 the G query heads
+// of a kv head run as the rows of tensor-core tiles against every K/V row
+// staged, the slots are split over a cluster of up to 8 CTAs that stream
+// them through a 3-stage ring of bulk copies, and the cluster merges its
+// partials in distributed shared memory: one launch, no scratch.  Only
+// slots <= pos are read.  ``pos`` arrives by value (the engine holds it on
+// the host), so the split count is sized from the live slots and nothing
+// is read back.
 
 #include "decode_attention.cuh"
 
@@ -35,10 +37,11 @@ struct DenseLayout {
 
 }  // namespace
 
-// q (B,H,hd); k/v (B,T,Kv,hd); out (B,H,hd); slots 0..pos are valid;
-// scratch holds B*Kv*NS*G*(hd+2) floats.  Split s of NS attends slot tiles
-// [s*tps, (s+1)*tps) of TS = 32 slots.  softcap <= 0 means none.  Returns
-// the launches' cudaError_t.
+// q (B,H,hd); k/v (B,T,Kv,hd); out (B,H,hd); slots 0..pos are valid.
+// Split s of NS attends slot tiles [s*tps, (s+1)*tps), of 64 slots in bf16
+// (NS <= 8, the cluster; scratch unused) and of 32 in fp32 (scratch holds
+// B*Kv*NS*G*(hd+2) floats).  softcap <= 0 means none.  Returns the
+// launches' cudaError_t.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, void* out,
                                        void* scratch, int B, int T, int Kv,

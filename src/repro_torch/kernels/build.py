@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/<hash of the sources and flags>/`` at the repository root
 (listed in ``.gitignore``).  All missing libraries are compiled at once,
-one ``nvcc`` process per source.  Nothing here runs at import time.
+one ``nvcc`` process per source; each one's compiler output, with
+``ptxas``'s registers, shared memory and spills per kernel, is kept beside
+it as ``lib<name>.log``.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("decode_attention", "flash_attention", "moe_gemm",
            "paged_decode_attention", "rglru_scan", "rmsnorm", "rwkv6_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -71,6 +74,7 @@ def build_all() -> Dict[str, Path]:
     errors = []
     for name, (proc, tmp, lib) in procs.items():
         log, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(log)
         if proc.returncode:
             errors.append(f"--- {name} (nvcc exit {proc.returncode}):\n{log}")
         else:
@@ -79,6 +83,32 @@ def build_all() -> Dict[str, Path]:
         raise RuntimeError("building the CUDA kernels failed:\n"
                            + "\n".join(errors))
     return libs
+
+
+def ptxas_report(name: str):
+    """Each kernel of library ``name`` as ptxas reported it at the build:
+    [{"kernel", "registers", "spill_stores", "spill_loads"}] (bytes),
+    names demangled where ``c++filt`` is on the path."""
+    log = (BUILD_DIR / _digest() / f"lib{name}.log").read_text()
+    rows, kernel = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and kernel:
+            rows.append(dict(kernel=kernel, spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2))))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and "registers" not in rows[-1]:
+            rows[-1]["registers"] = int(m.group(1))
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True, text=True)
+        for r, n in zip(rows, names.stdout.splitlines()):
+            r["kernel"] = n
+    return rows
 
 
 @functools.lru_cache(maxsize=None)

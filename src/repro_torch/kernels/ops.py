@@ -118,21 +118,48 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
     return out
 
 
-DECODE_TILE = 32   # cache slots per tile of the decode kernels
+DECODE_TILE = {True: 64, False: 32}   # cache slots per tile: bf16, fp32
+DECODE_CLUSTER = 8   # the bf16 kernel merges its splits in one cluster
+
+
+def decode_plan(pairs: int, max_slots: int, sms: int, bf16: bool):
+    """(NS, tiles per split) of the decode kernels: split each of the
+    ``pairs`` CTA rows (sequence, kv head and, in bf16, group of up to 16
+    query heads) over the tiles of ``max_slots`` cache slots.  Split s
+    takes tiles [s * tps, (s + 1) * tps); every tile falls in exactly one
+    split, and no split is empty.  The fp32 kernels aim at about four CTAs
+    an SM and merge in a second launch.  The bf16 kernel holds two CTAs an
+    SM at hd <= 128 (its ring is ~110 KB) and merges its splits in one
+    thread-block cluster: it takes as many splits as fill those two slots
+    in one wave, at most ``DECODE_CLUSTER``."""
+    n_tiles = -(-max_slots // DECODE_TILE[bf16])
+    if bf16:
+        ns = min(n_tiles, DECODE_CLUSTER, max(1, 2 * sms // pairs))
+    else:
+        ns = min(n_tiles, max(1, -(-4 * sms // pairs)))
+    tps = -(-n_tiles // ns)
+    return -(-n_tiles // tps), tps
 
 
 @functools.lru_cache(maxsize=None)
-def _decode_splits(device, pairs: int, max_slots: int):
-    """(NS, tiles per split) for the decode kernels: split each (sequence,
-    kv head) pair's slot range so that about four CTAs per SM are in
-    flight.  The paged kernel sizes it from the table width, not from
-    ``pos`` (which lives on the device): splits past a sequence's ``pos``
-    do no work."""
-    n_tiles = -(-max_slots // DECODE_TILE)
+def _decode_plan(device, pairs: int, max_slots: int, bf16: bool):
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ns = min(n_tiles, max(1, -(-4 * sms // pairs)))
-    tps = -(-n_tiles // ns)
-    return -(-n_tiles // tps), tps
+    return decode_plan(pairs, max_slots, sms, bf16)
+
+
+def _decode_launch_args(q, Kv, max_slots):
+    """(NS, tps, scratch) for a decode launch: the plan from the live
+    slots (dense) or the table width (paged: ``pos`` lives on the device,
+    and splits past it do no work), and, for fp32 only, the scratch of
+    the per-split partials (acc, m, l) that its merge kernel reads."""
+    B, H, hd = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    G = H // Kv
+    pairs = B * Kv * (-(-G // 16) if bf16 else 1)
+    ns, tps = _decode_plan(q.device, pairs, max_slots, bf16)
+    scratch = None if bf16 else torch.empty(
+        B * Kv * ns * G * (hd + 2), dtype=torch.float32, device=q.device)
+    return ns, tps, scratch
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
@@ -162,14 +189,12 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
         raise ValueError(f"paged_decode_attention: head_dim {hd} must be a "
                          "multiple of 16 and at most 256")
     scale = hd ** -0.5 if scale is None else scale
-    ns, tps = _decode_splits(q.device, B * Kv, nmax * ps)
+    ns, tps, scratch = _decode_launch_args(q, Kv, nmax * ps)
     out = torch.empty_like(q)
-    # per-split online-softmax partials (acc, m, l), merged by the kernel
-    scratch = torch.empty(B * Kv * ns * (H // Kv) * (hd + 2),
-                          dtype=torch.float32, device=q.device)
     _launch("paged_decode_attention", q.device, q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, Kv,
+            pos.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, Kv,
             H // Kv, hd, ps, nmax, ns, tps, scale, softcap or 0.0,
             int(q.dtype == torch.bfloat16))
     paged_decode_attention.launches += 1
@@ -199,12 +224,11 @@ def decode_attention(q, k, v, pos, *, scale=None, softcap=None):
         raise ValueError(f"decode_attention: pos {pos} outside the cache "
                          f"of {T} slots")
     scale = hd ** -0.5 if scale is None else scale
-    ns, tps = _decode_splits(q.device, B * Kv, pos + 1)
+    ns, tps, scratch = _decode_launch_args(q, Kv, pos + 1)
     out = torch.empty_like(q)
-    scratch = torch.empty(B * Kv * ns * (H // Kv) * (hd + 2),
-                          dtype=torch.float32, device=q.device)
     _launch("decode_attention", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, T, Kv,
+            v.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, T, Kv,
             H // Kv, hd, pos, ns, tps, scale, softcap or 0.0,
             int(q.dtype == torch.bfloat16))
     decode_attention.launches += 1

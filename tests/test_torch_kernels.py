@@ -38,16 +38,20 @@ def _err(j, t):
 
 def _modes(mode):
     return dict(causal=mode != "bidir",
-                window=64 if mode == "window" else None,
+                window={"window": 64, "window40": 40}.get(mode),
                 softcap=30.0 if mode == "softcap" else None)
 
 
 # --- flash attention (tests/test_kernels.py:24-40) ---------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(1, 128, 2, 64), (2, 256, 4, 64),
-                                   (1, 192, 3, 128)])
-@pytest.mark.parametrize("mode", ["causal", "window", "bidir", "softcap"])
+                                   (1, 192, 3, 128), (1, 130, 2, 256)])
+@pytest.mark.parametrize("mode", ["causal", "window", "bidir", "softcap",
+                                  "window40"])
 def test_flash_plain_matches_reference_oracle(shape, dtype, mode):
+    """Shapes and masks the kernel's tiles meet: hd 256 (four 64-column
+    boxes a row), S not a multiple of the 64-key tiles, and a window of 40
+    whose band starts in the middle of a tile."""
     rng = np.random.default_rng(11)
     (qj, qt), (kj, kt), (vj, vt) = (_both(_randn(rng, shape), dtype)
                                     for _ in range(3))
@@ -86,7 +90,8 @@ def _paged_inputs(rng, B, H, hd, Kv, ps, nmax, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("ps,nmax,Kv,G", [(8, 4, 2, 4), (16, 2, 1, 8),
-                                          (4, 3, 4, 1)])
+                                          (4, 3, 4, 1), (8, 4, 2, 6),
+                                          (16, 3, 1, 16)])
 def test_paged_decode_plain_matches_reference(ps, nmax, Kv, G, dtype):
     rng = np.random.default_rng(3)
     B, hd = 3, 64
@@ -196,14 +201,24 @@ def test_rwkv6_scan_plain_takes_bf16_rkv_with_fp32_state():
 
 
 # --- contiguous decode attention (tests/test_kernels.py:43-56) --------------
+_DECODE_CASES = [(128, 2, 4, 17, 64), (256, 1, 8, 255, 64),
+                 (192, 4, 1, 100, 64), (96, 2, 6, 0, 64),
+                 (130, 1, 12, 129, 64), (64, 2, 16, 40, 64),
+                 (80, 2, 6, 70, 256)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,Kv,G,pos", [(128, 2, 4, 17), (256, 1, 8, 255),
-                                        (192, 4, 1, 100), (96, 2, 6, 0)])
+@pytest.mark.parametrize(
+    "T,Kv,G,pos,hd", _DECODE_CASES,
+    ids=["-".join(map(str, c[:4])) + ("" if c[4] == 64 else f"-hd{c[4]}")
+         for c in _DECODE_CASES])
 @pytest.mark.parametrize("softcap", [None, 30.0])
-def test_decode_attention_plain_matches_reference(T, Kv, G, pos, dtype,
+def test_decode_attention_plain_matches_reference(T, Kv, G, pos, hd, dtype,
                                                   softcap):
+    """G up to 16 query heads a kv head (the bf16 kernel's 16 tensor-core
+    rows) and hd 256."""
     rng = np.random.default_rng(13)
-    B, hd = 2, 64
+    B = 2
     (qj, qt), (kj, kt), (vj, vt) = (
         _both(_randn(rng, shape), dtype)
         for shape in ((B, Kv * G, hd), (B, T, Kv, hd), (B, T, Kv, hd)))
@@ -214,6 +229,32 @@ def test_decode_attention_plain_matches_reference(T, Kv, G, pos, dtype,
     o_kernel = jops.decode_attention(qj, kj, vj, jnp.int32(pos), block_t=64,
                                      softcap=softcap)
     assert _err(o_kernel, o) < TOL[dtype]
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("pairs", [8, 64, 1024])
+@pytest.mark.parametrize("pos", [0, 31, 32, 575, 32767])
+def test_decode_plan_covers_every_tile_once(pos, pairs, bf16):
+    """The decode kernels' launch plan on a 132-SM card: split s takes
+    tiles [s*tps, (s+1)*tps); every tile of slots 0..pos falls in exactly
+    one split and no split is empty.  The bf16 kernel merges its splits in
+    one thread-block cluster, so it never takes more than 8, and fills two
+    CTAs an SM in one wave; the fp32 kernels aim at about four an SM."""
+    tile = ops.DECODE_TILE[bf16]
+    n_tiles = -(-(pos + 1) // tile)
+    ns, tps = ops.decode_plan(pairs, pos + 1, 132, bf16)
+    covered = [t for s in range(ns)
+               for t in range(s * tps, min(n_tiles, (s + 1) * tps))]
+    assert covered == list(range(n_tiles))
+    assert all(s * tps < n_tiles for s in range(ns))
+    if bf16:
+        assert 1 <= ns <= ops.DECODE_CLUSTER
+        want = min(n_tiles, ops.DECODE_CLUSTER, max(1, 2 * 132 // pairs))
+        assert pairs * ns <= max(2 * 132, pairs)   # one wave at 2 an SM
+    else:
+        want = min(n_tiles, max(1, -(-4 * 132 // pairs)))
+    assert ns <= want and -(-n_tiles // tps) == ns
+    assert tps == -(-n_tiles // want)
 
 
 # --- grouped GEMM (tests/test_kernels.py:89-99) ------------------------------
