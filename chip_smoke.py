@@ -17,6 +17,7 @@ failure exits non-zero.  The last line of standard output is
 preceded by the kernels' JSON line and the card's name and power limit.
 The full record of the run is also written to chiprun_out/chip_smoke.json.
 """
+import ctypes
 import json
 import subprocess
 import sys
@@ -32,11 +33,18 @@ PEAK_BW = 3.35e12                                   # H100 SXM HBM3, B/s
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s
 SEED = 0
 DEVICE = "cuda"
-# times of the earlier designs of the redesigned attention kernels (the
-# fp32-core and mma.sync flash, the scalar decode body with a separate
-# merge launch), as PERF.md section 6 records them from this script on an
-# NVIDIA H100 80GB HBM3 at 700 W; printed beside this run's times
+# times of the earlier designs of the redesigned kernels (the fp32-core
+# and mma.sync flash, the scalar decode body with a separate merge launch,
+# the mma.sync moe_gemm), as PERF.md section 6 records them from this
+# script on an NVIDIA H100 80GB HBM3 at 700 W; printed beside this run's
+# times
 EARLIER_MS = {
+    "moe_gemm dense prefill up": 9.112,
+    "moe_gemm dense prefill down": 9.608,
+    "moe_gemm paged prefill up": 2.951,
+    "moe_gemm paged prefill down": 3.319,
+    "moe_gemm decode up": 1.1397,
+    "moe_gemm decode down": 1.1317,
     "flash (1, 512, 16, 128)": 0.0441,
     "flash (1, 512, 48, 128) softcap 30": 0.0963,
     "flash (8, 512, 48, 128) softcap 30": 0.4896,
@@ -548,8 +556,13 @@ MOE_SHAPES = [("dense prefill up", 4, 1280, 6144, 32768),
               ("decode up", 8, 8, 6144, 32768),
               ("decode down", 8, 8, 32768, 6144)]
 # edge and operand-type cases, (E, C, D, F), x, w and out dtypes: ragged
-# C, D and F (the element-load path when D or F is not a multiple of 8),
-# fp32, and mixed both ways (the phase 4 decode GEMM is fp32 x bf16)
+# C, D and F (the fp32-core path when D or F is not a multiple of 8),
+# fp32, and mixed both ways (the phase 4 decode GEMM is fp32 x bf16); then
+# bf16 x bf16 at the edges of the tensor-core paths (ops.moe_plan): C
+# ragged against the row tile on both sides of the stream/wgmma threshold
+# (24, 72, 200), D and F multiples of 8 but not of 64 (TMA's zero fill),
+# E = 1, a decode-shaped K split that is uneven (D not a multiple of split
+# x 64), and the bf16 output of both paths
 MOE_CASES = [((2, 70, 100, 90),) + (torch.bfloat16,) * 3,
              ((3, 77, 200, 300), torch.bfloat16, torch.bfloat16,
               torch.float32),
@@ -557,7 +570,26 @@ MOE_CASES = [((2, 70, 100, 90),) + (torch.bfloat16,) * 3,
              ((8, 8, 6144, 32768), torch.float32, torch.bfloat16,
               torch.float32),
              ((2, 40, 96, 136), torch.bfloat16, torch.float32,
-              torch.float32)]
+              torch.float32)] + [
+    (shape, torch.bfloat16, torch.bfloat16, ot) for shape, ot in (
+        ((2, 24, 512, 264), torch.float32),
+        ((2, 72, 256, 136), torch.float32),
+        ((2, 200, 512, 264), torch.float32),
+        ((2, 130, 264, 520), torch.float32),
+        ((1, 8, 6144, 1032), torch.float32),
+        ((8, 8, 4104, 1032), torch.float32),
+        ((2, 200, 512, 264), torch.bfloat16),
+        ((1, 8, 6144, 1032), torch.bfloat16))]
+
+
+def moe_smem(build, regime, rows, cols):
+    """Dynamic shared memory of a CTA of moe_gemm's ``regime`` kernel at
+    that tile, from the library itself."""
+    from repro_torch.kernels import ops
+    fn = build.library("moe_gemm").moe_gemm_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(ops.MOE_REGIMES[regime], rows, cols)
 
 
 def check_moe_gemm(ops, ref):
@@ -591,11 +623,18 @@ def check_moe_gemm(ops, ref):
     def name(shape, xt, wt, ot):
         return f"{shape} {str(xt)[6:]}x{str(wt)[6:]}->{str(ot)[6:]}"
 
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+
+    def plan(E, C, D, F, xt, wt):
+        p = ops.moe_plan(E, C, D, F, sms, xt == bf, wt == bf)
+        return (f"{p.regime} {p.rows}x{p.cols}"
+                + (f" split {p.split}" if p.regime == "stream" else ""))
+
     cases = {}
     for shape, xt, wt, ot in MOE_CASES:
         x, w = inputs(*shape, xt, wt)
-        cases[name(shape, xt, wt, ot)] = check(name(shape, xt, wt, ot), x, w,
-                                               ot)
+        key = f"{name(shape, xt, wt, ot)} [{plan(*shape, xt, wt)}]"
+        cases[key] = check(key, x, w, ot)
         del x, w
     shapes = []
     for what, E, C, D, F in MOE_SHAPES:
@@ -606,7 +645,10 @@ def check_moe_gemm(ops, ref):
         lib_ms = time_ms(lambda: torch.bmm(x, w), iters=10)
         nbytes = 2 * (x.numel() + w.numel()) + 4 * E * C * F
         b_ms, b_by = bound(nbytes, 2 * E * C * D * F, bf)
-        shapes.append(dict(name=what, shape=[E, C, D, F], max_abs_err=err,
+        shapes.append(dict(name=what, shape=[E, C, D, F],
+                           plan=plan(E, C, D, F, bf, bf),
+                           earlier_ms=EARLIER_MS[f"moe_gemm {what}"],
+                           max_abs_err=err,
                            max_rel_err=rel, control_rel_err=ctl, ms=ms,
                            plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by))
@@ -626,10 +668,12 @@ def check_moe_gemm(ops, ref):
              "edge/type cases "
              + ", ".join(f"{k} {r:.3g}" + (f" [{c:.3g}]" if c else "")
                          for k, (_, r, c) in cases.items())]
-    lines += [f"moe_gemm {r['name']} {tuple(r['shape'])} bf16 -> fp32: rel "
+    lines += [f"moe_gemm {r['name']} {tuple(r['shape'])} bf16 -> fp32 "
+              f"[{r['plan']}]: rel "
               f"err {r['max_rel_err']:.3g} (abs {r['max_abs_err']:.3g}, bf16 "
-              f"control {r['control_rel_err']:.3g}); kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms, "
+              f"control {r['control_rel_err']:.3g}); kernel {r['ms']:.4f} ms "
+              f"(earlier design {r['earlier_ms']} ms), plain "
+              f"{r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               for r in shapes]
     return rec, lines
@@ -1458,11 +1502,18 @@ def main():
           f"{build_s:.2f} s (nvcc, sm_90a); TF32 off")
     ptxas = {name: build.ptxas_report(name) for name in build.KERNELS}
     for name in ("flash_attention", "decode_attention",
-                 "paged_decode_attention"):
+                 "paged_decode_attention", "moe_gemm"):
         print(f"[setup] ptxas {name}: " + "; ".join(
             f"{r['kernel']} {r.get('registers')} registers, "
-            f"{r['spill_stores']}/{r['spill_loads']} B spilled"
+            f"{r['spill_stores']}/{r['spill_loads']} B spilled, "
+            f"{r.get('static_smem')} B static shared"
             for r in ptxas[name]))
+    print("[setup] moe_gemm dynamic shared memory a CTA: " + ", ".join(
+        f"{reg} {rows}x{cols} {moe_smem(build, reg, rows, cols)} B"
+        for reg, rows, cols in (("wgmma", 128, 256), ("wgmma", 128, 128),
+                                ("wgmma", 192, 128), ("stream", 8, 128),
+                                ("stream", 16, 128), ("stream", 32, 128),
+                                ("stream", 64, 128))))
 
     recs, lines = {}, []
     for check in (check_paged, check_flash, check_rwkv6, check_rglru,

@@ -41,8 +41,6 @@
 // version needs S divisible by its blocks), in the reference's
 // pre-expanded (B,S,H,hd) layout.
 
-#include <cuda.h>
-
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -507,36 +505,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime, so
-// that the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                            : nullptr;
-  }();
-  return fn;
-}
-
 // a (B,S,H,hd) bf16 tensor as 64-column x 64-row boxes, 128-byte swizzled,
 // zeros past hd and past S
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd) {
-  EncodeTiled encode = encode_tiled();
+  repro::EncodeTiled encode = repro::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(H),

@@ -87,7 +87,8 @@ def build_all() -> Dict[str, Path]:
 
 def ptxas_report(name: str):
     """Each kernel of library ``name`` as ptxas reported it at the build:
-    [{"kernel", "registers", "spill_stores", "spill_loads"}] (bytes),
+    [{"kernel", "registers", "spill_stores", "spill_loads", "static_smem"}]
+    (bytes; dynamic shared memory is the launcher's and not in the log),
     names demangled where ``c++filt`` is on the path."""
     log = (BUILD_DIR / _digest() / f"lib{name}.log").read_text()
     rows, kernel = [], None
@@ -103,6 +104,8 @@ def ptxas_report(name: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and rows and "registers" not in rows[-1]:
             rows[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["static_smem"] = int(m.group(1)) if m else 0
     if shutil.which("c++filt"):
         names = subprocess.run(["c++filt"], input="\n".join(
             r["kernel"] for r in rows), capture_output=True, text=True)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,8 +29,9 @@ _SIGNATURES = {
     # q, k, v, out, scratch, B, T, Kv, G, hd, pos, NS, tps, scale,
     # softcap, bf16, stream
     "decode_attention": [_P] * 5 + [_I] * 8 + [_F] * 2 + [_I, _P],
-    # x, w, out, E, C, D, F, x bf16, w bf16, out bf16, stream
-    "moe_gemm": [_P] * 3 + [_I] * 7 + [_P],
+    # x, w, out, E, C, D, F, x bf16, w bf16, out bf16, regime, rows, cols,
+    # split, kps, stream
+    "moe_gemm": [_P] * 3 + [_I] * 12 + [_P],
     # x, scale, out, N, D, eps, bf16, stream
     "rmsnorm": [_P] * 3 + [_I] * 2 + [_F, _I, _P],
     # a, b, h0, hs, hT, B, S, W, stream
@@ -235,12 +237,85 @@ def decode_attention(q, k, v, pos, *, scale=None, softcap=None):
     return out
 
 
+MOE_REGIMES = {"simt": 0, "wgmma": 1, "stream": 2}
+MOE_STREAM_N = (8, 16, 32, 64)   # the stream kernel's MMA widths (C <= N)
+MOE_STREAM_COLS = 128            # columns of F a stream CTA
+MOE_MAX_SPLIT = 8                # K splits: the CTAs of a portable cluster
+MOE_BK = 64                      # depth of a k-step of regimes 1 and 2
+
+
+class MoePlan(NamedTuple):
+    """How ``moe_gemm`` computes one grouped GEMM.  ``regime``: "wgmma"
+    (regime 1, prefill), "stream" (regime 2, C <= 64) or "simt" (every
+    other operand pair, and bf16 with D or F not a multiple of 8).
+    ``rows`` x ``cols`` is a CTA's tile of (C, F): for "stream" ``rows``
+    is the MMA width N >= C.  K is split ``split`` ways, ``kps`` 64-deep
+    k-steps a split ("stream" only; 1 and all of K otherwise).  ``grid``
+    is the launch's (x, y, z), x the fastest."""
+    regime: str
+    rows: int
+    cols: int
+    split: int
+    kps: int
+    grid: tuple
+
+
+def moe_plan(E: int, C: int, D: int, F: int, sms: int, x_bf16: bool,
+             w_bf16: bool) -> MoePlan:
+    """The plan of ``moe_gemm`` on a card of ``sms`` SMs.
+
+    bf16 x bf16 with D and F multiples of 8 (TMA's 16-byte row strides)
+    takes the tensor cores.  C <= 64: the bytes-streaming kernel, whose
+    CTAs (two an SM) take 128 columns of F and a share of K, split over
+    at most 8 CTAs of a cluster: the fewest splits within 10% of the
+    least (waves + 1) x depth a CTA, which counts the waves and the drain
+    of the last CTAs (the cluster's merge is not free; no split is
+    empty).  Larger C: the wgmma kernel (one CTA an SM), with row tiles
+    of 128 or 192 (whichever pads C less, 128 on a tie) and 256 columns
+    of F, or 128 where 256 leaves more of the last wave empty than 128
+    costs in tile efficiency (taken as 15%).  Every other pair: the
+    fp32-core kernel on 64 x 64 tiles."""
+    n_k = -(-D // MOE_BK)
+    if not (x_bf16 and w_bf16 and D % 8 == 0 and F % 8 == 0 and D > 0):
+        return MoePlan("simt", 64, 64, 1, n_k, (-(-C // 64), -(-F // 64), E))
+    if C <= MOE_STREAM_N[-1]:
+        n = next(v for v in MOE_STREAM_N if v >= C)
+        tiles = -(-F // MOE_STREAM_COLS) * E
+        slots = 2 * sms
+        costs = {}
+        for split in range(1, MOE_MAX_SPLIT + 1):
+            kps = -(-n_k // split)
+            if -(-n_k // kps) == split:   # else some split would be empty
+                waves = -(-tiles * split // slots)
+                costs[split] = ((waves + 1) * kps, kps)
+        least = min(c for c, _ in costs.values())
+        split = min(s for s, (c, _) in costs.items() if c <= 1.1 * least)
+        kps = costs[split][1]
+        return MoePlan("stream", n, MOE_STREAM_COLS, split, kps,
+                       (split, -(-F // MOE_STREAM_COLS), E))
+    rows = 128 if -(-C // 128) * 128 <= -(-C // 192) * 192 else 192
+    row_tiles = -(-C // rows)
+
+    def cost(cols):
+        waves = -(-(row_tiles * -(-F // cols) * E) // sms)
+        return waves * cols * (1.0 if cols == 256 else 1.15)
+
+    cols = 256 if rows == 128 and cost(256) <= cost(128) else 128
+    return MoePlan("wgmma", rows, cols, 1, n_k, (row_tiles, -(-F // cols), E))
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_plan(device, E, C, D, F, x_bf16, w_bf16):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return moe_plan(E, C, D, F, sms, x_bf16, w_bf16)
+
+
 def moe_gemm(x, w, *, out_dtype=None):
     """Grouped GEMM x (E,C,D) @ w (E,D,F) -> (E,C,F), fp32 accumulation.
     x and w are each fp32 or bf16 (the tiny configs and the fp32 parity
-    runs pair fp32 with bf16); bf16 x bf16 runs on the tensor cores.  The
-    output is ``out_dtype``, fp32 or bf16, by default x's dtype (what the
-    TPU kernel writes).  Any C, D, F."""
+    runs pair fp32 with bf16); bf16 x bf16 runs on the tensor cores, by
+    ``moe_plan``.  The output is ``out_dtype``, fp32 or bf16, by default
+    x's dtype (what the TPU kernel writes).  Any C, D, F."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if x.device.type == "cpu":
         return ref.moe_gemm(x, w, out_dtype)
@@ -256,11 +331,20 @@ def moe_gemm(x, w, *, out_dtype=None):
                         f"got {out_dtype}")
     out = torch.empty((E, C, F), dtype=out_dtype, device=x.device)
     bf16 = torch.bfloat16
-    _launch("moe_gemm", x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
-            E, C, D, F, int(x.dtype == bf16), int(w.dtype == bf16),
-            int(out_dtype == bf16))
+    _moe_launch(x, w, out, _moe_plan(x.device, E, C, D, F, x.dtype == bf16,
+                                     w.dtype == bf16))
     moe_gemm.launches += 1
     return out
+
+
+def _moe_launch(x, w, out, plan: MoePlan):
+    """Launch moe_gemm's kernel on checked tensors by ``plan``."""
+    E, C, D = x.shape
+    bf16 = torch.bfloat16
+    _launch("moe_gemm", x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            E, C, D, w.shape[-1], int(x.dtype == bf16), int(w.dtype == bf16),
+            int(out.dtype == bf16), MOE_REGIMES[plan.regime], plan.rows,
+            plan.cols, plan.split, plan.kps)
 
 
 def rmsnorm(x, scale, *, eps=1e-6):

@@ -257,6 +257,115 @@ def test_decode_plan_covers_every_tile_once(pos, pairs, bf16):
     assert tps == -(-n_tiles // want)
 
 
+# grok-1's six grouped GEMMs (chip_smoke.MOE_SHAPES) and the edge shapes of
+# chip_smoke.MOE_CASES: C ragged against the row tile on both sides of the
+# stream/wgmma threshold, D and F multiples of 8 but not of 64, E = 1, a K
+# split that is uneven, and D, F not multiples of 8 (simt)
+MOE_PLAN_SHAPES = [(4, 1280, 6144, 32768), (4, 1280, 32768, 6144),
+                   (8, 160, 6144, 32768), (8, 160, 32768, 6144),
+                   (8, 8, 6144, 32768), (8, 8, 32768, 6144),
+                   (2, 24, 512, 264), (2, 72, 256, 136), (2, 200, 512, 264),
+                   (2, 130, 264, 520), (1, 8, 6144, 1032),
+                   (8, 8, 4104, 1032), (2, 70, 100, 90)]
+
+
+def _moe_units(plan, E, C, D, F):
+    """The work units of ``plan``'s grid, as csrc/moe_gemm.cu indexes it:
+    (CTA, expert, rows [r0, r1) of C, columns [f0, f1) of F, depth
+    [k0, k1) of D), clipped to the arrays, the CTA as its linear index in
+    the grid.  A unit past an edge is dropped."""
+    gx, gy, gz = plan.grid
+    for e in range(gz):
+        for by in range(gy):
+            f0, f1 = by * plan.cols, min(F, (by + 1) * plan.cols)
+            for bx in range(gx):
+                if plan.regime == "stream":
+                    r0, r1 = 0, min(C, plan.rows)
+                    k0 = bx * plan.kps * ops.MOE_BK
+                    k1 = min(D, (bx + 1) * plan.kps * ops.MOE_BK)
+                else:
+                    r0, r1 = bx * plan.rows, min(C, (bx + 1) * plan.rows)
+                    k0, k1 = 0, D
+                if r0 < r1 and f0 < f1 and k0 < k1:
+                    yield ((e * gy + by) * gx + bx, e, r0, r1, f0, f1, k0,
+                           k1)
+
+
+def _partitions(ranges, n):
+    """Sorted ranges [a, b) that tile [0, n) without gap or overlap."""
+    ranges = sorted(ranges)
+    return (ranges[0][0] == 0 and ranges[-1][1] == n
+            and all(a[1] == b[0] for a, b in zip(ranges, ranges[1:])))
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("E,C,D,F", MOE_PLAN_SHAPES)
+def test_moe_plan_covers_every_tile_once(E, C, D, F, sms):
+    """moe_gemm's launch plan on an H100 SXM (132 SMs) and PCIe (114): its
+    (expert, row tile, F tile, K range) units, as the kernels index the
+    grid, cover every output element and every k exactly once, and no CTA
+    of the grid is idle.  K is split at most 8 ways (the CTAs of a
+    portable cluster), only by the stream kernel, whose MMA width holds
+    all of C."""
+    plan = ops.moe_plan(E, C, D, F, sms, True, True)
+    units = list(_moe_units(plan, E, C, D, F))
+    gx, gy, gz = plan.grid
+    assert sorted({u[0] for u in units}) == list(range(gx * gy * gz))
+    tiles = {}
+    for _, e, r0, r1, f0, f1, k0, k1 in units:
+        tiles.setdefault((e, r0, r1, f0, f1), []).append((k0, k1))
+    for e in range(E):
+        mine = [t for t in tiles if t[0] == e]
+        rows = {(t[1], t[2]) for t in mine}
+        cols = {(t[3], t[4]) for t in mine}
+        assert _partitions(rows, C) and _partitions(cols, F)
+        assert len(mine) == len(rows) * len(cols)
+    assert len(tiles) == sum(1 for t in tiles if 0 <= t[0] < E)
+    assert all(_partitions(ks, D) for ks in tiles.values())
+    assert 1 <= plan.split <= ops.MOE_MAX_SPLIT
+    if plan.regime == "stream":
+        assert C <= plan.rows and plan.rows in ops.MOE_STREAM_N
+        assert gx == plan.split
+    else:
+        assert plan.split == 1 and gx == -(-C // plan.rows)
+
+
+def test_moe_plan_splits_where_the_grid_leaves_the_card_idle():
+    """At C = 8 grok's down GEMM (384 CTAs of 32768 deep) splits K over a
+    cluster into more CTAs than its up GEMM (2048 CTAs of 6144); the edge
+    case of chip_smoke.py splits unevenly (D not a multiple of split x
+    64)."""
+    down = ops.moe_plan(8, 8, 32768, 6144, 132, True, True)
+    up = ops.moe_plan(8, 8, 6144, 32768, 132, True, True)
+    assert down.regime == up.regime == "stream"
+    assert down.split > up.split >= 1
+    assert np.prod(down.grid) > 2 * 132   # more than a wave of CTAs
+    uneven = ops.moe_plan(8, 8, 4104, 1032, 132, True, True)
+    assert uneven.split > 1 and 4104 % (uneven.split * ops.MOE_BK)
+    assert ops.moe_plan(8, 160, 6144, 32768, 132, True, True).rows == 192
+    assert ops.moe_plan(4, 1280, 6144, 32768, 132, True, True)[:3] == (
+        "wgmma", 128, 256)
+
+
+@pytest.mark.parametrize("x_bf16,w_bf16", [(True, True), (True, False),
+                                           (False, True), (False, False)])
+@pytest.mark.parametrize("D,F", [(512, 264), (100, 264), (512, 90),
+                                 (6144, 32768)])
+@pytest.mark.parametrize("C", [8, 160])
+def test_moe_plan_takes_the_tensor_cores_only_where_tma_can(C, D, F, x_bf16,
+                                                            w_bf16):
+    """Only bf16 x bf16 with D and F multiples of 8 (16-byte row strides
+    for TMA) reaches the wgmma and stream kernels; every other pair runs
+    the fp32-core kernel over the whole of K."""
+    plan = ops.moe_plan(2, C, D, F, 132, x_bf16, w_bf16)
+    tc = x_bf16 and w_bf16 and D % 8 == 0 and F % 8 == 0
+    assert (plan.regime in ("wgmma", "stream")) == tc
+    if not tc:
+        assert plan.regime == "simt" and plan.split == 1
+        units = list(_moe_units(plan, 2, C, D, F))
+        assert all((k0, k1) == (0, D) for *_, k0, k1 in units)
+
+
 # --- grouped GEMM (tests/test_kernels.py:89-99) ------------------------------
 def _moe_rel(j, t):
     ref_ = np.asarray(j, np.float32)
