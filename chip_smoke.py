@@ -35,10 +35,17 @@ SEED = 0
 DEVICE = "cuda"
 # times of the earlier designs of the redesigned kernels (the fp32-core
 # and mma.sync flash, the scalar decode body with a separate merge launch,
-# the mma.sync moe_gemm), as PERF.md section 6 records them from this
-# script on an NVIDIA H100 80GB HBM3 at 700 W; printed beside this run's
-# times
+# the mma.sync moe_gemm, the two-read rmsnorm, the fp32-core rwkv6_scan),
+# as PERF.md section 6 records them from this script on an NVIDIA H100
+# 80GB HBM3 at 700 W; printed beside this run's times
 EARLIER_MS = {
+    "rwkv6_scan S=512": 0.7343,
+    "rwkv6_scan S=1": 0.0160,
+    "rmsnorm (8, 6144)": 0.0082,
+    "rmsnorm (8, 2048)": 0.0064,
+    "rmsnorm (4, 2560)": 0.0072,
+    "rmsnorm (128, 128)": 0.0064,
+    "rmsnorm (4096, 6144)": 0.0424,
     "moe_gemm dense prefill up": 9.112,
     "moe_gemm dense prefill down": 9.608,
     "moe_gemm paged prefill up": 2.951,
@@ -414,13 +421,16 @@ def check_flash_local(ops, ref):
                 earlier_ms=EARLIER_MS["flash (4, 2100, 10, 256) window 2048"])
 
 
-def rwkv6_inputs(B, S, H, K, dtype, gen):
+def rwkv6_inputs(B, S, H, K, dtype, gen, strong=False):
     """r, k, v in ``dtype``; log-decay lw = -exp(N(0,1) - 1), bonus u and
-    a nonzero S0 in fp32 (the reference kernel test's distributions)."""
+    a nonzero S0 in fp32 (the reference kernel test's distributions).
+    ``strong``: lw = -exp(N(0,1) + 2), decays of e^-7 a step and far
+    below, where a factorization of the intra-chunk decay with a positive
+    exponent would overflow."""
     r, k, v = (torch.randn(B, S, H, K, generator=gen, device=DEVICE).to(dtype)
                for _ in range(3))
     lw = -torch.exp(torch.randn(B, S, H, K, generator=gen, device=DEVICE)
-                    - 1.0)
+                    + (2.0 if strong else -1.0))
     u = 0.1 * torch.randn(H, K, generator=gen, device=DEVICE)
     S0 = torch.randn(B, H, K, K, generator=gen, device=DEVICE)
     return r, k, v, lw, u, S0
@@ -440,6 +450,30 @@ def rwkv6_bytes_flops(r, v):
     return nbytes, B * S * H * (5 * K * V + 4 * K + 2 * V)
 
 
+TF32_FLOPS = 495e12          # H100 SXM dense TF32 tensor-core FLOP/s
+SFU_EXP = 132 * 16 * 1.98e9  # exp2 a second: 16 a clock an SM at 1.98 GHz
+
+
+def rwkv6_unit_bound(B, S, H, K, V, bf16=True):
+    """The chunk kernel's own work at S > 1 over the rates of the units
+    it uses (ms, and which bounds): per chunk of 32 and head, the
+    tensor-core products as multiply-adds, q_int S (32 K V) and the
+    off-diagonal block of A (16 x 16 x K) three times (3xTF32), A V
+    (16 x 16 + 16 x 32 rows and columns, times V) and k_dec^T V (K 32 V)
+    twice where v is bf16 (TF32-exact, not split) and three times in
+    fp32, over the TF32 rate; and the exps, one an element of q_int,
+    k_dec, the off-diagonal block's operands and the step decays (4 x
+    32 K) and the chunk's decay (K), over the SFU's exp rate."""
+    chunks = B * H * -(-S // 32)
+    split_v = 2 if bf16 else 3
+    macs = (3 * (32 * K * V + 16 * 16 * K)
+            + split_v * ((16 * 16 + 16 * 32) * V + K * 32 * V))
+    t_tc = chunks * 2 * macs / TF32_FLOPS
+    t_sfu = chunks * (4 * 32 * K + K) / SFU_EXP
+    return max(t_tc, t_sfu) * 1e3, ("TF32 tensor cores" if t_tc >= t_sfu
+                                    else "SFU exps")
+
+
 # tolerance of rwkv6_scan against its plain version, abs on o and S_T: the
 # kernel computes the chunked log-space algorithm, the plain version steps
 # the recurrence; both read the same r/k/v values and compute in fp32, so
@@ -453,43 +487,72 @@ RGLRU_TOL = 1e-5
 
 
 def check_rwkv6(ops, ref):
+    """Every S the served paths and the kernels' edges give (a decode
+    step, the chunk kernel's ragged last chunk, one or two chunks), both
+    dtypes, the reference's decays and the strong ones, within RWKV_TOL;
+    then the times at S = 512 (a dense prefill) and S = 1."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     B, H, K = 8, 32, 64
     worst = {}
-    for S in (512, 1, 77, 509):
+    for S in (512, 1, 77, 509, 2, 17):
         for dtype in (torch.bfloat16, torch.float32):
-            x = rwkv6_inputs(B, S, H, K, dtype, gen)
-            o, sT = ops.rwkv6_scan(*x)
-            o_p, sT_p = ref.rwkv6_scan(*x)
-            err = max(max_err(o, o_p), max_err(sT, sT_p))
-            worst[(S, dtype)] = err
-            if not err <= RWKV_TOL:
-                fail(f"rwkv6_scan S={S} {dtype}: max abs err {err}")
+            for strong in (False, True):
+                x = rwkv6_inputs(B, S, H, K, dtype, gen, strong)
+                o, sT = ops.rwkv6_scan(*x)
+                o_p, sT_p = ref.rwkv6_scan(*x)
+                err = max(max_err(o, o_p), max_err(sT, sT_p))
+                worst[(S, dtype, strong)] = err
+                if not err <= RWKV_TOL:
+                    fail(f"rwkv6_scan S={S} {dtype} strong decay {strong}: "
+                         f"max abs err {err}")
+    # narrow heads: rows of 16-byte pieces (K=V=40) and not (20 in bf16)
+    for K_ in (40, 20):
+        for S in (77, 1):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = rwkv6_inputs(2, S, 3, K_, dtype, gen)
+                o, sT = ops.rwkv6_scan(*x)
+                o_p, sT_p = ref.rwkv6_scan(*x)
+                err = max(max_err(o, o_p), max_err(sT, sT_p))
+                if not err <= RWKV_TOL:
+                    fail(f"rwkv6_scan K=V={K_} S={S} {dtype}: max abs err "
+                         f"{err}")
     x = rwkv6_inputs(B, 512, H, K, torch.bfloat16, gen)
     ms = time_ms(lambda: ops.rwkv6_scan(*x))
     plain_ms = time_ms(lambda: ref.rwkv6_scan(*x), iters=5)
     nbytes, flops = rwkv6_bytes_flops(x[0], x[2])
     b_ms, b_by = bound(nbytes, flops, torch.float32)
+    u_ms, u_by = rwkv6_unit_bound(B, 512, H, K, K)
     x1 = rwkv6_inputs(B, 1, H, K, torch.bfloat16, gen)   # a decode step
     ms1 = time_ms(lambda: ops.rwkv6_scan(*x1))
     plain1 = time_ms(lambda: ref.rwkv6_scan(*x1))
     b1_ms, b1_by = bound(*rwkv6_bytes_flops(x1[0], x1[2]), torch.float32)
+    plans = {S: ops.rwkv6_plan(B, S, H, K, K)._asdict() for S in (512, 1)}
     rec = dict(name="rwkv6_scan", route="cuda",
                source="src/repro_torch/csrc/rwkv6_scan.cu",
                replaces="src/repro/kernels/rwkv6_scan.py:73",
-               max_abs_err=worst[(512, torch.bfloat16)], ms=ms,
+               max_abs_err=worst[(512, torch.bfloat16, False)], ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=None,
-               shapes=[dict(S=512, ms=ms, plain_ms=plain_ms, bound_ms=b_ms),
-                       dict(S=1, ms=ms1, plain_ms=plain1, bound_ms=b1_ms,
-                            bound_by=b1_by)])
-    errs = ", ".join(f"S={S} {str(d)[6:]} {e:.3g}"
-                     for (S, d), e in worst.items())
-    line = (f"rwkv6_scan B={B} H={H} K=V={K}, nonzero S0: max abs err on o "
-            f"and S_T [{errs}] (tol {RWKV_TOL}); kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) at S=512 bf16; "
-            f"at S=1 (a decode step) kernel {ms1:.4f} ms, plain "
-            f"{plain1:.4f} ms, bound {b1_ms:.5f} ms ({b1_by})")
+               shapes=[dict(S=512, plan=plans[512], ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, unit_bound_ms=u_ms,
+                            unit_bound_by=u_by,
+                            earlier_ms=EARLIER_MS["rwkv6_scan S=512"]),
+                       dict(S=1, plan=plans[1], ms=ms1, plain_ms=plain1,
+                            bound_ms=b1_ms, bound_by=b1_by,
+                            earlier_ms=EARLIER_MS["rwkv6_scan S=1"])])
+    errs = ", ".join(f"S={S} {str(d)[6:]}{' strong' if st else ''} {e:.3g}"
+                     for (S, d, st), e in worst.items())
+    line = (f"rwkv6_scan B={B} H={H} K=V={K}, nonzero S0, decays "
+            f"-exp(N(0,1) - 1) and strong -exp(N(0,1) + 2): max abs err on o "
+            f"and S_T [{errs}] (tol {RWKV_TOL}), K=V in {{40, 20}} at S in "
+            f"{{77, 1}} x {{bf16, fp32}} within it; at S=512 bf16 "
+            f"[{plans[512]['design']}] kernel "
+            f"{ms:.4f} ms (earlier design {EARLIER_MS['rwkv6_scan S=512']} "
+            f"ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"fp32 cores), the chunk kernel's units {u_ms:.4f} ms ({u_by}); "
+            f"at S=1 (a decode step) [{plans[1]['design']}] kernel "
+            f"{ms1:.4f} ms (earlier design {EARLIER_MS['rwkv6_scan S=1']} "
+            f"ms), plain {plain1:.4f} ms, bound {b1_ms:.5f} ms ({b1_by})")
     return rec, [line]
 
 
@@ -590,6 +653,15 @@ def moe_smem(build, regime, rows, cols):
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
     return fn(ops.MOE_REGIMES[regime], rows, cols)
+
+
+def rwkv6_smem(build, bf16):
+    """Dynamic shared memory of a CTA of rwkv6_scan's chunk kernel for
+    bf16 or fp32 r/k/v, from the library itself."""
+    fn = build.library("rwkv6_scan").rwkv6_chunk_smem
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(int(bf16))
 
 
 def check_moe_gemm(ops, ref):
@@ -769,18 +841,28 @@ def check_decode(ops, ref):
 # (grok 6144, qwen3 2048, recurrentgemma 2560), qwen3's q-norm rows of one
 # decode step (8 x 16 heads of 128), and grok's dense prefill (8 x 512)
 RMS_SHAPES = [(8, 6144), (8, 2048), (4, 2560), (128, 128), (4096, 6144)]
+# qwen3's q and k rows of one layer (16 and 8 heads of 128): a decode step
+# of 8 sequences and a 512-token prefill
+QK_SHAPES = [((8, 1, 16, 128), (8, 1, 8, 128)),
+             ((1, 512, 16, 128), (1, 512, 8, 128))]
 
 
 def check_rmsnorm(ops, ref):
     """Both sides compute in fp32 and round once: fp32 within 2e-5 (the
-    reference's), bf16 within 2e-5 + one bf16 rounding, 2**-7 |plain|."""
+    reference's), bf16 within 2e-5 + one bf16 rounding, 2**-7 |plain|.
+    The fused entry points against the unfused kernel path, bit for bit:
+    ``add_rmsnorm(x, d)`` against ``x + d`` then ``rmsnorm`` at every
+    shape and dtype, ``qk_rmsnorm`` against two ``rmsnorm`` launches at
+    qwen3's q and k shapes.  Times beside a launch floor: one PyTorch
+    elementwise kernel on one element through the same ``time_ms``."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
-    worst = {}
-    for N, D in RMS_SHAPES + [(3, 64), (5, 16)]:
+    worst, exact = {}, []
+    for N, D in RMS_SHAPES + [(3, 64), (5, 16), (2, 8192)]:
         scale = torch.randn(D, generator=gen, device=DEVICE)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(N, D, generator=gen, device=DEVICE).to(dtype)
+            d = torch.randn(N, D, generator=gen, device=DEVICE).to(dtype)
             o = ops.rmsnorm(x, scale).float()
             o_p = ref.rmsnorm(x, scale).float()
             err = (o - o_p).abs()
@@ -790,17 +872,47 @@ def check_rmsnorm(ops, ref):
                 fail(f"rmsnorm ({N}, {D}) {dtype}: max abs err "
                      f"{float(err.max())}")
             worst[(N, D, dtype)] = float(err.max())
+            s_k, o_k = ops.add_rmsnorm(x, d, scale)
+            s_u = x + d
+            if not (torch.equal(s_k, s_u)
+                    and torch.equal(o_k, ops.rmsnorm(s_u, scale))):
+                fail(f"add_rmsnorm ({N}, {D}) {dtype}: not the bits of x + d "
+                     f"followed by rmsnorm")
+            exact.append(f"({N},{D}) {str(dtype)[6:]}")
+    for qs, ks in QK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(qs, generator=gen, device=DEVICE).to(dtype)
+            k = torch.randn(ks, generator=gen, device=DEVICE).to(dtype)
+            sq, sk = (torch.randn(qs[-1], generator=gen, device=DEVICE)
+                      for _ in range(2))
+            qo, ko = ops.qk_rmsnorm(q, k, sq, sk)
+            if not (torch.equal(qo, ops.rmsnorm(q, sq))
+                    and torch.equal(ko, ops.rmsnorm(k, sk))):
+                fail(f"qk_rmsnorm {qs} {ks} {dtype}: not the bits of two "
+                     f"rmsnorm launches")
+    one = torch.zeros(1, device=DEVICE)
+    floor_ms = time_ms(lambda: one.add_(1.0))
     times = []
     for N, D in RMS_SHAPES:
         scale = torch.randn(D, generator=gen, device=DEVICE)
         x = torch.randn(N, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+        d = torch.randn(N, D, generator=gen, device=DEVICE).to(torch.bfloat16)
         w = scale.to(x.dtype)
         b_ms, b_by = bound(2 * 2 * N * D + 4 * D, 3 * N * D, torch.bfloat16)
         times.append(dict(
             shape=[N, D], ms=time_ms(lambda: ops.rmsnorm(x, scale)),
             plain_ms=time_ms(lambda: ref.rmsnorm(x, scale)),
             library_ms=time_ms(lambda: F.rms_norm(x, (D,), w, 1e-6)),
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by, floor_ms=floor_ms,
+            earlier_ms=EARLIER_MS[f"rmsnorm {(N, D)}"],
+            add_ms=time_ms(lambda: ops.add_rmsnorm(x, d, scale)),
+            add_plain_ms=time_ms(lambda: ref.add_rmsnorm(x, d, scale)),
+            add_bound_ms=bound(4 * 2 * N * D + 4 * D, 4 * N * D,
+                               torch.bfloat16)[0]))
+    q, k = (torch.randn(sh, generator=gen, device=DEVICE).to(torch.bfloat16)
+            for sh in QK_SHAPES[0])
+    sq, sk = (torch.randn(128, generator=gen, device=DEVICE) for _ in range(2))
+    qk_ms = time_ms(lambda: ops.qk_rmsnorm(q, k, sq, sk))
     main = times[0]               # a grok decode step's norm
     rec = dict(name="rmsnorm", route="cuda",
                source="src/repro_torch/csrc/rmsnorm.cu",
@@ -808,15 +920,26 @@ def check_rmsnorm(ops, ref):
                max_abs_err=worst[(8, 6144, torch.bfloat16)], ms=main["ms"],
                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                bound_by=main["bound_by"], library_ms=main["library_ms"],
-               shapes=times)
+               shapes=times, launch_floor_ms=floor_ms,
+               qk_decode_ms=qk_ms)
     errs = ", ".join(f"({n},{d}) {str(t)[6:]} {e:.3g}"
                      for (n, d, t), e in worst.items())
     lines = [f"rmsnorm max abs err [{errs}] (tol fp32 2e-5, bf16 2e-5 + "
-             f"2**-7 |plain|)"]
-    lines += [f"rmsnorm {tuple(t['shape'])} bf16: kernel {t['ms']:.4f} ms, "
-              f"plain {t['plain_ms']:.4f} ms, F.rms_norm "
+             f"2**-7 |plain|); add_rmsnorm bit-identical to x + d then "
+             f"rmsnorm at [{', '.join(exact)}]; qk_rmsnorm bit-identical to "
+             f"two rmsnorm launches at {QK_SHAPES} x {{fp32,bf16}}; launch "
+             f"floor (one elementwise kernel on one element) "
+             f"{floor_ms:.4f} ms"]
+    lines += [f"rmsnorm {tuple(t['shape'])} bf16: kernel {t['ms']:.4f} ms "
+              f"(earlier design {t['earlier_ms']} ms; launch floor "
+              f"{floor_ms:.4f}), plain {t['plain_ms']:.4f} ms, F.rms_norm "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-              f"({t['bound_by']})" for t in times]
+              f"({t['bound_by']}); add_rmsnorm {t['add_ms']:.4f} ms, plain "
+              f"{t['add_plain_ms']:.4f} ms, bound {t['add_bound_ms']:.5f} ms"
+              for t in times]
+    lines.append(f"qk_rmsnorm at qwen3's decode q {QK_SHAPES[0][0]} and k "
+                 f"{QK_SHAPES[0][1]} bf16: {qk_ms:.4f} ms (one launch for "
+                 f"two norms)")
     return rec, lines
 
 
@@ -842,14 +965,16 @@ def expected_launches(cfg, prefills, steps, prefill_tokens, decode_tokens,
     attention prefill, paged or dense decode attention in every global
     layer's decode step (local layers decode plain, as in the reference),
     the scans where their layers run, three (gated) or two grouped GEMMs
-    per expert group of every MoE layer, and every norm of every pass."""
+    per expert group of every MoE layer, and every norm of every pass: the
+    norms after a residual add (every ln2, every ln1 but the first, the
+    final norm) fused with it in ``add_rmsnorm``, a layer's q and k norms
+    in one ``qk_rmsnorm``, the rest (the first ln1, post-norms)
+    ``rmsnorm``."""
     from repro_torch.models import moe
     kinds = cfg.layer_kinds
     n_glob, n_attn = kinds.count("attn"), kinds.count("attn") + kinds.count(
         "local")
     passes = prefills + steps
-    norms = (len(kinds) * (2 + 2 * cfg.post_norm)
-             + 2 * cfg.qk_norm * n_attn + 1)
     gemms = 0
     if cfg.moe is not None:
         def groups(T):
@@ -864,11 +989,13 @@ def expected_launches(cfg, prefills, steps, prefill_tokens, decode_tokens,
             "rglru_scan": kinds.count("rglru") * prefills,
             "moe_gemm": gemms,
             "decode_attention": 0 if paged else n_glob * steps,
-            "rmsnorm": norms * passes}
+            "rmsnorm": (1 + 2 * cfg.post_norm * len(kinds)) * passes,
+            "add_rmsnorm": 2 * len(kinds) * passes,
+            "qk_rmsnorm": cfg.qk_norm * n_attn * passes}
 
 
 def _launches(ops):
-    return {fn.__name__: fn.launches for fn in ops.KERNELS}
+    return {fn.__name__: fn.launches for fn in ops.WRAPPERS}
 
 
 def _peak_gb():
@@ -1502,7 +1629,8 @@ def main():
           f"{build_s:.2f} s (nvcc, sm_90a); TF32 off")
     ptxas = {name: build.ptxas_report(name) for name in build.KERNELS}
     for name in ("flash_attention", "decode_attention",
-                 "paged_decode_attention", "moe_gemm"):
+                 "paged_decode_attention", "moe_gemm", "rmsnorm",
+                 "rwkv6_scan"):
         print(f"[setup] ptxas {name}: " + "; ".join(
             f"{r['kernel']} {r.get('registers')} registers, "
             f"{r['spill_stores']}/{r['spill_loads']} B spilled, "
@@ -1514,6 +1642,9 @@ def main():
                                 ("wgmma", 192, 128), ("stream", 8, 128),
                                 ("stream", 16, 128), ("stream", 32, 128),
                                 ("stream", 64, 128))))
+    print("[setup] rwkv6_scan chunk kernel dynamic shared memory a CTA: "
+          + ", ".join(f"{dt} {rwkv6_smem(build, dt == 'bf16')} B"
+                      for dt in ("bf16", "fp32")))
 
     recs, lines = {}, []
     for check in (check_paged, check_flash, check_rwkv6, check_rglru,
@@ -1580,9 +1711,13 @@ def main():
     torch.cuda.empty_cache()
 
     for name, rec in recs.items():
-        rec["launches"] = sum(l[name] for l in path_launches.values())
+        rec["launches"] = sum(l[w] for l in path_launches.values()
+                              for w, k in ops.KERNEL_OF.items() if k == name)
         if rec["launches"] == 0:
             fail(f"{name} never launched on a served path")
+    for fn in ops.WRAPPERS:
+        if not any(l[fn.__name__] for l in path_launches.values()):
+            fail(f"{fn.__name__} never launched on a served path")
     kernels = {"kernels": [{k: v for k, v in recs[fn.__name__].items()
                             if k not in ("shapes", "cases")}
                            for fn in ops.KERNELS]}

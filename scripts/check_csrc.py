@@ -51,6 +51,10 @@ inline void __syncthreads() {}
 inline void __trap() {}
 inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline float __shfl_xor_sync(unsigned, float x, int) { return x; }
+inline float __shfl_up_sync(unsigned, float x, int) { return x; }
+inline float __shfl_down_sync(unsigned, float x, int) { return x; }
+inline float __uint_as_float(unsigned x) { return float(x); }
+inline unsigned __float_as_uint(float x) { return unsigned(x); }
 inline size_t __cvta_generic_to_shared(const void*) { return 0; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
@@ -102,7 +106,8 @@ def main() -> int:
         src = tmp / "src"
         src.mkdir()
         for path in sorted(CSRC.iterdir()):
-            text = path.read_text().replace("asm volatile(", "STUB_ASM(")
+            text = re.sub(r"\basm( volatile)?\(", "STUB_ASM(",
+                          path.read_text())
             text = re.sub(r"<<<.*?>>>", "", text, flags=re.S)
             (src / path.name).write_text(text)
         for path in sorted(src.glob("*.cu")):

@@ -34,18 +34,27 @@ _SIGNATURES = {
     "moe_gemm": [_P] * 3 + [_I] * 12 + [_P],
     # x, scale, out, N, D, eps, bf16, stream
     "rmsnorm": [_P] * 3 + [_I] * 2 + [_F, _I, _P],
+    # x, delta, scale, sum, out, N, D, eps, bf16, stream
+    "add_rmsnorm": [_P] * 5 + [_I] * 2 + [_F, _I, _P],
+    # q, q_scale, q_out, Nq, k, k_scale, k_out, Nk, D, eps, bf16, stream
+    "qk_rmsnorm": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 2 + [_F, _I, _P],
     # a, b, h0, hs, hT, B, S, W, stream
     "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
-    # r, k, v, lw, u, S0, o, S_T, B, S, H, K, V, bf16, stream
-    "rwkv6_scan": [_P] * 8 + [_I] * 6 + [_P],
+    # r, k, v, lw, u, S0, o, S_T, B, S, H, K, V, bf16, design, stream
+    "rwkv6_scan": [_P] * 8 + [_I] * 7 + [_P],
 }
 _LAUNCHERS = {}
+
+
+# entry points that live in another kernel's library
+_LIBRARY = {"add_rmsnorm": "rmsnorm", "qk_rmsnorm": "rmsnorm"}
 
 
 def _launcher(name: str):
     fn = _LAUNCHERS.get(name)
     if fn is None:
-        fn = getattr(build.library(name), f"{name}_launch")
+        fn = getattr(build.library(_LIBRARY.get(name, name)),
+                     f"{name}_launch")
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
         _LAUNCHERS[name] = fn
@@ -347,19 +356,32 @@ def _moe_launch(x, w, out, plan: MoePlan):
             plan.cols, plan.split, plan.kps)
 
 
+RMS_MAX_CHUNKS = 8 * 256   # 16-byte chunks a row: 8 a thread, 256 threads
+
+
+def _rms_width(name, x, *scales):
+    """Raise unless every scale is (D,) for x (..., D), D a multiple of
+    the 16-byte chunk and at most RMS_MAX_CHUNKS chunks.  Returns D."""
+    D = x.shape[-1]
+    chunk = 16 // x.element_size()
+    if any(tuple(s.shape) != (D,) for s in scales) or D % chunk \
+            or D // chunk > RMS_MAX_CHUNKS:
+        raise ValueError(
+            f"{name}: x {tuple(x.shape)} with scales "
+            f"{[tuple(s.shape) for s in scales]}; D must be a multiple of "
+            f"{chunk} and at most {chunk * RMS_MAX_CHUNKS}")
+    return D
+
+
 def rmsnorm(x, scale, *, eps=1e-6):
     """Row RMSNorm of x (..., D), fp32 or bf16, by scale (D,) fp32: fp32
     mean of squares, rsqrt, fp32 scale, cast to x's dtype.  D a multiple
-    of 8 (bf16) or 4 (fp32)."""
+    of 8 (bf16) or 4 (fp32), at most 16384 (bf16) or 8192 (fp32)."""
     if x.device.type == "cpu":
         return ref.rmsnorm(x, scale, eps)
-    D = x.shape[-1]
     _check("rmsnorm", x.device, {"x": x, "scale": scale}, ("x",),
            fp32_names=("scale",))
-    if tuple(scale.shape) != (D,) or D % (16 // x.element_size()):
-        raise ValueError(f"rmsnorm: x {tuple(x.shape)} with scale "
-                         f"{tuple(scale.shape)}; D must be a multiple of "
-                         f"{16 // x.element_size()}")
+    D = _rms_width("rmsnorm", x, scale)
     out = torch.empty_like(x)
     _launch("rmsnorm", x.device, x.data_ptr(), scale.data_ptr(),
             out.data_ptr(), x.numel() // D, D, eps,
@@ -368,12 +390,86 @@ def rmsnorm(x, scale, *, eps=1e-6):
     return out
 
 
+def add_rmsnorm(x, delta, scale, *, eps=1e-6):
+    """The residual add and the norm after it in one launch: returns
+    (s, rmsnorm(s)) with s = x + delta rounded to x's dtype, the same
+    bits as ``x + delta`` followed by ``rmsnorm``.  x and delta share one
+    shape and dtype; the rest as ``rmsnorm``."""
+    if x.device.type == "cpu":
+        return ref.add_rmsnorm(x, delta, scale, eps)
+    _check("add_rmsnorm", x.device, {"x": x, "delta": delta, "scale": scale},
+           ("x", "delta"), fp32_names=("scale",))
+    if delta.shape != x.shape:
+        raise ValueError(f"add_rmsnorm: x {tuple(x.shape)} and delta "
+                         f"{tuple(delta.shape)} differ")
+    D = _rms_width("add_rmsnorm", x, scale)
+    s, out = torch.empty_like(x), torch.empty_like(x)
+    _launch("add_rmsnorm", x.device, x.data_ptr(), delta.data_ptr(),
+            scale.data_ptr(), s.data_ptr(), out.data_ptr(), x.numel() // D,
+            D, eps, int(x.dtype == torch.bfloat16))
+    add_rmsnorm.launches += 1
+    return s, out
+
+
+def qk_rmsnorm(q, k, q_scale, k_scale, *, eps=1e-6):
+    """``rmsnorm(q, q_scale), rmsnorm(k, k_scale)`` in one launch, with
+    the same bits: q (..., D) and k (..., D) of one dtype (a layer's q
+    and k heads); the rest as ``rmsnorm``."""
+    if q.device.type == "cpu":
+        return ref.rmsnorm(q, q_scale, eps), ref.rmsnorm(k, k_scale, eps)
+    _check("qk_rmsnorm", q.device,
+           {"q": q, "k": k, "q_scale": q_scale, "k_scale": k_scale},
+           ("q", "k"), fp32_names=("q_scale", "k_scale"))
+    if k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"qk_rmsnorm: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} differ in width")
+    D = _rms_width("qk_rmsnorm", q, q_scale, k_scale)
+    qo, ko = torch.empty_like(q), torch.empty_like(k)
+    _launch("qk_rmsnorm", q.device, q.data_ptr(), q_scale.data_ptr(),
+            qo.data_ptr(), q.numel() // D, k.data_ptr(), k_scale.data_ptr(),
+            ko.data_ptr(), k.numel() // D, D, eps,
+            int(q.dtype == torch.bfloat16))
+    qk_rmsnorm.launches += 1
+    return qo, ko
+
+
+RWKV_CHUNK = 32          # tokens a chunk of the chunk kernel
+RWKV_MAX_HEAD = 64       # K and V, zero-padded to it in shared memory
+RWKV_STEP_COLS = 16      # V columns a CTA of the step kernel
+RWKV_DESIGNS = {"step": 0, "chunks": 1}
+
+
+class Rwkv6Plan(NamedTuple):
+    """How ``rwkv6_scan`` runs one call.  ``design``: "step" (S = 1, a
+    decode step: a CTA per (b, h) and 16 columns of V) or "chunks" (S > 1:
+    a CTA per (b, h) walks ``chunks`` chunks of RWKV_CHUNK tokens in
+    order, ``last`` tokens in the last one).  ``grid``: the launch's
+    (x, y), x the fastest."""
+    design: str
+    chunks: int
+    last: int
+    grid: tuple
+
+
+def rwkv6_plan(B: int, S: int, H: int, K: int, V: int) -> Rwkv6Plan:
+    """The plan of ``rwkv6_scan``: S = 1 takes the step kernel, longer
+    sequences the chunk kernel.  (A chunk kernel over slices of V, and a
+    two-pass one, with the states at the chunk starts first and every
+    chunk's output in parallel after, were slower at every S measured;
+    PERF.md section 6.)"""
+    if S == 1:
+        return Rwkv6Plan("step", 1, 1, (-(-V // RWKV_STEP_COLS), B * H))
+    chunks = -(-S // RWKV_CHUNK)
+    return Rwkv6Plan("chunks", chunks, S - (chunks - 1) * RWKV_CHUNK,
+                     (B * H, 1))
+
+
 def rwkv6_scan(r, k, v, lw, u, S0):
     """RWKV-6 wkv.  r, k (B,S,H,K) and v (B,S,H,V) share one dtype, fp32
     or bf16; the log-decay lw (B,S,H,K), u (H,K) and S0 (B,H,K,V) are fp32
     whatever that dtype is (the reference keeps the decay and the state in
     fp32).  Returns (o (B,S,H,V), S_T (B,H,K,V)), fp32.  Any S >= 1;
-    K, V <= 64."""
+    K, V <= 64; the kernel by ``rwkv6_plan``."""
     if r.device.type == "cpu":
         return ref.rwkv6_scan(r, k, v, lw, u, S0)
     B, S, H, K = r.shape
@@ -388,14 +484,15 @@ def rwkv6_scan(r, k, v, lw, u, S0):
             f"rwkv6_scan: bad shapes r {tuple(r.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}, lw {tuple(lw.shape)}, u {tuple(u.shape)}, "
             f"S0 {tuple(S0.shape)}")
-    if S < 1 or K > 64 or V > 64:
+    if S < 1 or K > RWKV_MAX_HEAD or V > RWKV_MAX_HEAD:
         raise ValueError(f"rwkv6_scan: S={S} must be >= 1 and K={K}, V={V} "
-                         "at most 64")
+                         f"at most {RWKV_MAX_HEAD}")
     o = torch.empty((B, S, H, V), dtype=torch.float32, device=r.device)
     S_T = torch.empty_like(S0)
     _launch("rwkv6_scan", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
             lw.data_ptr(), u.data_ptr(), S0.data_ptr(), o.data_ptr(),
-            S_T.data_ptr(), B, S, H, K, V, int(r.dtype == torch.bfloat16))
+            S_T.data_ptr(), B, S, H, K, V, int(r.dtype == torch.bfloat16),
+            RWKV_DESIGNS[rwkv6_plan(B, S, H, K, V).design])
     rwkv6_scan.launches += 1
     return o, S_T
 
@@ -421,10 +518,15 @@ def rglru_scan(a, b, h0):
 
 KERNELS = (flash_attention, paged_decode_attention, rwkv6_scan, rglru_scan,
            moe_gemm, decode_attention, rmsnorm)
+# every wrapper that launches a kernel: the seven, and the fused rmsnorm
+# entry points, whose launches count towards ``KERNEL_OF``'s kernel
+WRAPPERS = KERNELS + (add_rmsnorm, qk_rmsnorm)
+KERNEL_OF = {fn.__name__: _LIBRARY.get(fn.__name__, fn.__name__)
+             for fn in WRAPPERS}
 
 
 def reset_launches() -> None:
-    for fn in KERNELS:
+    for fn in WRAPPERS:
         fn.launches = 0
 
 

@@ -114,3 +114,9 @@ def rmsnorm(x, scale, eps=1e-6):
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def add_rmsnorm(x, delta, scale, eps=1e-6):
+    """The residual add, then the norm: (x + delta, rmsnorm(x + delta))."""
+    s = x + delta
+    return s, rmsnorm(s, scale, eps)

@@ -64,8 +64,8 @@ def _qkv(p, cfg, x, angles):
     k = _split_heads(nn.matmul(x, p["wk"]), cfg.n_kv_heads, cfg.head_dim)
     v = _split_heads(nn.matmul(x, p["wv"]), cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = nn.rmsnorm(q, p["q_norm"], cfg.norm_eps, cfg.impl)
-        k = nn.rmsnorm(k, p["k_norm"], cfg.norm_eps, cfg.impl)
+        q, k = nn.qk_rmsnorm(q, k, p["q_norm"], p["k_norm"], cfg.norm_eps,
+                             cfg.impl)
     if cfg.rope and angles is not None:
         q = nn.apply_rope(q, angles)
         k = nn.apply_rope(k, angles)

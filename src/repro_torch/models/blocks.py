@@ -26,6 +26,16 @@ def _post(p, cfg, name, y):
     return y
 
 
+def _add_norm(p, cfg, name, x, pending):
+    """(x + pending, its norm ``name``): the residual add fused with the
+    norm after it (one kernel launch under impl="pallas"); with nothing
+    pending (the first layer), the norm of x alone."""
+    if pending is None:
+        return x, nn.rmsnorm(x, p[name]["scale"], cfg.norm_eps, cfg.impl)
+    return nn.add_rmsnorm(x, pending, p[name]["scale"], cfg.norm_eps,
+                          cfg.impl)
+
+
 def _ffn_part(p, cfg, x):
     """Dense FFN or MoE.  The MoE load-balance loss is dropped: the serving
     paths drop it in the reference too."""
@@ -38,19 +48,31 @@ def _ffn_part(p, cfg, x):
 
 def _rwkv(p, cfg, x, h, cache):
     """The complete RWKV-6 layer on the normed input ``h``: time-mix,
-    residual, second norm, channel-mix, residual.  Returns (x, cache)."""
+    residual, second norm, channel-mix.  Returns (x, the channel-mix
+    output still to add, cache)."""
     out, c1 = rwkv6_mod.time_mix(p["rwkv"], cfg, h, cache)
-    x = x + out
-    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps, cfg.impl)
+    x, h2 = _add_norm(p, cfg, "ln2", x, out)
     out2, c2 = rwkv6_mod.channel_mix(p["rwkv"], cfg, h2, c1)
-    return x + out2, c2
+    return x, out2, c2
 
 
-def apply(p, cfg, kind: str, x, *, angles):
-    """Full-sequence (prefill) path.  Returns (x, the layer's raw cache
-    contribution: (k, v) before max-len padding, or the recurrent
+def _ffn_half(p, cfg, x, out):
+    """Residual of the mixer's output ``out``, second norm, FFN.  Returns
+    (x, the FFN branch still to add)."""
+    x, h2 = _add_norm(p, cfg, "ln2", x, _post(p, cfg, "ln1_post", out))
+    return x, _post(p, cfg, "ln2_post", _ffn_part(p, cfg, h2))
+
+
+# Every layer takes the residual stream ``x`` and the previous layer's
+# last branch output ``pending`` (None before the first layer) and
+# returns (x, its own last branch output, its cache): the add of a branch
+# is fused with the norm that follows it, in the next layer or the final
+# norm (``lm.py``).
+def apply(p, cfg, kind: str, x, pending, *, angles):
+    """Full-sequence (prefill) path.  Returns (x, pending, the layer's raw
+    cache contribution: (k, v) before max-len padding, or the recurrent
     cache)."""
-    h = nn.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps, cfg.impl)
+    x, h = _add_norm(p, cfg, "ln1", x, pending)
     if kind in (ATTN, LOCAL):
         out, cache = attention.apply(p["attn"], cfg, h, kind=kind,
                                      angles=angles)
@@ -61,17 +83,14 @@ def apply(p, cfg, kind: str, x, *, angles):
         return _rwkv(p, cfg, x, h, cache0)
     else:
         raise _unported(f"layer kind {kind!r}")
-    x = x + _post(p, cfg, "ln1_post", out)
-    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps, cfg.impl)
-    x = x + _post(p, cfg, "ln2_post", _ffn_part(p, cfg, h2))
-    return x, cache
+    return (*_ffn_half(p, cfg, x, out), cache)
 
 
-def apply_decode(p, cfg, kind: str, x, cache, pos, *, angles):
-    """Single-token decode path. Returns (x, the layer's new cache): the
-    attention caches are written in place and returned, the recurrent
-    states are new tensors."""
-    h = nn.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps, cfg.impl)
+def apply_decode(p, cfg, kind: str, x, pending, cache, pos, *, angles):
+    """Single-token decode path. Returns (x, pending, the layer's new
+    cache): the attention caches are written in place and returned, the
+    recurrent states are new tensors."""
+    x, h = _add_norm(p, cfg, "ln1", x, pending)
     if kind in (ATTN, LOCAL):
         out, cache = attention.apply_decode(p["attn"], cfg, h, cache, pos,
                                             kind=kind, angles=angles)
@@ -81,26 +100,21 @@ def apply_decode(p, cfg, kind: str, x, cache, pos, *, angles):
         return _rwkv(p, cfg, x, h, cache)
     else:
         raise _unported(f"layer kind {kind!r}")
-    x = x + _post(p, cfg, "ln1_post", out)
-    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps, cfg.impl)
-    x = x + _post(p, cfg, "ln2_post", _ffn_part(p, cfg, h2))
-    return x, cache
+    return (*_ffn_half(p, cfg, x, out), cache)
 
 
-def apply_decode_paged(p, cfg, kind: str, x, pool, block_tables, pos, *,
-                       angles):
-    """Single-token decode against a paged KV pool. Returns (x, pool)."""
+def apply_decode_paged(p, cfg, kind: str, x, pending, pool, block_tables,
+                       pos, *, angles):
+    """Single-token decode against a paged KV pool. Returns (x, pending,
+    pool)."""
     if kind != ATTN:
         raise NotImplementedError(
             f"paged decode supports global-attention layers only, got {kind!r}")
-    h = nn.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps, cfg.impl)
+    x, h = _add_norm(p, cfg, "ln1", x, pending)
     out, pool = attention.apply_decode_paged(p["attn"], cfg, h, pool,
                                              block_tables, pos,
                                              angles=angles)
-    x = x + _post(p, cfg, "ln1_post", out)
-    h2 = nn.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps, cfg.impl)
-    x = x + _post(p, cfg, "ln2_post", _ffn_part(p, cfg, h2))
-    return x, pool
+    return (*_ffn_half(p, cfg, x, out), pool)
 
 
 def paged_cache_init(cfg, kind: str, n_pages: int, page_size: int, dtype,

@@ -128,16 +128,31 @@ def head_logits(params, cfg, h):
 # ---------------------------------------------------------------------------
 def forward(params, cfg: ModelConfig, tokens):
     """Prefill forward (the training path is not ported yet).  tokens:
-    (B,S) int ids.  Returns (h_final (B,S,D) pre-final-norm, raw caches):
-    the per-layer nesting of (k, v) or recurrent caches, converted by
-    ``caches_from_prefill``."""
+    (B,S) int ids.  Returns (x, pending, raw caches): the residual stream
+    before the last layer's branch output ``pending`` is added (h_final =
+    x + pending, pre-final-norm; ``last_logits`` adds it fused with the
+    final norm), and the per-layer nesting of (k, v) or recurrent caches,
+    converted by ``caches_from_prefill``."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[:2]
     angles = _angles(cfg, default_positions(B, S, device=x.device))
-    raw = {}
+    raw, pending = {}, None
     for kind, p, _, key in _layers(cfg, params, None):
-        x, raw[key] = blocks.apply(p, cfg, kind, x, angles=angles)
-    return x, _nest(cfg, lambda kind, key: raw[key])
+        x, pending, raw[key] = blocks.apply(p, cfg, kind, x, pending,
+                                            angles=angles)
+    return x, pending, _nest(cfg, lambda kind, key: raw[key])
+
+
+def final_norm(params, cfg, x, pending):
+    """The last residual add fused with the final norm."""
+    return nn.add_rmsnorm(x, pending, params["final_norm"]["scale"],
+                          cfg.norm_eps, cfg.impl)[1]
+
+
+def last_logits(params, cfg, x, pending):
+    """Next-token logits (B,1,V) of the last position of a prefill."""
+    return head_logits(params, cfg, final_norm(params, cfg, x[:, -1:],
+                                               pending[:, -1:]))
 
 
 # ---------------------------------------------------------------------------
@@ -150,11 +165,9 @@ def caches_from_prefill(cfg, raw_caches, max_len: int):
 
 def prefill(params, cfg, tokens, *, max_len: int):
     """Returns (next-token logits (B,1,V), decode caches)."""
-    h, raw = forward(params, cfg, tokens)
+    x, pending, raw = forward(params, cfg, tokens)
     caches = caches_from_prefill(cfg, raw, max_len)
-    h_last = nn.rmsnorm(h[:, -1:], params["final_norm"]["scale"],
-                        cfg.norm_eps, cfg.impl)
-    return head_logits(params, cfg, h_last), caches
+    return last_logits(params, cfg, x, pending), caches
 
 
 def init_caches(cfg, batch: int, max_len: int, device):
@@ -171,11 +184,11 @@ def decode_step(params, cfg, tokens, caches, pos):
     positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32,
                            device=x.device)
     angles = _angles(cfg, positions)
-    new = {}
+    new, pending = {}, None
     for kind, p, cache, key in _layers(cfg, params, caches):
-        x, new[key] = blocks.apply_decode(p, cfg, kind, x, cache, int(pos),
-                                          angles=angles)
-    h = nn.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps, cfg.impl)
+        x, pending, new[key] = blocks.apply_decode(
+            p, cfg, kind, x, pending, cache, int(pos), angles=angles)
+    h = final_norm(params, cfg, x, pending)
     return head_logits(params, cfg, h), _nest(cfg, lambda kind, key: new[key])
 
 
@@ -219,10 +232,11 @@ def decode_step_paged(params, cfg, tokens, pools, block_tables, pos):
     place)."""
     x = embed_tokens(params, cfg, tokens)
     angles = _angles(cfg, pos[:, None].to(torch.int32))
+    pending = None
     for kind, p, pool, _ in _layers(cfg, params, pools):
-        x, _ = blocks.apply_decode_paged(p, cfg, kind, x, pool, block_tables,
-                                         pos, angles=angles)
-    h = nn.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps, cfg.impl)
+        x, pending, _ = blocks.apply_decode_paged(
+            p, cfg, kind, x, pending, pool, block_tables, pos, angles=angles)
+    h = final_norm(params, cfg, x, pending)
     return head_logits(params, cfg, h), pools
 
 

@@ -37,6 +37,29 @@ def rmsnorm(x, scale, eps: float = 1e-6, impl: Optional[str] = None):
     return kref.rmsnorm(x, scale, eps)
 
 
+def add_rmsnorm(x, delta, scale, eps: float = 1e-6,
+                impl: Optional[str] = None):
+    """The residual add and the norm after it: (x + delta, rmsnorm(x +
+    delta)); ``impl == "pallas"`` runs both in one rmsnorm kernel launch,
+    with the same bits."""
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        return kops.add_rmsnorm(x.contiguous(), delta.contiguous(), scale,
+                                eps=eps)
+    return kref.add_rmsnorm(x, delta, scale, eps)
+
+
+def qk_rmsnorm(q, k, q_scale, k_scale, eps: float = 1e-6,
+               impl: Optional[str] = None):
+    """(rmsnorm(q, q_scale), rmsnorm(k, k_scale)); ``impl == "pallas"``
+    runs both in one rmsnorm kernel launch, with the same bits."""
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        return kops.qk_rmsnorm(q.contiguous(), k.contiguous(), q_scale,
+                               k_scale, eps=eps)
+    return kref.rmsnorm(q, q_scale, eps), kref.rmsnorm(k, k_scale, eps)
+
+
 def softcap(x, cap: Optional[float]):
     if cap is None:
         return x

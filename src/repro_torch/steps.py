@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm, modules as nn
+from repro_torch.models import lm
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
@@ -32,11 +32,9 @@ def make_paged_prefill_step(cfg: ModelConfig):
     (params, tokens (1,S), pools, block_row (nmax,)) ->
     (next-token logits (1,1,V), pools updated in place)."""
     def prefill_paged(params, tokens, pools, block_row):
-        h, raw = lm.forward(params, cfg, tokens)
+        x, pending, raw = lm.forward(params, cfg, tokens)
         pools = lm.paged_from_prefill(cfg, pools, raw, block_row)
-        h_last = nn.rmsnorm(h[:, -1:], params["final_norm"]["scale"],
-                            cfg.norm_eps, cfg.impl)
-        return lm.head_logits(params, cfg, h_last), pools
+        return lm.last_logits(params, cfg, x, pending), pools
     return prefill_paged
 
 

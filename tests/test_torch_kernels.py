@@ -200,6 +200,108 @@ def test_rwkv6_scan_plain_takes_bf16_rkv_with_fp32_state():
     assert _err(o_r, o) < 2e-3 and _err(s_r, s) < 2e-3
 
 
+def _rwkv6_subchunks(r, k, v, lw, u, S0, L=32, sub=16):
+    """A CPU transcription of the chunk kernel's arithmetic
+    (``csrc/rwkv6_scan.cu``) in fp32: chunks of L, the last one padded
+    with lw = 0 and r = k = v = 0.  Every decay is the exp of a sum of
+    log-decays over just the tokens it spans: q_int = r exp(la_prev),
+    k_dec = k exp(la_L - la); in the off-diagonal sub-chunk block, r and k
+    scaled relative to la at the end of the earlier sub-chunk; in the
+    diagonal blocks, for s < t, the product of the step decays of the
+    tokens between them; the bonus on the diagonal.  Returns (o, S_T, the
+    largest exponent it evaluated)."""
+    B, S, H, K = r.shape
+    pad = -S % L
+    r, k, v, lw = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+                   for x in (r, k, v, lw))
+    st = S0.clone()
+    os, top = [], -float("inf")
+
+    def span(x, t0, t1):              # sum of log-decays of tokens t0..t1-1
+        return x[:, t0:t1].sum(1) if t1 > t0 else torch.zeros_like(x[:, 0])
+
+    def ex(x):
+        nonlocal top
+        top = max(top, float(x.max()))
+        return torch.exp(x)
+
+    for c0 in range(0, S + pad, L):
+        rc, kc, vc, lwc = (x[:, c0:c0 + L] for x in (r, k, v, lw))
+        w = ex(lwc)
+        A = torch.zeros(B, H, L, L)
+        for s0 in range(0, L, sub):                 # the diagonal blocks
+            for t in range(s0, s0 + sub):
+                p = torch.ones_like(rc[:, 0])
+                for s in range(t - 1, s0 - 1, -1):
+                    A[:, :, t, s] = (rc[:, t] * kc[:, s] * p).sum(-1)
+                    p = p * w[:, s]
+        for t0 in range(sub, L, sub):               # the off-diagonal ones
+            for s0 in range(0, t0, sub):
+                e = s0 + sub
+                qt = torch.stack([rc[:, t] * ex(span(lwc, e, t))
+                                  for t in range(t0, t0 + sub)], 1)
+                kt = torch.stack([kc[:, s] * ex(span(lwc, s + 1, e))
+                                  for s in range(s0, e)], 1)
+                A[:, :, t0:t0 + sub, s0:e] = torch.einsum(
+                    "bthk,bshk->bhts", qt, kt)
+        diag = torch.einsum("bthk,bthk->bht", rc, u[None, None] * kc)
+        A = A + torch.diag_embed(diag)
+        qi = torch.stack([rc[:, t] * ex(span(lwc, 0, t)) for t in range(L)], 1)
+        kd = torch.stack([kc[:, t] * ex(span(lwc, t + 1, L))
+                          for t in range(L)], 1)
+        o = torch.einsum("bthk,bhkv->bthv", qi, st) \
+            + torch.einsum("bhts,bshv->bthv", A, vc)
+        st = ex(span(lwc, 0, L))[..., None] * st + torch.einsum(
+            "bshk,bshv->bhkv", kd, vc)
+        os.append(o)
+    return torch.cat(os, 1)[:, :S], st, top
+
+
+@pytest.mark.parametrize("S,strong", [(77, False), (64, False), (1, False),
+                                      (40, True), (77, True)])
+def test_rwkv6_subchunk_factorization_matches_reference(S, strong):
+    """The chunk kernel's sub-chunk factorization, transcribed on the CPU,
+    against the JAX kernel (interpret mode) and its stepwise oracle within
+    2e-3, on the reference test's decays and on strong ones, lw =
+    -exp(N(0,1) + 2), where factoring the intra-chunk decay as
+    exp(la_prev_t) exp(-la_s), with a positive exponent, overflows.  Every
+    exponent the factorization evaluates is <= 0."""
+    rng = np.random.default_rng(10)
+    r, k, v, lw, u, S0 = _rwkv_inputs(rng, 2, S, 2, 16)
+    if strong:
+        lw = -np.exp(_randn(rng, lw.shape) + 2.0).astype(np.float32)
+        with np.errstate(over="ignore"):
+            assert not np.isfinite(np.exp(-np.cumsum(lw[:, :32], 1))).all()
+    o, s, top = _rwkv6_subchunks(*(torch.tensor(x) for x in
+                                   (r, k, v, lw, u, S0)))
+    assert top <= 0.0
+    for fn in (jref.rwkv6_scan, jops.rwkv6_scan):
+        o_j, s_j = fn(*(jnp.asarray(x) for x in (r, k, v, lw, u, S0)))
+        assert _err(o_j, o) < 2e-3 and _err(s_j, s) < 2e-3
+
+
+@pytest.mark.parametrize("S", [1, 2, 16, 17, 77, 509, 512])
+@pytest.mark.parametrize("V", [64, 40])
+def test_rwkv6_plan_covers_every_token_and_column(S, V):
+    """rwkv6_scan's plan at the served heads (B=8, H=32, K=V=64) and a
+    narrow one: S = 1 takes the step kernel, whose CTAs take 16 columns of
+    one (b, h) and cover V once; longer S the chunk kernel, one CTA per
+    (b, h), whose chunks of 32 cover the tokens once, the last one
+    ragged."""
+    p = ops.rwkv6_plan(8, S, 32, 64, V)
+    if S == 1:
+        assert p.design == "step" and p.grid[1] == 8 * 32
+        cols = ops.RWKV_STEP_COLS
+        spans = [(i * cols, min(V, (i + 1) * cols)) for i in range(p.grid[0])]
+        assert spans[0][0] == 0 and spans[-1][1] == V
+        assert all(a < b for a, b in spans)
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    else:
+        assert p.design == "chunks" and p.grid == (8 * 32, 1)
+        assert (p.chunks - 1) * ops.RWKV_CHUNK + p.last == S
+        assert 1 <= p.last <= ops.RWKV_CHUNK
+
+
 # --- contiguous decode attention (tests/test_kernels.py:43-56) --------------
 _DECODE_CASES = [(128, 2, 4, 17, 64), (256, 1, 8, 255, 64),
                  (192, 4, 1, 100, 64), (96, 2, 6, 0, 64),
@@ -448,6 +550,43 @@ def test_modules_rmsnorm_routes_through_the_kernel_wrapper(dtype):
     assert seen == [x.shape, (2, 1, 16)]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,D", [(64, 128), (5, 2048), (3, 16)])
+def test_add_rmsnorm_plain_matches_reference(N, D, dtype):
+    """The fused residual add and norm: s = x + d rounds as the reference's
+    add does (bit for bit), and its norm matches the reference's
+    ``rmsnorm`` and the Pallas kernel (interpret mode) on that sum."""
+    rng = np.random.default_rng(18)
+    (xj, xt), (dj, dt) = (_both(_randn(rng, (N, D)), dtype)
+                          for _ in range(2))
+    sc = _randn(rng, (D,))
+    s, o = ops.add_rmsnorm(xt, dt, torch.tensor(sc))
+    assert s.dtype == o.dtype == xt.dtype and o.shape == xt.shape
+    sj = xj + dj
+    assert np.array_equal(np.asarray(sj, np.float32), s.float().numpy())
+    assert _err(jref.rmsnorm(sj, jnp.asarray(sc)), o) < TOL[dtype]
+    assert _err(jops.rmsnorm(sj, jnp.asarray(sc), block_rows=N), o) \
+        < TOL[dtype]
+    s2, o2 = ref.add_rmsnorm(xt, dt, torch.tensor(sc))
+    assert torch.equal(s2, xt + dt) and torch.equal(
+        o2, ref.rmsnorm(xt + dt, torch.tensor(sc)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qk_rmsnorm_plain_is_two_rmsnorms(dtype):
+    """One launch for a layer's q and k norms on the card; on the CPU the
+    two plain norms, each matching the reference's."""
+    rng = np.random.default_rng(19)
+    (qj, q), (kj, k) = (_both(_randn(rng, sh), dtype)
+                        for sh in ((2, 3, 4, 16), (2, 3, 2, 16)))
+    sq, sk = _randn(rng, (16,)), _randn(rng, (16,))
+    qo, ko = ops.qk_rmsnorm(q, k, torch.tensor(sq), torch.tensor(sk))
+    assert torch.equal(qo, ops.rmsnorm(q, torch.tensor(sq)))
+    assert torch.equal(ko, ops.rmsnorm(k, torch.tensor(sk)))
+    assert _err(jref.rmsnorm(qj, jnp.asarray(sq)), qo) < TOL[dtype]
+    assert _err(jref.rmsnorm(kj, jnp.asarray(sk)), ko) < TOL[dtype]
+
+
 # --- dispatch on the tensor's device ----------------------------------------
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.reset_launches()
@@ -475,7 +614,11 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     assert torch.equal(ops.moe_gemm(x, w), ref.moe_gemm(x, w))
     s = torch.tensor(_randn(rng, (8,)))
     assert torch.equal(ops.rmsnorm(x, s), ref.rmsnorm(x, s))
+    assert all(torch.equal(a, b) for a, b in zip(
+        ops.add_rmsnorm(x, x, s), ref.add_rmsnorm(x, x, s)))
+    ops.qk_rmsnorm(x, x, s, s)
     assert [fn.launches for fn in ops.KERNELS] == [0] * len(ops.KERNELS)
+    assert [fn.launches for fn in ops.WRAPPERS] == [0] * len(ops.WRAPPERS)
 
 
 def test_non_cpu_tensor_without_a_kernel_raises():
@@ -503,4 +646,9 @@ def test_non_cpu_tensor_without_a_kernel_raises():
         ops.moe_gemm(a, a.transpose(1, 2))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.rmsnorm(a, a[0, 0])
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.add_rmsnorm(a, a, a[0, 0])
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.qk_rmsnorm(a, a, a[0, 0], a[0, 0])
     assert [fn.launches for fn in ops.KERNELS] == [0] * len(ops.KERNELS)
+    assert [fn.launches for fn in ops.WRAPPERS] == [0] * len(ops.WRAPPERS)

@@ -227,3 +227,56 @@ def test_decode_window_paged_matches_reference(model, impl):
     assert np.array_equal(np.asarray(tj), tt.numpy())
     assert np.array_equal(np.asarray(pj), pt.numpy())
     assert et.dtype == tt.dtype == pt.dtype == torch.int32
+
+
+# --- the norms after residual adds, fused --------------------------------
+FUSION_ARCHS = ("qwen3-1.7b", "rwkv6-1.6b", "recurrentgemma-2b",
+                "grok-1-314b")
+
+
+def _dense_logits(cfg, params, tokens):
+    """Logits of a prefill and of one decode step after it."""
+    logits, caches = lm.prefill(params, cfg, tokens,
+                                max_len=tokens.shape[1] + 2)
+    nxt = logits.argmax(-1).to(torch.int32)
+    step, _ = lm.decode_step(params, cfg, nxt, caches, tokens.shape[1])
+    return logits, step
+
+
+@pytest.mark.parametrize("arch", FUSION_ARCHS)
+def test_norms_after_adds_take_the_fused_wrappers(arch, monkeypatch):
+    """Under impl="pallas" every norm that follows a residual add (every
+    ln2, every ln1 but the first layer's, the final norm) reaches
+    ``ops.add_rmsnorm``, a layer's q and k norms one ``ops.qk_rmsnorm``,
+    and only the first ln1 (and post-norms) ``ops.rmsnorm``; a tiny config
+    of every served family gives the same logits, bit for bit, with the
+    fused wrappers replaced by the separate add and norms."""
+    from repro_torch.kernels import ops
+    cfg = get_tiny_config(arch).replace(impl="pallas")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.tensor(np.random.default_rng(20).integers(
+        0, cfg.vocab_size, (2, 9)), dtype=torch.int32)
+    calls = {}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return wrapper
+
+    plain = {n: getattr(ops, n) for n in ("rmsnorm", "add_rmsnorm",
+                                          "qk_rmsnorm")}
+    for name, fn in plain.items():
+        monkeypatch.setattr(ops, name, counted(name, fn))
+    fused = _dense_logits(cfg, params, tokens)
+    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    L = cfg.n_layers
+    assert calls == {"rmsnorm": 2 * (1 + 2 * cfg.post_norm * L),
+                     "add_rmsnorm": 2 * 2 * L,
+                     **({"qk_rmsnorm": 2 * n_attn} if cfg.qk_norm else {})}
+    monkeypatch.setattr(ops, "add_rmsnorm", lambda x, d, s, eps=1e-6: (
+        x + d, plain["rmsnorm"](x + d, s, eps=eps)))
+    monkeypatch.setattr(ops, "qk_rmsnorm", lambda q, k, sq, sk, eps=1e-6: (
+        plain["rmsnorm"](q, sq, eps=eps), plain["rmsnorm"](k, sk, eps=eps)))
+    unfused = _dense_logits(cfg, params, tokens)
+    assert all(torch.equal(a, b) for a, b in zip(fused, unfused))
