@@ -1,9 +1,12 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, holds each
 against its plain PyTorch version, serves qwen3-1.7b at full width through
-the paged engine, rwkv6-1.6b and recurrentgemma-2b at full width through
-the dense engine, and grok-1-314b at full width with its depth cut to
-four layers through both engines, and checks each served path at a cut
-depth against the port's plain path.
+the paged engine (plain, and with the prefix cache, speculative decoding
+and chunked prefill on, beside the same traffic with them off),
+rwkv6-1.6b and recurrentgemma-2b at full width through the dense engine,
+and grok-1-314b at full width with its depth cut to four layers through
+both engines, and checks each served path at a cut depth against the
+port's plain path (the paged engine's features each alone and all three
+for qwen3; for grok, all three against the plain engine without them).
 
     python3 chip_smoke.py
 
@@ -18,6 +21,7 @@ preceded by the kernels' JSON line and the card's name and power limit.
 The full record of the run is also written to chiprun_out/chip_smoke.json.
 """
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -841,10 +845,14 @@ def check_decode(ops, ref):
 # (grok 6144, qwen3 2048, recurrentgemma 2560), qwen3's q-norm rows of one
 # decode step (8 x 16 heads of 128), and grok's dense prefill (8 x 512)
 RMS_SHAPES = [(8, 6144), (8, 2048), (4, 2560), (128, 128), (4096, 6144)]
+# the paged engine's suffix-body widths on qwen3: verify windows (4, 16),
+# a prefix hit's 64-token suffix, a 128-token prefill chunk
+SUFFIX_WIDTHS = (4, 16, 64, 128)
 # qwen3's q and k rows of one layer (16 and 8 heads of 128): a decode step
-# of 8 sequences and a 512-token prefill
+# of 8 sequences, a 512-token prefill and each suffix-body width
 QK_SHAPES = [((8, 1, 16, 128), (8, 1, 8, 128)),
-             ((1, 512, 16, 128), (1, 512, 8, 128))]
+             ((1, 512, 16, 128), (1, 512, 8, 128))] + [
+    ((1, w, 16, 128), (1, w, 8, 128)) for w in SUFFIX_WIDTHS]
 
 
 def check_rmsnorm(ops, ref):
@@ -853,12 +861,14 @@ def check_rmsnorm(ops, ref):
     The fused entry points against the unfused kernel path, bit for bit:
     ``add_rmsnorm(x, d)`` against ``x + d`` then ``rmsnorm`` at every
     shape and dtype, ``qk_rmsnorm`` against two ``rmsnorm`` launches at
-    qwen3's q and k shapes.  Times beside a launch floor: one PyTorch
+    qwen3's q and k shapes (and against the plain version, as above).
+    Times beside a launch floor: one PyTorch
     elementwise kernel on one element through the same ``time_ms``."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
     worst, exact = {}, []
-    for N, D in RMS_SHAPES + [(3, 64), (5, 16), (2, 8192)]:
+    for N, D in RMS_SHAPES + [(w, 2048) for w in SUFFIX_WIDTHS] + [
+            (3, 64), (5, 16), (2, 8192)]:
         scale = torch.randn(D, generator=gen, device=DEVICE)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(N, D, generator=gen, device=DEVICE).to(dtype)
@@ -890,6 +900,14 @@ def check_rmsnorm(ops, ref):
                     and torch.equal(ko, ops.rmsnorm(k, sk))):
                 fail(f"qk_rmsnorm {qs} {ks} {dtype}: not the bits of two "
                      f"rmsnorm launches")
+            for o, x, sc in ((qo, q, sq), (ko, k, sk)):
+                o_p = ref.rmsnorm(x, sc).float()
+                err = (o.float() - o_p).abs()
+                limit = 2e-5 + (2.0 ** -7 * o_p.abs()
+                                if dtype == torch.bfloat16 else 0.0)
+                if not within(err, limit):
+                    fail(f"qk_rmsnorm {tuple(x.shape)} {dtype}: max abs err "
+                         f"{float(err.max())} against the plain rmsnorm")
     one = torch.zeros(1, device=DEVICE)
     floor_ms = time_ms(lambda: one.add_(1.0))
     times = []
@@ -927,7 +945,8 @@ def check_rmsnorm(ops, ref):
     lines = [f"rmsnorm max abs err [{errs}] (tol fp32 2e-5, bf16 2e-5 + "
              f"2**-7 |plain|); add_rmsnorm bit-identical to x + d then "
              f"rmsnorm at [{', '.join(exact)}]; qk_rmsnorm bit-identical to "
-             f"two rmsnorm launches at {QK_SHAPES} x {{fp32,bf16}}; launch "
+             f"two rmsnorm launches, and within the rmsnorm tolerance of "
+             f"the plain version, at {QK_SHAPES} x {{fp32,bf16}}; launch "
              f"floor (one elementwise kernel on one element) "
              f"{floor_ms:.4f} ms"]
     lines += [f"rmsnorm {tuple(t['shape'])} bf16: kernel {t['ms']:.4f} ms "
@@ -958,25 +977,32 @@ GROK_DEPTH = 4     # 4 x 9.84 GB of layers + 3.2 GB of embedding and head
 
 
 def expected_launches(cfg, prefills, steps, prefill_tokens, decode_tokens,
-                      paged):
+                      paged, suffix_passes=0):
     """Each kernel's launches in ``prefills`` prefills of
-    ``prefill_tokens`` tokens each and ``steps`` decode steps over
-    ``decode_tokens`` sequences under impl=pallas: flash in every
-    attention prefill, paged or dense decode attention in every global
-    layer's decode step (local layers decode plain, as in the reference),
-    the scans where their layers run, three (gated) or two grouped GEMMs
-    per expert group of every MoE layer, and every norm of every pass: the
-    norms after a residual add (every ln2, every ln1 but the first, the
-    final norm) fused with it in ``add_rmsnorm``, a layer's q and k norms
-    in one ``qk_rmsnorm``, the rest (the first ln1, post-norms)
-    ``rmsnorm``."""
+    ``prefill_tokens`` tokens each, ``steps`` decode steps over
+    ``decode_tokens`` sequences and ``suffix_passes`` passes of the paged
+    engine's suffix body (prefix-hit suffixes, prefill chunks, verify
+    windows) under impl=pallas: flash in every attention prefill, paged
+    or dense decode attention in every global layer's decode step (local
+    layers decode plain, as in the reference; the suffix body attends
+    plain, as in the reference), the scans where their layers run, three
+    (gated) or two grouped GEMMs per expert group of every MoE layer, and
+    every norm of every pass: the norms after a residual add (every ln2,
+    every ln1 but the first, the final norm) fused with it in
+    ``add_rmsnorm``, a layer's q and k norms in one ``qk_rmsnorm``, the
+    rest (the first ln1, post-norms) ``rmsnorm``.  A MoE layer's group
+    count follows from a pass's width, which the engine's counters do not
+    give for suffix passes: no launch-checked run serves MoE with them."""
     from repro_torch.models import moe
     kinds = cfg.layer_kinds
     n_glob, n_attn = kinds.count("attn"), kinds.count("attn") + kinds.count(
         "local")
-    passes = prefills + steps
+    passes = prefills + steps + suffix_passes
     gemms = 0
     if cfg.moe is not None:
+        if suffix_passes:
+            fail(f"{cfg.name}: MoE launches of suffix passes not derivable")
+
         def groups(T):
             return moe._group_count(cfg.moe.n_experts, moe.capacity(cfg, T),
                                     cfg.d_model)
@@ -985,13 +1011,27 @@ def expected_launches(cfg, prefills, steps, prefill_tokens, decode_tokens,
                     + groups(decode_tokens) * steps))
     return {"flash_attention": n_attn * prefills,
             "paged_decode_attention": n_glob * steps if paged else 0,
-            "rwkv6_scan": kinds.count("rwkv6") * passes,
+            "rwkv6_scan": kinds.count("rwkv6") * (prefills + steps),
             "rglru_scan": kinds.count("rglru") * prefills,
             "moe_gemm": gemms,
             "decode_attention": 0 if paged else n_glob * steps,
             "rmsnorm": (1 + 2 * cfg.post_norm * len(kinds)) * passes,
             "add_rmsnorm": 2 * len(kinds) * passes,
             "qk_rmsnorm": cfg.qk_norm * n_attn * passes}
+
+
+def engine_passes(eng):
+    """(cache-miss prefills, decode steps of the fused scans, suffix
+    passes) from the paged engine's own counters: every model pass is
+    one of the three.  A suffix pass is a chunk, a verify (a decode step
+    of the engine's) or, with chunking off, a prefix hit's suffix."""
+    m = eng.metrics()
+    verifies = m.get("spec_verifies", 0)
+    scan_steps = eng.decode_steps - verifies
+    suffix = m.get("chunk_dispatches", 0) + verifies + (
+        0 if eng.sched.chunked else m.get("prefix_hits", 0))
+    prefills = m["model_passes"] - scan_steps - suffix
+    return prefills, scan_steps, suffix
 
 
 def _launches(ops):
@@ -1037,8 +1077,9 @@ def serve_paged(ops, cfg, params):
     if any(not (0 <= t < cfg.vocab_size) for r in fin for t in r.tokens):
         fail(f"{cfg.name}: token ids out of range (NaN logits?)")
     decode_steps = eng.decode_steps
-    prefills = m["model_passes"] - decode_steps
-    want = expected_launches(cfg, prefills, decode_steps, plen, batch, True)
+    prefills, scan_steps, suffix = engine_passes(eng)
+    want = expected_launches(cfg, prefills, scan_steps, plen, batch, True,
+                             suffix)
     if launches != want:
         fail(f"{cfg.name} paged: launches {launches} != expected {want} for "
              f"{prefills} prefills and {decode_steps} decode steps")
@@ -1074,6 +1115,240 @@ def serve_paged(ops, cfg, params):
     del eng
     torch.cuda.empty_cache()
     return stats, launches, line
+
+
+# the phase 3 run of the paged engine's prefix cache, speculative decoding
+# and chunked prefill: PAGED_RUN's traffic on prompts of two groups of 8
+# that share a leading 456 tokens (the match ends mid-page: each hit
+# copies a page), each prompt's last 56 tokens a per-prompt 4-token motif
+FEATURE_RUN = dict(shared=456, motif=4, groups=2, chunk_tokens=128)
+FEATURES = dict(prefix_cache=True, spec_decode=True, spec_k="auto",
+                chunked_prefill=True)
+
+
+def feature_prompts(vocab, seed, groups, per_group, plen, shared, motif):
+    """``tests/conftest.py``'s ``seeded_prompts`` constructions with numpy
+    from ``seed``: each group's prompts share a leading ``shared``
+    tokens, and the rest of each prompt tiles its own ``motif``-token
+    pattern (n-gram drafting fodder)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(groups):
+        base = rng.integers(2, vocab, shared, dtype=np.int32)
+        for _ in range(per_group):
+            pat = rng.integers(2, vocab, motif, dtype=np.int32)
+            tail = np.tile(pat, -(-(plen - shared) // motif))[:plen - shared]
+            out.append(np.concatenate([base, tail]))
+    return out
+
+
+def serve_leaders_first(eng, prompts, gen_len, leaders, rid="req"):
+    """Submit the ``leaders`` (the first prompt of each shared prefix),
+    step until their prefills are done (their prompts are then in the
+    prefix cache), then submit the rest and run to the end: a shared
+    system prompt's later users find it cached.  Returns the finished
+    requests."""
+    for i in leaders:
+        eng.submit(prompts[i], gen_len, rid=f"{rid}{i}")
+    while eng.sched.waiting or eng.sched.prefilling:
+        eng.step()
+    for i, p in enumerate(prompts):
+        if i not in leaders:
+            eng.submit(p, gen_len, rid=f"{rid}{i}")
+    return eng.run()
+
+
+def _ttft_ms(eng, plen, n=3):
+    """Time to first token on an idle engine, device-synchronized: a
+    miss (a prompt on a prefix nothing shares yet) and then a hit
+    (another prompt on that prefix), each generating one token, ``n``
+    times.  Returns (miss ms, hit ms)."""
+    run = FEATURE_RUN
+    miss, hit = [], []
+    for j in range(n):
+        pair = feature_prompts(eng.cfg.vocab_size, SEED + 100 + j, 1, 2,
+                               plen, run["shared"], run["motif"])
+        for p, out, tag in zip(pair, (miss, hit), "ab"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            eng.submit(p, 1, rid=f"ttft{j}{tag}")
+            eng.run()
+            torch.cuda.synchronize()
+            out.append((time.time() - t0) * 1e3)
+    return miss, hit
+
+
+def _suffix_profile(eng, prompt):
+    """One 128-token chunk pass (positions 384..511) and one 16-wide
+    verify window, each under torch.profiler, against null rows (their
+    writes land on the null page), and the plain suffix attention of one
+    layer at the chunk's shapes timed alone (``time_ms``)."""
+    from repro_torch.models import attention
+    from repro_torch.serving.paged_kv import NULL_PAGE
+    cfg = eng.cfg
+    row = torch.full((eng.nmax,), NULL_PAGE, dtype=torch.int32,
+                     device=DEVICE)
+    tok = torch.tensor(prompt[None], device=DEVICE)
+
+    def chunk():
+        eng._chunk(eng.params, tok[:, 384:512], eng.pools, row, 384, 128)
+        return 1
+
+    def verify():
+        eng._verify(eng.params, tok[:, :16], eng.pools, row, 500, 16)
+        return 1
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    q = torch.randn(1, 128, cfg.n_heads, cfg.head_dim, generator=g,
+                    device=DEVICE).to(torch.bfloat16)
+    pool = eng.pools[0][0][0]
+    attn_ms = time_ms(lambda: attention.attend_prefill_paged(
+        q, pool, row, 384, scale=cfg.head_dim ** -0.5,
+        softcap=cfg.attn_softcap, n_kv=cfg.n_kv_heads))
+    return dict(chunk=_profile(chunk), verify=_profile(verify),
+                attn_ms_layer=attn_ms, attn_ms_pass=attn_ms * cfg.n_layers)
+
+
+def serve_paged_features(ops, cfg, params):
+    """The paged engine at ``cfg``'s widths with the prefix cache,
+    speculative decoding (adaptive K, device proposer) and chunked
+    prefill (128-token chunks) on, then the same engine with all three
+    off, each warm on PAGED_RUN's traffic over FEATURE_RUN's prompts.
+    Checks every request's tokens, the finite logits of a decode step
+    and of a verify window, that each feature engaged (prefix hits >= 14,
+    verifies >= 1, chunk passes >= 16) and each kernel's launches against
+    the engine's own pass counters.  Returns, per run, (stats, launches,
+    line)."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import PagedEngine
+    from repro_torch.serving.paged_kv import NULL_PAGE
+
+    run, fr = PAGED_RUN, FEATURE_RUN
+    n_req, plen, gen_len, batch, ps = (run[k] for k in (
+        "requests", "prompt_len", "gen", "batch", "page_size"))
+    per_group = n_req // fr["groups"]
+    prompts = feature_prompts(cfg.vocab_size, SEED + 11, fr["groups"],
+                              per_group, plen, fr["shared"], fr["motif"])
+    leaders = list(range(0, n_req, per_group))
+    max_len = plen + gen_len
+    out, toks = [], {}
+    for on in (True, False):
+        kw = dict(FEATURES, chunk_tokens=fr["chunk_tokens"]) if on else {}
+        eng = PagedEngine(cfg, params, max_batch=batch, page_size=ps,
+                          n_pages=batch * (-(-max_len // ps)) + 1,
+                          max_len=max_len, fused=True,
+                          max_window=run["window"], device=DEVICE, **kw)
+        # warm: every window and verify width, a prefill and, with the
+        # cache on, a miss and a hit; then a cold tree and zero counters
+        eng.warmup_windows()
+        eng.submit(prompts[0], 2, rid="warm")
+        eng.run()
+        eng.warmup_prefix(plen, fr["shared"])
+        eng.reset_metrics()
+        if eng.cache is not None:
+            eng.cache.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                 # counts of this run only
+        t0 = time.time()
+        fin = serve_leaders_first(eng, prompts, gen_len, leaders)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _launches(ops)
+        peak_gb = _peak_gb()
+        m = eng.metrics()
+        what = f"{cfg.name} paged, features {'on' if on else 'off'}"
+        if len(fin) != n_req or any(len(r.tokens) != gen_len for r in fin):
+            fail(f"{what}: not every request finished with its tokens")
+        if any(not (0 <= t < cfg.vocab_size) for r in fin for t in r.tokens):
+            fail(f"{what}: token ids out of range (NaN logits?)")
+        toks[on] = {r.rid: list(r.tokens) for r in fin}
+        prefills, scan_steps, suffix = engine_passes(eng)
+        want = expected_launches(cfg, prefills, scan_steps, plen, batch,
+                                 True, suffix)
+        if launches != want:
+            fail(f"{what}: launches {launches} != expected {want} for "
+                 f"{prefills} prefills, {scan_steps} decode steps and "
+                 f"suffix passes {suffix}")
+        if on and not (m["prefix_hits"] >= n_req - len(leaders)
+                       and m["spec_verifies"] >= 1
+                       and m["chunk_dispatches"] >= n_req):
+            fail(f"{what}: a feature did not engage: prefix hits "
+                 f"{m['prefix_hits']}, verifies {m['spec_verifies']}, "
+                 f"chunk passes {m['chunk_dispatches']}")
+        logits, _ = _one_step_logits(eng)
+        finite = bool(torch.isfinite(logits).all())
+        if on:
+            null_row = torch.full((eng.nmax,), NULL_PAGE, dtype=torch.int32,
+                                  device=DEVICE)
+            vl, _ = lm.verify_window_paged(
+                eng.params, cfg, torch.tensor(prompts[0][None, :16],
+                                              device=DEVICE),
+                eng.pools, null_row, plen, 16)
+            finite = finite and bool(torch.isfinite(vl).all())
+        if not finite:
+            fail(f"{what}: non-finite logits after serving")
+        miss, hit = _ttft_ms(eng, plen)
+        prof = _suffix_profile(eng, prompts[0]) if on else None
+        stats = dict(arch=cfg.name, features=on, requests=n_req,
+                     prompt_len=plen, gen=gen_len, max_batch=batch,
+                     page_size=ps, shared_prefix=fr["shared"],
+                     chunk_tokens=fr["chunk_tokens"] if on else None,
+                     wall_s=wall, tok_per_s=m["tokens_out"] / wall,
+                     decode_step_ms=m["decode_step_s"] * 1e3,
+                     ttft_miss_ms=miss, ttft_hit_ms=hit,
+                     prefills=prefills, decode_steps=scan_steps,
+                     suffix_passes=suffix, windows=m["windows"],
+                     model_passes=m["model_passes"],
+                     dispatches_per_token=m["dispatches_per_token"],
+                     h2d_syncs=m["h2d_syncs"], d2h_syncs=m["d2h_syncs"],
+                     preemptions=m["preemptions"], launches=launches,
+                     peak_gb=peak_gb, profile=prof,
+                     **{k: m.get(k) for k in (
+                         "prefix_hits", "cow_copies", "bytes_deduped",
+                         "spec_verifies", "spec_drafted", "spec_accepted",
+                         "spec_rollbacks", "accept_rate", "spec_k_mean",
+                         "spec_verify_s", "chunk_dispatches",
+                         "chunk_tasks")})
+        line = (f"serve {what} ({cfg.n_layers} layers, bf16 activations, "
+                f"impl=pallas; {n_req} requests of {plen} + {gen_len} "
+                f"tokens, two groups sharing {fr['shared']} tokens, "
+                f"4-token motif tails, leaders first"
+                + (f", chunks of {fr['chunk_tokens']}, spec_k auto"
+                   if on else "") + f"): {wall:.2f} s, "
+                f"{stats['tok_per_s']:.1f} tok/s, decode step "
+                f"{stats['decode_step_ms']:.3f} ms, time to first token "
+                f"miss {np.mean(miss):.3f} ms {[round(x, 3) for x in miss]}"
+                f", hit {np.mean(hit):.3f} ms {[round(x, 3) for x in hit]}; "
+                f"{prefills} prefills, {scan_steps} decode steps, suffix "
+                f"passes {suffix}; prefix hits {m.get('prefix_hits')}, COW "
+                f"copies {m.get('cow_copies')}, verifies "
+                f"{m.get('spec_verifies')}, accept rate "
+                f"{m.get('accept_rate')}, mean K {m.get('spec_k_mean')}, "
+                f"chunk passes {m.get('chunk_dispatches')}; "
+                f"{m['dispatches_per_token']:.4f} passes per token; syncs "
+                f"{m['h2d_syncs']} h2d + {m['d2h_syncs']} d2h; peak memory "
+                f"{peak_gb:.2f} GB; launches {launches}")
+        if on:
+            c, v = prof["chunk"], prof["verify"]
+            line += (f"; profiled 128-token chunk pass {c['wall_ms']:.3f} ms "
+                     f"wall, device busy {c['busy_share']:.3f}, "
+                     f"{c['launches_per_step']:.0f} launches, top {c['top']}"
+                     f"; 16-wide verify {v['wall_ms']:.3f} ms wall, busy "
+                     f"{v['busy_share']:.3f}, top {v['top']}; plain suffix "
+                     f"attention at the chunk's shapes "
+                     f"{prof['attn_ms_layer']:.4f} ms a layer, "
+                     f"{prof['attn_ms_pass']:.3f} ms a pass")
+        out.append((stats, launches, line))
+        del eng
+        torch.cuda.empty_cache()
+    same = sum(toks[True][r] == toks[False][r] for r in toks[False])
+    out[0][0]["same_tokens_as_off"] = same / n_req
+    out[0] = (out[0][0], out[0][1], out[0][2]
+              + f"; {same} of {n_req} requests' tokens equal the "
+              f"features-off run's (not gated: bf16 through another "
+              f"attention path may flip a near-tie)")
+    return out
 
 
 def serve_dense(ops, cfg, params):
@@ -1258,21 +1533,68 @@ def _mean_prefill_ms(eng, prompt, n=5):
 # ---------------------------------------------------------------------------
 # phase 4 — engine parity against the port's dense path (plain attention)
 # ---------------------------------------------------------------------------
+def _plain_oracle(ref_cfg, params, prompts, gen_len):
+    """The dense plain path's greedy tokens, the top-2 logit margin at
+    each step and the first-token logits, per prompt (keyed ``r{i}``)."""
+    from repro_torch import steps
+    plen = len(prompts[0])
+    pre_r = steps.make_prefill_step(ref_cfg, max_len=plen + gen_len)
+    serve_r = steps.make_serve_step(ref_cfg)
+    oracle, margins, first = {}, {}, {}
+    for i, p in enumerate(prompts):
+        logits, caches = pre_r(params, torch.tensor(p[None], device=DEVICE))
+        first[f"r{i}"] = logits
+        toks, mg = [], []
+        for j in range(gen_len):
+            top2 = logits[0, 0].topk(2).values
+            mg.append(float(top2[0] - top2[1]))
+            nxt = logits.argmax(-1).to(torch.int32)
+            toks.append(int(nxt[0, 0]))
+            if j < gen_len - 1:
+                nxt, logits, caches = serve_r(params, nxt, caches, plen + j)
+        oracle[f"r{i}"], margins[f"r{i}"] = toks, mg
+    return oracle, margins, first
+
+
+def _near_ties(fin, oracle, margins, what):
+    """(rid, step, margin) of each request's first token that differs
+    from the oracle's.  Fails unless the oracle's top-2 margin there is
+    below 1e-4 (a near-tie)."""
+    ties = []
+    for r in fin:
+        want = oracle[r.rid]
+        if len(r.tokens) != len(want):
+            fail(f"{what} {r.rid}: {len(r.tokens)} tokens, not {len(want)}")
+        for j, (a, b) in enumerate(zip(r.tokens, want)):
+            if a != b:
+                ties.append((r.rid, j, margins[r.rid][j]))
+                if not margins[r.rid][j] < 1e-4:
+                    fail(f"{what} {r.rid} step {j}: engine token {a} != "
+                         f"oracle {b} with top-2 margin {margins[r.rid][j]}")
+                break
+    return ties
+
+
+def _parity_model(seed):
+    """qwen3-1.7b at full width cut to 4 layers, fp32 activations,
+    impl=pallas, with random parameters from ``seed``."""
+    from repro_torch.configs import get_config
+    from repro_torch.weights import init_params
+    full = get_config("qwen3-1.7b")
+    cfg = full.replace(n_layers=4, activation_dtype="float32",
+                       impl="pallas")
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return full, cfg, init_params(cfg, g, DEVICE)
+
+
 def engine_parity():
     from repro_torch import steps
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_prompts
     from repro_torch.serving.engine import PagedEngine
     from repro_torch.serving.paged_kv import NULL_PAGE
-    from repro_torch.weights import init_params
 
-    depth, full = 4, get_config("qwen3-1.7b")
-    cfg = full.replace(n_layers=depth,
-                                           activation_dtype="float32",
-                                           impl="pallas")
-    ref_cfg = cfg.replace(impl="ref")
-    g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    params = init_params(cfg, g, DEVICE)
+    full, cfg, params = _parity_model(SEED + 2)
+    depth = cfg.n_layers
     n_req, plen, gen_len, ps = 4, 512, 16, 16
     prompts = make_prompts(n_req, plen, cfg.vocab_size, SEED + 2)
     max_len = plen + gen_len
@@ -1282,52 +1604,149 @@ def engine_parity():
                       device=DEVICE)
     # first-token logits: the engine's prefill step (flash kernel) against
     # the dense prefill with the plain attention
+    oracle, margins, first = _plain_oracle(cfg.replace(impl="ref"), params,
+                                           prompts, gen_len)
     pre_k = steps.make_paged_prefill_step(cfg)
-    pre_r = steps.make_prefill_step(ref_cfg, max_len=max_len)
-    serve_r = steps.make_serve_step(ref_cfg)
     row = torch.full((eng.nmax,), NULL_PAGE, dtype=torch.int32,
                      device=DEVICE)
     logit_err = 0.0
-    oracle, margins = {}, {}
     for i, p in enumerate(prompts):
-        tok = torch.tensor(p[None], device=DEVICE)
-        lk, _ = pre_k(params, tok, eng.pools, row)
-        lr, caches = pre_r(params, tok)
-        logit_err = max(logit_err, max_err(lk, lr))
-        toks, mg = [], []
-        logits = lr
-        for j in range(gen_len):
-            top2 = logits[0, 0].topk(2).values
-            mg.append(float(top2[0] - top2[1]))
-            nxt = logits.argmax(-1).to(torch.int32)
-            toks.append(int(nxt[0, 0]))
-            if j < gen_len - 1:
-                nxt, logits, caches = serve_r(params, nxt, caches, plen + j)
-        oracle[f"r{i}"], margins[f"r{i}"] = toks, mg
+        lk, _ = pre_k(params, torch.tensor(p[None], device=DEVICE),
+                      eng.pools, row)
+        logit_err = max(logit_err, max_err(lk, first[f"r{i}"]))
     if not logit_err <= 1e-3:
         fail(f"first-token logits differ by {logit_err} > 1e-3")
     for p in prompts:
         eng.submit(p, gen_len)
-    fin = eng.run()
-    ties = []
-    for r in fin:
-        want = oracle[r.rid]
-        for j, (a, b) in enumerate(zip(r.tokens, want)):
-            if a != b:
-                ties.append((r.rid, j, margins[r.rid][j]))
-                if not margins[r.rid][j] < 1e-4:
-                    fail(f"{r.rid} step {j}: engine token {a} != oracle {b} "
-                         f"with top-2 margin {margins[r.rid][j]}")
-                break
-    line = (f"parity {full.name} full width, depth cut {full.n_layers} -> {depth} "
-            f"layers, "
-            f"fp32: engine (kernels) vs dense path (impl=ref) on {n_req} "
-            f"prompts x {gen_len} tokens: first-token logits max abs err "
-            f"{logit_err:.3g} (atol 1e-3); greedy tokens "
+    ties = _near_ties(eng.run(), oracle, margins, "engine parity")
+    line = (f"parity {full.name} full width, depth cut {full.n_layers} -> "
+            f"{depth} layers, fp32: engine (kernels) vs dense path "
+            f"(impl=ref) on {n_req} prompts x {gen_len} tokens: first-token "
+            f"logits max abs err {logit_err:.3g} (atol 1e-3); greedy tokens "
             + ("identical" if not ties else f"differ only at near-ties {ties}"))
     del eng, params
     torch.cuda.empty_cache()
     return dict(depth=depth, logit_err=logit_err, near_ties=ties), line
+
+
+# phase 4's runs of the paged engine's features: each alone and all three
+FEATURE_PARITY = (("prefix cache", dict(prefix_cache=True)),
+                  ("spec decode", dict(spec_decode=True, spec_k="auto")),
+                  ("chunked prefill", dict(chunked_prefill=True,
+                                           chunk_tokens=128)),
+                  ("all three", dict(FEATURES, chunk_tokens=128)))
+
+
+# rounds of feature_parity's prompt construction, the oracle tokens each
+# prompt carries, and the one of them that is wrong in the copy
+ANSWER_ROUNDS, ANSWER_TOKENS, ANSWER_WRONG = 4, 10, 3
+
+
+def _engaged(m, kw, n_hits, n_chunks, mixed=False):
+    """The features of ``kw`` engaged: at least ``n_hits`` prefix hits,
+    one verify (with ``mixed``, both an accepted and a rejected draft)
+    and ``n_chunks`` chunk passes."""
+    return ((not kw.get("prefix_cache") or m["prefix_hits"] >= n_hits)
+            and (not kw.get("spec_decode") or (
+                m["spec_verifies"] >= 1 and (not mixed or (
+                    1 <= m["spec_accepted"] < m["spec_drafted"]))))
+            and (not kw.get("chunked_prefill")
+                 or m["chunk_dispatches"] >= n_chunks))
+
+
+def with_answer(prompt, shared, answer, vocab):
+    """``prompt`` with ``answer`` copied in right after its ``shared``
+    prefix, behind the two tokens the prompt ends with: a prompt that
+    quotes what the model goes on to say (prompt-lookup drafting's
+    traffic).  The n-gram of the history's end then matches first inside
+    the copy, and the draft is the model's own continuation, except at
+    the copy's token ANSWER_WRONG, which is another id: a verify that
+    drafts across it accepts the tokens before it and rejects the rest."""
+    quote = list(answer)
+    t = quote[ANSWER_WRONG]
+    quote[ANSWER_WRONG] = t + 1 if t + 1 < vocab else 2
+    out = np.array(prompt)
+    out[shared:shared + 2 + len(quote)] = list(prompt[-2:]) + quote
+    return out
+
+
+def answer_prompts(ref_cfg, params, prompts, shared, gen_len):
+    """Each prompt carrying its first ANSWER_TOKENS greedy tokens
+    (``with_answer``), to a fixed point: the copy changes the context, so
+    the oracle runs again on the new prompts, at most ANSWER_ROUNDS
+    times.  Returns the prompts, the plain oracle's tokens and margins on
+    them, and the rounds taken."""
+    for rounds in range(1, ANSWER_ROUNDS + 1):
+        oracle, margins, _ = _plain_oracle(ref_cfg, params, prompts, gen_len)
+        nxt = [with_answer(p, shared, oracle[f"r{i}"][:ANSWER_TOKENS],
+                           ref_cfg.vocab_size)
+               for i, p in enumerate(prompts)]
+        if all(np.array_equal(a, b) for a, b in zip(nxt, prompts)):
+            return prompts, oracle, margins, rounds
+        prompts = nxt
+    oracle, margins, _ = _plain_oracle(ref_cfg, params, prompts, gen_len)
+    return prompts, oracle, margins, ANSWER_ROUNDS
+
+
+def feature_parity():
+    """qwen3-1.7b at full width, 4 layers, fp32: the paged engine
+    (kernels) with each of the prefix cache, speculative decoding and
+    chunked prefill alone and with all three, on 4 prompts that share a
+    456-token prefix and end in motif tails (the first served first),
+    against the port's dense plain path with the near-tie rule.  Each
+    prompt quotes the model's own continuation with one token wrong
+    (``answer_prompts``): every run with speculation must both accept
+    and reject a draft."""
+    from repro_torch.serving.engine import PagedEngine
+
+    full, cfg, params = _parity_model(SEED + 12)
+    n_req, gen_len, ps = 4, 16, 16
+    plen = PAGED_RUN["prompt_len"]
+    fr = FEATURE_RUN
+    prompts = feature_prompts(cfg.vocab_size, SEED + 12, 1, n_req, plen,
+                              fr["shared"], fr["motif"])
+    prompts, oracle, margins, rounds = answer_prompts(
+        cfg.replace(impl="ref"), params, prompts, fr["shared"], gen_len)
+    max_len = plen + gen_len
+    res, parts = {}, []
+    for name, kw in FEATURE_PARITY:
+        eng = PagedEngine(cfg, params, max_batch=n_req, page_size=ps,
+                          n_pages=n_req * (-(-max_len // ps)) + 1,
+                          max_len=max_len, fused=True, max_window=8,
+                          device=DEVICE, **kw)
+        fin = serve_leaders_first(eng, prompts, gen_len, [0], rid="r")
+        m = eng.metrics()
+        if not _engaged(m, kw, n_req - 1, n_req, mixed=True):
+            fail(f"feature parity {name}: a feature did not engage: "
+                 f"{m.get('prefix_hits')} prefix hits, "
+                 f"{m.get('spec_verifies')} verifies with "
+                 f"{m.get('spec_accepted')} drafts accepted, "
+                 f"{m.get('chunk_dispatches')} chunk passes")
+        ties = _near_ties(fin, oracle, margins, f"feature parity {name}")
+        res[name] = dict(near_ties=ties, **{k: m.get(k) for k in (
+            "prefix_hits", "cow_copies", "spec_verifies", "spec_drafted",
+            "spec_accepted", "spec_rollbacks", "accept_rate", "spec_k_mean",
+            "chunk_dispatches", "model_passes")})
+        parts.append(f"{name}: "
+                     + ("identical" if not ties else f"near-ties {ties}")
+                     + f" (hits {m.get('prefix_hits')}, verifies "
+                     f"{m.get('spec_verifies')}, drafts accepted "
+                     f"{m.get('spec_accepted')} of {m.get('spec_drafted')}, "
+                     f"accept rate {m.get('accept_rate')}, rollbacks "
+                     f"{m.get('spec_rollbacks')}, chunk passes "
+                     f"{m.get('chunk_dispatches')})")
+        del eng
+    line = (f"parity {full.name} paged engine features, full width, depth "
+            f"cut {full.n_layers} -> {cfg.n_layers} layers, fp32: engine "
+            f"(kernels, plain suffix attention) vs dense path (impl=ref) on "
+            f"{n_req} prompts sharing {fr['shared']} of {plen} tokens, each "
+            f"quoting its first {ANSWER_TOKENS} greedy tokens with token "
+            f"{ANSWER_WRONG} wrong (fixed point in {rounds} rounds), x "
+            f"{gen_len} tokens, greedy tokens: "
+            + "; ".join(parts))
+    del params
+    torch.cuda.empty_cache()
+    return dict(runs=res, answer_rounds=rounds), line
 
 
 # full width with the depth cut, fp32: each family's kernel path
@@ -1484,15 +1903,24 @@ def dense_parity(arch, params=None):
                 near_ties=ties, router_gap=gap), line
 
 
-def paged_parity(arch, params):
+def paged_parity(arch, params, features=False):
     """The paged engine under impl=pallas against the same engine under
-    impl=ref, on DENSE_PARITY's prompts one request per slot.  First-token
-    logits and the prefill's router gaps from each path's paged prefill
-    step.  A token flip is exempt at a near-tie of the plain dense path's
-    logits at batch 1 (where the capacity matches the paged prefill's), or
-    of the routing: the prefill's, or that of the same batch-1 replay's
-    decode steps (the engine's decode batch of two cannot drop a token,
-    C >= 8, so each row routes as it does alone)."""
+    impl=ref, on DENSE_PARITY's prompts one request per slot; with
+    ``features``, the impl=pallas engine with the prefix cache,
+    speculative decoding and chunked prefill (chunks of two pages) on
+    against the impl=ref engine with all three off, over prompts that
+    share a prefix ending mid-page and end in motif tails, the first
+    served first.  There the capacity factor is raised to n_experts /
+    top_k, so that no token can drop at any width (C >= T): the suffix
+    body, its scatter, the COW copy and the chunk and verify scheduling
+    then compute the function of the plain engine's full prefill and
+    decode steps, up to the order of the arithmetic.  First-token logits
+    and the prefill's router gaps from each path's paged prefill step.
+    A token flip is exempt at a near-tie of the plain dense path's
+    logits at batch 1 (where the capacity matches the paged prefill's),
+    or of the routing: the prefill's, or that of the same batch-1
+    replay's decode steps (the engine's decode batch of two cannot drop
+    a token, C >= 8, so each row routes as it does alone)."""
     from repro_torch import steps
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_prompts
@@ -1506,13 +1934,21 @@ def paged_parity(arch, params):
     n_req, plen, gen_len, ps = run["batch"], run["prompt_len"], run["gen"], 16
     max_len = plen + gen_len
     n_pages = n_req * (-(-max_len // ps)) + 1
-    prompts = make_prompts(n_req, plen, cfg.vocab_size, SEED + 7)
+    if features:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        prompts = feature_prompts(cfg.vocab_size, SEED + 7, 1, n_req, plen,
+                                  plen * 5 // 8, FEATURE_RUN["motif"])
+        kws = {"pallas": dict(FEATURES, chunk_tokens=2 * ps), "ref": {}}
+    else:
+        prompts = make_prompts(n_req, plen, cfg.vocab_size, SEED + 7)
+        kws = {"pallas": {}, "ref": {}}
     pools = lm.init_paged_caches(cfg, n_pages, ps, DEVICE)
     row = torch.full((-(-max_len // ps),), NULL_PAGE, dtype=torch.int32,
                      device=DEVICE)
-    toks, first = {}, {}
+    toks, first, engaged = {}, {}, {}
     pre_gaps = [float("inf")] * n_req
-    for impl in ("pallas", "ref"):
+    for impl, kw in kws.items():
         c = cfg.replace(impl=impl)
         pre = steps.make_paged_prefill_step(c)
         outs = []
@@ -1524,10 +1960,21 @@ def paged_parity(arch, params):
         first[impl] = torch.cat(outs)
         eng = PagedEngine(c, params, max_batch=n_req, page_size=ps,
                           n_pages=n_pages, max_len=max_len, fused=True,
-                          max_window=PAGED_RUN["window"], device=DEVICE)
-        for i, p in enumerate(prompts):
-            eng.submit(p, gen_len, rid=f"r{i}")
-        fin = {r.rid: r.tokens for r in eng.run()}
+                          max_window=PAGED_RUN["window"], device=DEVICE,
+                          **kw)
+        fin = {r.rid: r.tokens
+               for r in serve_leaders_first(eng, prompts, gen_len,
+                                            [0] if features else [],
+                                            rid="r")}
+        m = eng.metrics()
+        if kw and not _engaged(m, kw, n_req - 1, n_req):
+            fail(f"{arch} paged parity, {impl}: a feature did not engage: "
+                 f"{m.get('prefix_hits')} prefix hits, "
+                 f"{m.get('spec_verifies')} verifies, "
+                 f"{m.get('chunk_dispatches')} chunk passes")
+        engaged[impl] = {k: m.get(k) for k in (
+            "prefix_hits", "spec_verifies", "accept_rate",
+            "chunk_dispatches")}
         toks[impl] = [[fin[f"r{b}"][j] for b in range(n_req)]
                       for j in range(gen_len)]
         del eng
@@ -1547,8 +1994,13 @@ def paged_parity(arch, params):
     ties = _token_flips(toks, margins, run["tol"], gaps, f"{arch} paged")
     gap = min(min(g) for g in gaps)
     line = (f"parity {arch} paged engine, full width, depth cut "
-            f"{full.n_layers} -> {run['depth']} layers, fp32 activations: "
-            f"kernel path (impl=pallas) vs plain path (impl=ref) on {n_req} "
+            f"{full.n_layers} -> {run['depth']} layers, fp32 activations"
+            + (f", capacity factor {cfg.moe.capacity_factor}: kernel path "
+               f"(impl=pallas) with prefix cache, spec decode and chunked "
+               f"prefill (engaged: {engaged['pallas']}) vs plain path "
+               f"(impl=ref) without them" if features else
+               ": kernel path (impl=pallas) vs plain path (impl=ref)")
+            + f" on {n_req} "
             f"prompts of {plen} x {gen_len} tokens: first-token logits max "
             f"abs err {logit_err:.3g} (atol {run['tol']}"
             + (f"; rows {exempt} exempt at a router near-tie" if exempt
@@ -1556,7 +2008,7 @@ def paged_parity(arch, params):
             + ("identical" if not ties else f"differ only at near-ties {ties}")
             + f"; smallest prefill router gap {min(pre_gaps):.3g}")
     return dict(depth=run["depth"], logit_err=logit_err, exempt_rows=exempt,
-                near_ties=ties, router_gap=gap), line
+                near_ties=ties, router_gap=gap, engaged=engaged), line
 
 
 def moe_layer_parity(ops, cfg, params):
@@ -1680,6 +2132,9 @@ def main():
 
     cfg, params = full_width_params("qwen3-1.7b")
     served("qwen3-1.7b paged", serve_paged(ops, cfg, params))
+    on, off = serve_paged_features(ops, cfg, params)
+    served("qwen3-1.7b paged, prefix+spec+chunked", on)
+    served("qwen3-1.7b paged, prefix+spec+chunked off", off)
     del params
     for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
         cfg, params = full_width_params(arch)
@@ -1687,6 +2142,8 @@ def main():
         del params
     torch.cuda.empty_cache()
     parity["qwen3-1.7b paged"], line = engine_parity()
+    print(f"[parity] {line}")
+    parity["qwen3-1.7b paged features"], line = feature_parity()
     print(f"[parity] {line}")
     for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
         parity[f"{arch} dense"], line = dense_parity(arch)
@@ -1703,6 +2160,9 @@ def main():
     parity["grok-1-314b dense"], line = dense_parity("grok-1-314b", params)
     print(f"[parity] {line}")
     parity["grok-1-314b paged"], line = paged_parity("grok-1-314b", params)
+    print(f"[parity] {line}")
+    parity["grok-1-314b paged features"], line = paged_parity(
+        "grok-1-314b", params, features=True)
     print(f"[parity] {line}")
     parity["grok-1-314b moe layer bf16"], line = moe_layer_parity(
         ops, cfg, params)

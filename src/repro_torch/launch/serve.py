@@ -10,9 +10,12 @@ Reference: ``repro/launch/serve.py``.  ``--engine dense`` (the default) is
 the fixed-size-batch loop: one batched prefill, then ``gen - 1`` decode
 steps at a shared position; it serves every ported config, the recurrent
 families included.  ``--engine paged`` is the paged continuous-batching
-engine, for global-attention configs only.  Runs on the GPU (``--device
-cpu`` for the CPU) with ``impl="pallas"``, so every kernel of the path
-goes through ``kernels/ops.py``.  Weights are random, from ``--seed``;
+engine, for global-attention configs only, with the reference's
+``--prefix-cache`` (and ``--shared-prefix`` to give the prompts a common
+system prompt), ``--spec-decode`` (``--spec-k``), ``--chunk-prefill``
+(``--chunk-tokens``) and ``--slo``.  Runs on the GPU (``--device cpu``
+for the CPU) with ``impl="pallas"``, so every kernel of the path goes
+through ``kernels/ops.py``.  Weights are random, from ``--seed``;
 prompts are drawn with numpy from the same seed.  Flags of engine
 features this port does not have yet are rejected with exit code 2.
 """
@@ -25,17 +28,22 @@ import time
 import numpy as np
 
 # flag -> the value that means "feature off"; anything else is rejected
-_UNPORTED_FLAGS = {"layout": "manual", "prefix_cache": "off",
-                   "spec_decode": "off", "chunk_prefill": "off",
-                   "fault_plan": "off", "trace_out": None, "devices": 0}
+_UNPORTED_FLAGS = {"layout": "manual", "fault_plan": "off",
+                   "trace_out": None, "devices": 0}
 
 
 def make_prompts(n_requests: int, prompt_len: int, vocab_size: int,
-                 seed: int = 0):
+                 seed: int = 0, shared_prefix: int = 0):
     """``n_requests`` int32 prompts of ``prompt_len`` tokens in
-    [2, vocab_size), drawn with numpy from ``seed``."""
+    [2, vocab_size), drawn with numpy from ``seed``.  ``shared_prefix``
+    gives every request the same leading tokens (a system prompt, drawn
+    first) so ``--prefix-cache on`` has something to share."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(2, vocab_size, prompt_len, dtype=np.int32)
+    # clamp so an over-long system prompt never yields a negative tail
+    shared_prefix = max(0, min(shared_prefix, prompt_len))
+    base = rng.integers(2, vocab_size, shared_prefix, dtype=np.int32)
+    return [np.concatenate([base, rng.integers(
+        2, vocab_size, prompt_len - shared_prefix, dtype=np.int32)])
             for _ in range(n_requests)]
 
 
@@ -128,14 +136,22 @@ def run_paged(args, cfg, params=None, device=None):
                       page_size=args.page_size, n_pages=n_pages,
                       max_len=max_len, prefill_budget=args.prefill_budget,
                       fused=args.fused, max_window=args.window,
-                      device=device)
+                      prefix_cache=args.prefix_cache == "on",
+                      spec_decode=args.spec_decode == "on",
+                      spec_k=args.spec_k,
+                      chunked_prefill=args.chunk_prefill == "on",
+                      chunk_tokens=args.chunk_tokens, device=device)
     prompts = make_prompts(args.requests, args.prompt_len, cfg.vocab_size,
-                           args.seed)
-    # warmup: every window bucket and one prefill, then reset the clocks
+                           args.seed, args.shared_prefix)
+    # warmup: every window (and verify) bucket, one prefill and, with the
+    # cache on, one hit; then reset the clocks and start the tree cold
     eng.warmup_windows()
     eng.submit(prompts[0], min(2, args.gen), rid="warmup")
     eng.run()
+    eng.warmup_prefix(args.prompt_len, args.shared_prefix)
     eng.reset_metrics()
+    if eng.cache is not None:
+        eng.cache.clear()
     for i, p in enumerate(prompts):
         eng.submit(p, args.gen, rid=f"req{i}", slo=args.slo)
     t0 = time.time()
@@ -174,13 +190,35 @@ def build_parser() -> argparse.ArgumentParser:
                          "per-step host loop)")
     ap.add_argument("--window", type=int, default=8,
                     help="max fused window (tokens per device call)")
+    ap.add_argument("--prefix-cache", default="off", choices=["on", "off"],
+                    help="paged engine: radix-tree prefix sharing with "
+                         "copy-on-write on the page store")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="give every request the same leading N tokens "
+                         "(a system prompt) so the prefix cache has "
+                         "something to share")
+    ap.add_argument("--spec-decode", default="off", choices=["on", "off"],
+                    help="paged engine: n-gram speculative decoding — "
+                         "draft from each sequence's own history, verify "
+                         "K+1 positions in one pass, roll back rejected "
+                         "pages")
+    ap.add_argument("--spec-k", default="auto",
+                    help="max draft tokens per verify: an integer for a "
+                         "fixed depth, or 'auto' (default) for the "
+                         "per-tenant acceptance-EWMA controller")
+    ap.add_argument("--chunk-prefill", default="off", choices=["on", "off"],
+                    help="paged engine: split prefills into page-aligned "
+                         "chunks co-scheduled with decode windows under "
+                         "SLO-aware EDF admission")
+    ap.add_argument("--chunk-tokens", type=int, default=0,
+                    help="tokens per prefill chunk (0 = 2 pages)")
     ap.add_argument("--slo", default="standard",
-                    choices=["interactive", "standard", "batch"])
+                    choices=["interactive", "standard", "batch"],
+                    help="SLO class stamped on every submitted request "
+                         "(TTFT deadline + tolerable prefill stall; "
+                         "drives the chunked scheduler)")
     # features of the reference CLI that this port does not have yet
     ap.add_argument("--layout", default="manual", choices=["manual", "auto"])
-    ap.add_argument("--prefix-cache", default="off", choices=["on", "off"])
-    ap.add_argument("--spec-decode", default="off", choices=["on", "off"])
-    ap.add_argument("--chunk-prefill", default="off", choices=["on", "off"])
     ap.add_argument("--fault-plan", default="off", choices=["off", "chaos"])
     ap.add_argument("--trace-out", default=None)
     ap.add_argument("--devices", type=int, default=0)
@@ -199,6 +237,8 @@ def main(argv=None):
         print(f"error: --prompt-len must be >= 1 (got {args.prompt_len})",
               file=sys.stderr)
         raise SystemExit(2)
+    if args.spec_k != "auto":
+        args.spec_k = int(args.spec_k)
     from repro_torch.configs import get_config, get_tiny_config
     from repro_torch.models import lm
 
@@ -232,6 +272,34 @@ def main(argv=None):
           f"scheduler steps; host<->device syncs {m['h2d_syncs']} h2d + "
           f"{m['d2h_syncs']} d2h ({m['syncs_per_token']:.2f} per token); "
           f"decode {m['decode_tok_per_s']:.1f} tok/s")
+    if eng.spec is not None:
+        print(f"[paged] spec decode: {m['model_passes']} model passes "
+              f"for {m['tokens_out']} tokens "
+              f"({m['dispatches_per_token']:.2f} dispatches/token); "
+              f"accept rate {m['accept_rate'] * 100:.0f}% "
+              f"({m['spec_accepted']}/{m['spec_drafted']} drafts over "
+              f"{m['spec_verifies']} verifies, "
+              f"{m['spec_rollbacks']} page rollbacks)")
+        if eng.spec.adaptive:
+            print(f"[paged] spec depth: adaptive, mean K "
+                  f"{m['spec_k_mean']:.1f}; draft+verify "
+                  f"{m['spec_verify_s']:.3f}s of {m['decode_s']:.3f}s "
+                  f"decode")
+    if eng.sched.chunked:
+        print(f"[paged] chunked prefill: {m['chunk_tasks']} chunks in "
+              f"{m['chunk_rounds']} rounds "
+              f"({m['chunk_dispatches']} dispatches, "
+              f"{m['chunk_preemptions']} mid-prefill preemptions); "
+              f"SLO class {args.slo}, p99 TTFT "
+              f"{m['ttft_steps_p99']:.1f} steps")
+    if eng.cache is not None:
+        print(f"[paged] prefix cache: {m['prefix_hit_rate'] * 100:.0f}%"
+              f" hit rate ({m['prefix_hits']}/{m['prefix_lookups']}), "
+              f"{m['prefill_tokens_cached']} prefill tokens served "
+              f"from shared pages ({m['prefill_tokens']} computed), "
+              f"{m['cow_copies']} COW copies, {m['shared_pages']} tree "
+              f"pages, {m['prefix_evictions']} evictions, "
+              f"{m['bytes_deduped'] / 1024:.0f} KiB deduped")
 
 
 if __name__ == "__main__":

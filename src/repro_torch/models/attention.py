@@ -321,6 +321,66 @@ def paged_cache_from_prefill(pool: PagedAttnCache, k, v, block_row,
     return pool
 
 
+def paged_cache_scatter_suffix(pool: PagedAttnCache, k, v, block_row,
+                               start, n_valid):
+    """Scatter a prompt *suffix*'s kv (1,W,Kv,hd) into the pool, in place,
+    at logical positions start..start+W-1 (a prefix-cache hit: the first
+    ``start`` positions already live in shared pages).  Slots at or past
+    ``n_valid`` are padding and go to the null page, whose garbage is
+    masked by design, so one width serves every suffix length in a
+    bucket.  ``start`` and ``n_valid`` are ints or 0-d device tensors."""
+    W = k.shape[1]
+    ps = pool.k.shape[1]
+    w = torch.arange(W, device=pool.k.device)
+    t = start + w
+    idx = torch.clamp(t // ps, 0, block_row.shape[0] - 1)
+    # physical page 0 is the reserved null page (serving/paged_kv.py)
+    page = torch.where(w < n_valid, block_row.long()[idx], 0)
+    slot = t % ps
+    pool.k.index_put_((page, slot), k.reshape(W, -1))
+    pool.v.index_put_((page, slot), v.reshape(W, -1))
+    return pool
+
+
+def attend_prefill_paged(q, pool: PagedAttnCache, block_row, start, *,
+                         scale, softcap, n_kv: int):
+    """Suffix-prefill attention: q (1,W,H,hd) holds query positions
+    start..start+W-1; keys/values are gathered from the sequence's pages
+    (cached prefix + the just-scattered suffix) and masked causally at
+    ``j <= start + w`` — plain tensor ops with the decode path's fp32
+    scores and softmax, as in the reference (which has no kernel here)."""
+    B, W, H, hd = q.shape
+    ps = pool.k.shape[1]
+    T = block_row.shape[0] * ps
+    Kv = n_kv
+    bt = block_row.long()
+    k = pool.k[bt].reshape(B, T, Kv, hd)
+    v = pool.v[bt].reshape(B, T, Kv, hd)
+    qg = q.reshape(B, W, Kv, H // Kv, hd)
+    s = _einsum32("bwkgd,btkd->bkgwt", qg, k) * scale
+    s = nn.softcap(s, softcap)
+    dev = q.device
+    ok = torch.arange(T, device=dev)[None, :] \
+        <= (start + torch.arange(W, device=dev))[:, None]
+    s = torch.where(ok[None, None, None], s, NEG_INF)
+    w = torch.softmax(s.float(), dim=-1)
+    o = _einsum32("bkgwt,btkd->bwkgd", w.to(v.dtype), v).to(q.dtype)
+    return o.reshape(B, W, H * hd)
+
+
+def apply_prefill_paged(p, cfg, x, pool: PagedAttnCache, block_row, start,
+                        n_valid, *, angles):
+    """Paged suffix-prefill path: x (1,W,D) at positions start..;
+    scatters the suffix kv then attends over the whole page run.
+    Returns (out (1,W,D'), pool)."""
+    q, k_new, v_new = _qkv(p, cfg, x, angles)
+    pool = paged_cache_scatter_suffix(pool, k_new, v_new, block_row,
+                                      start, n_valid)
+    o = attend_prefill_paged(q, pool, block_row, start, scale=_scale(cfg),
+                             softcap=cfg.attn_softcap, n_kv=cfg.n_kv_heads)
+    return nn.matmul(o, p["wo"]), pool
+
+
 def apply_decode_paged(p, cfg, x, pool: PagedAttnCache, block_tables,
                        pos, *, angles):
     """Paged decode path: x (B,1,D), pos (B,). Returns (out, pool)."""

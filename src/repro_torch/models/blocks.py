@@ -117,6 +117,23 @@ def apply_decode_paged(p, cfg, kind: str, x, pending, pool, block_tables,
     return (*_ffn_half(p, cfg, x, out), pool)
 
 
+def apply_prefill_paged(p, cfg, kind: str, x, pending, pool, block_row,
+                        start, n_valid, *, angles):
+    """Suffix prefill against a paged KV pool (a prefix-cache hit's
+    suffix, a prefill chunk, a verify window): x (1,W,D) holds positions
+    start..start+W-1 and attends the earlier KV through the block row.
+    Returns (x, pending, pool)."""
+    if kind != ATTN:
+        raise NotImplementedError(
+            f"paged prefill supports global-attention layers only, "
+            f"got {kind!r}")
+    x, h = _add_norm(p, cfg, "ln1", x, pending)
+    out, pool = attention.apply_prefill_paged(p["attn"], cfg, h, pool,
+                                              block_row, start, n_valid,
+                                              angles=angles)
+    return (*_ffn_half(p, cfg, x, out), pool)
+
+
 def paged_cache_init(cfg, kind: str, n_pages: int, page_size: int, dtype,
                      device):
     if kind != ATTN:

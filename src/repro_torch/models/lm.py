@@ -265,3 +265,81 @@ def decode_window_paged(params, cfg, tokens, pools, block_tables, pos,
         p = p + active
         emitted.append(tok[:, 0])
     return torch.stack(emitted, dim=1), tok, p, pools
+
+
+# ---------------------------------------------------------------------------
+# paged suffix prefill — prefix-cache hits, prefill chunks, verify windows
+# ---------------------------------------------------------------------------
+def _suffix_forward_paged(params, cfg, tokens, pools, block_row, start,
+                          n_valid):
+    """Shared body of :func:`prefill_suffix_paged`,
+    :func:`chunk_prefill_paged` and :func:`verify_window_paged`: run a
+    W-token continuation (positions start..start+W-1) through every
+    layer's ``apply_prefill_paged``, scattering its kv into the
+    sequence's pages and attending causally over the whole page run.
+    ``start`` and ``n_valid`` are ints or 0-d device tensors.  Returns
+    (x, pending, pools) as ``forward`` does; the pools are updated in
+    place."""
+    x = embed_tokens(params, cfg, tokens)
+    B, W = tokens.shape
+    positions = (start + torch.arange(W, dtype=torch.int32,
+                                      device=x.device)).to(torch.int32)
+    angles = _angles(cfg, positions[None].expand(B, W))
+    pending = None
+    for kind, p, pool, _ in _layers(cfg, params, pools):
+        x, pending, _ = blocks.apply_prefill_paged(
+            p, cfg, kind, x, pending, pool, block_row, start, n_valid,
+            angles=angles)
+    return x, pending, pools
+
+
+def prefill_suffix_paged(params, cfg, tokens, pools, block_row, start,
+                         n_valid):
+    """Prefill of a prompt *suffix* against the paged pools — the
+    prefix-cache hit path.  The cached prefix (positions 0..start-1)
+    already lives in the pages named by ``block_row``; only the uncached
+    suffix runs through the model, in one batched pass.
+
+    tokens (1,W) int32 suffix ids, padded to a bucket width W; ``start``
+    the cached-prefix length; ``n_valid`` (an int) the true suffix
+    length (padded slots scatter to the null page).  Returns (next-token
+    logits (1,1,V) at the last *valid* suffix position — the request's
+    first generated token — and the pools).  Row ``n_valid - 1`` of x
+    and of the pending branch output is taken before the final norm,
+    which normalises each row on its own: the same bits as normalising
+    the whole window."""
+    x, pending, pools = _suffix_forward_paged(params, cfg, tokens, pools,
+                                              block_row, start, n_valid)
+    last = slice(n_valid - 1, n_valid)
+    h = final_norm(params, cfg, x[:, last], pending[:, last])
+    return head_logits(params, cfg, h), pools
+
+
+def chunk_prefill_paged(params, cfg, tokens, pools, block_row, start,
+                        n_valid):
+    """One slice of a chunked prefill: positions ``start ..
+    start+n_valid-1`` of a prompt whose earlier KV (cached prefix or
+    earlier chunks) is already in the pages named by ``block_row``.  A
+    chunk at ``start`` IS a suffix continuation at ``start``, so
+    composing chunks writes the same KV, in the same order, with the
+    same arithmetic, as one pass.  Only the final chunk's logits are
+    read (the first generated token)."""
+    return prefill_suffix_paged(params, cfg, tokens, pools, block_row,
+                                start, n_valid)
+
+
+def verify_window_paged(params, cfg, tokens, pools, block_row, start,
+                        n_valid):
+    """Speculative-decoding verification: score K+1 continuation
+    positions of ONE sequence in one pass.
+
+    ``tokens`` (1,W) holds [last emitted token, draft_1..draft_K] padded
+    to a pow2 width W; ``start`` is the sequence's KV write position and
+    ``n_valid`` = K+1.  Returns (logits (1,W,V) at every position —
+    position j's argmax is the model's next token after input j — and
+    the pools).  Rejected positions' KV stays in the pages, masked by
+    position and overwritten before the write position reaches it."""
+    x, pending, pools = _suffix_forward_paged(params, cfg, tokens, pools,
+                                              block_row, start, n_valid)
+    return head_logits(params, cfg, final_norm(params, cfg, x, pending)), \
+        pools

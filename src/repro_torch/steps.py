@@ -1,8 +1,11 @@
-"""Step builders: prefill / serve steps, dense and paged.
+"""Step builders: prefill / serve steps, dense and paged, and the paged
+engine's suffix prefill, chunk prefill, verify window, fused speculative
+draft+verify and copy-on-write page copy.
 
 Reference: ``repro/steps.py``.  The reference returns functions for
 ``jax.jit`` with the pools donated; PyTorch runs eagerly, so these are
-plain callables and the pools are updated in place.
+plain callables and the pools (and the speculative history rows) are
+updated in place.
 """
 from __future__ import annotations
 
@@ -61,3 +64,127 @@ def make_paged_serve_scan(cfg: ModelConfig):
         return lm.decode_window_paged(params, cfg, tokens, pools,
                                       block_tables, pos, active, k)
     return serve_scan
+
+
+def make_paged_suffix_prefill(cfg: ModelConfig):
+    """Batched suffix prefill for prefix-cache hits.
+
+    (params, tokens (1,W) padded suffix ids, pools, block_row (nmax,),
+     start, n_valid) -> (first-token logits (1,1,V), pools).  Only the
+    uncached suffix runs through the model, in one pass, attending the
+    shared-prefix KV through the block row; the engine buckets W to
+    powers of two."""
+    def suffix_prefill(params, tokens, pools, block_row, start, n_valid):
+        return lm.prefill_suffix_paged(params, cfg, tokens, pools,
+                                       block_row, start, n_valid)
+    return suffix_prefill
+
+
+def make_chunk_prefill(cfg: ModelConfig):
+    """One page-aligned prefill chunk for a prefilling slot.
+
+    (params, tokens (1,W) padded chunk ids, pools, block_row (nmax,),
+     start, n_valid) -> (last-position logits (1,1,V), pools).  The chunk
+    is a suffix continuation at ``start`` (``lm.chunk_prefill_paged``),
+    so composed chunks write the KV one monolithic pass would, and only
+    the final chunk's logits are read."""
+    def chunk_prefill(params, tokens, pools, block_row, start, n_valid):
+        return lm.chunk_prefill_paged(params, cfg, tokens, pools,
+                                      block_row, start, n_valid)
+    return chunk_prefill
+
+
+def make_verify_window(cfg: ModelConfig):
+    """Speculative-decoding verification window (one sequence, one pass).
+
+    (params, tokens (1,W) [last token + K padded drafts], pools,
+     block_row (nmax,), start, n_valid) -> (logits (1,W,V) at every
+    position, pools)."""
+    def verify_window(params, tokens, pools, block_row, start, n_valid):
+        return lm.verify_window_paged(params, cfg, tokens, pools,
+                                      block_row, start, n_valid)
+    return verify_window
+
+
+def make_spec_draft_verify(cfg: ModelConfig):
+    """Fused speculative draft+verify for ONE slot, on the device.
+
+    (params, history (B,H) device token-history rows, pools,
+     block_tables (B,nmax), slot, start, k, *, W, max_n, min_n) ->
+    (emitted (W,), n_emit, m, history, pools).  ``slot``, ``start`` and
+    ``k`` are 0-d int32 device tensors, so nothing here waits for the
+    host; ``W`` (the pow2 verify width) and the n-gram bounds are ints.
+
+    The chain:
+
+    1. ``device_propose`` suffix-matches the slot's history row
+       (``hist_len = start + 1``: ``start`` is the next KV write
+       position) for a draft of up to ``min(k, W-1)`` tokens;
+    2. ``verify_window_paged`` scores last token + draft (``n_valid =
+       m+1`` positions) against the paged KV in one model pass;
+    3. the greedy acceptance rule keeps the longest matching prefix and
+       appends the verifier's bonus/correction token — ``emitted[:n_emit]``
+       is exactly what non-speculative greedy decode would emit;
+    4. the emission is appended to the slot's history row in place.
+
+    The caller pulls ``(emitted, n_emit, m)`` to the host once per
+    verify."""
+    from repro_torch.serving.spec_decode import device_propose
+
+    def draft_verify(params, history, pools, block_tables, slot, start, k,
+                     *, W: int, max_n: int, min_n: int):
+        i32 = torch.int32
+        dev = history.device
+        H = history.shape[-1]
+        sl = slot.reshape(1).long()
+        row = history.index_select(0, sl)[0]
+        block_row = block_tables.index_select(0, sl)[0]
+        hist_len = start.to(i32) + 1
+        draft, m = device_propose(row, hist_len, k, k_max=W - 1,
+                                  max_n=max_n, min_n=min_n)
+        last = row.index_select(
+            0, torch.clamp(hist_len - 1, 0, H - 1).reshape(1).long())
+        tokens = torch.cat([last, draft])[None]                  # (1, W)
+        logits, pools = lm.verify_window_paged(params, cfg, tokens, pools,
+                                               block_row, start, m + 1)
+        greedy = logits[0].argmax(-1).to(i32)                    # (W,)
+        offs = torch.arange(W, dtype=i32, device=dev)
+        draft_w = torch.cat([draft, draft.new_zeros(1)])
+        ok = (offs < m) & (greedy == draft_w)
+        a = torch.cumprod(ok.to(i32), 0).sum().to(i32)  # accepted prefix
+        bonus = greedy.index_select(0, a.reshape(1).long())  # correction
+        emitted = torch.where(offs < a, draft_w, 0)
+        emitted = torch.where(offs == a, bonus, emitted).to(i32)
+        n_emit = a + 1
+        # append the emission to the history row: positions hist_len ..
+        # hist_len+n_emit-1 take emitted[0..n_emit-1]
+        rel = torch.arange(H, dtype=i32, device=dev) - hist_len
+        src = emitted[torch.clamp(rel, 0, W - 1).long()]
+        new_row = torch.where((rel >= 0) & (rel < n_emit), src, row)
+        history.index_copy_(0, sl, new_row[None])
+        return emitted, n_emit, m, history, pools
+    return draft_verify
+
+
+def _pool_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    else:
+        for t in tree:
+            yield from _pool_leaves(t)
+
+
+def make_page_copy():
+    """Copy-on-write: duplicate one physical page in every layer's k/v
+    pool, in place.
+
+    (pools, src, dst) -> pools with page ``dst`` := page ``src``
+    everywhere (the page axis is third-from-last in every pool leaf).
+    The whole page is copied: slots past the shared fill point hold
+    stale values the diverging request overwrites before its position
+    ever reaches them."""
+    def copy_page(pools, src: int, dst: int):
+        for a in _pool_leaves(pools):
+            a[..., dst, :, :] = a[..., src, :, :]
+        return pools
+    return copy_page

@@ -6,7 +6,10 @@
   a pool small enough to force preemption, emits greedy tokens identical
   to the reference's dense oracle and to the reference ``PagedEngine``,
   with the same scheduler and transfer counters;
-* every engine feature this port lacks raises instead of being ignored.
+* every engine feature this port lacks raises instead of being ignored
+  (the prefix cache, speculative decoding and chunked prefill are held
+  against the reference in ``test_torch_prefix_spec.py`` and
+  ``test_torch_flag_cube.py``).
 """
 import numpy as np
 import pytest
@@ -195,8 +198,7 @@ def test_engine_warmup_and_cli_on_cpu(tiny, capsys):
         capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", ["prefix_cache", "spec_decode",
-                                  "chunked_prefill", "trace"])
+@pytest.mark.parametrize("flag", ["trace"])
 def test_engine_rejects_unported_features(tiny, flag):
     _, _, tcfg, tparams = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -207,9 +209,6 @@ def test_engine_rejects_unported_features(tiny, flag):
 
 
 @pytest.mark.parametrize("argv", [["--layout", "auto"],
-                                  ["--prefix-cache", "on"],
-                                  ["--spec-decode", "on"],
-                                  ["--chunk-prefill", "on"],
                                   ["--fault-plan", "chaos"],
                                   ["--trace-out", "t.json"],
                                   ["--devices", "4"],
