@@ -1,12 +1,16 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, holds each
 against its plain PyTorch version, serves qwen3-1.7b at full width through
-the paged engine (plain, and with the prefix cache, speculative decoding
-and chunked prefill on, beside the same traffic with them off),
-rwkv6-1.6b and recurrentgemma-2b at full width through the dense engine,
-and grok-1-314b at full width with its depth cut to four layers through
-both engines, and checks each served path at a cut depth against the
-port's plain path (the paged engine's features each alone and all three
-for qwen3; for grok, all three against the plain engine without them).
+the paged engine (plain; with the prefix cache, speculative decoding and
+chunked prefill on, beside the same traffic with them off; and under the
+pinned chaos fault plan on a pool striped over three nodes, untraced and
+with the flight recorder on), rwkv6-1.6b and recurrentgemma-2b at full
+width through the dense engine, and grok-1-314b at full width with its
+depth cut to four layers through both engines, and checks each served
+path at a cut depth against the port's plain path (the paged engine's
+features each alone and all three for qwen3, and the chaos plan with the
+features off and on; for grok, all three against the plain engine
+without them).  It also reports whether a 1-token prefill chunk writes
+the KV of a longer suffix pass bit for bit.
 
     python3 chip_smoke.py
 
@@ -18,7 +22,8 @@ failure exits non-zero.  The last line of standard output is
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
 preceded by the kernels' JSON line and the card's name and power limit.
-The full record of the run is also written to chiprun_out/chip_smoke.json.
+The full record of the run is also written to chiprun_out/chip_smoke.json,
+the traced chaos run's Chrome trace to chiprun_out/chaos_trace.json.
 """
 import ctypes
 import dataclasses
@@ -1142,20 +1147,26 @@ def feature_prompts(vocab, seed, groups, per_group, plen, shared, motif):
     return out
 
 
-def serve_leaders_first(eng, prompts, gen_len, leaders, rid="req"):
+def serve_leaders_first(eng, prompts, gen_len, leaders, rid="req",
+                        cap=None):
     """Submit the ``leaders`` (the first prompt of each shared prefix),
     step until their prefills are done (their prompts are then in the
     prefix cache), then submit the rest and run to the end: a shared
-    system prompt's later users find it cached.  Returns the finished
+    system prompt's later users find it cached.  ``cap`` caps every
+    window at that many scheduler steps.  Returns the finished
     requests."""
     for i in leaders:
         eng.submit(prompts[i], gen_len, rid=f"{rid}{i}")
     while eng.sched.waiting or eng.sched.prefilling:
-        eng.step()
+        eng.step(cap)
     for i, p in enumerate(prompts):
         if i not in leaders:
             eng.submit(p, gen_len, rid=f"{rid}{i}")
-    return eng.run()
+    if cap is None:
+        return eng.run()
+    while eng.sched.waiting or eng.sched.prefilling or eng.sched.running:
+        eng.step(cap)
+    return eng.sched.finished
 
 
 def _ttft_ms(eng, plen, n=3):
@@ -1349,6 +1360,306 @@ def serve_paged_features(ops, cfg, params):
               f"features-off run's (not gated: bf16 through another "
               f"attention path may flip a near-tie)")
     return out
+
+
+# the phase 3 chaos run: PAGED_RUN's traffic (features off) on a pool
+# striped over 3 nodes on the host, 435 pages: the 8 x 36 pages of a full
+# batch's worst-case demand fit with one node down (434 x 2/3 = 289), and
+# 435 divides by 3.  The plan is tests/test_serving_fuzz.py's pinned
+# chaos plan (_chaos_plan), copied: a transient-rejection burst, a
+# straggler window, two node failures with their re-joins, on the
+# scheduler's step clock from arming.  Admission budget 4.0 decode steps:
+# at 3 nodes the reference's TPU-priced 512-token prefill costs 2.02
+# decode steps (1.09 at 1 node), over the default 2.0, which admits a
+# prompt only when no request runs (batch 1: 1,024 steps on the CPU
+# rehearsal against 139 at 4.0); 4.0 keeps the fault-free run's pattern
+# of one admission a step
+CHAOS_RUN = dict(n_nodes=3, n_pages=435, prefill_budget=4.0)
+CHAOS_EVENTS = ((2, "transient", -1, 2), (3, "slow", 2, 1, 4, 4.0),
+                (4, "fail", 1), (10, "join", 1), (14, "fail", 2),
+                (20, "join", 2))
+OUT = ROOT / "chiprun_out"
+
+
+def chaos_plan():
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    return FaultPlan([FaultEvent(*e) for e in CHAOS_EVENTS])
+
+
+def chaos_gates(eng, fin, n_req, gen_len, what, exact):
+    """The chaos run's gates: every planned failure detected and re-joined
+    (``exact``: exactly the plan's two; else at least two, a straggler
+    eviction counting as one more failure and re-join), a live request
+    recovered, a transient rejection, no stale page served, nothing
+    shed, every request finished with its tokens, pages and requests
+    conserved."""
+    m = eng.metrics()
+    nf, nj = m["node_failures"], m["node_joins"]
+    if not ((nf == nj == 2) if exact else (nf == nj >= 2)):
+        fail(f"{what}: {nf} node failures, {nj} re-joins")
+    if not (m["requests_recovered"] >= 1 and m["transient_rejections"] >= 1):
+        fail(f"{what}: {m['requests_recovered']} requests recovered, "
+             f"{m['transient_rejections']} transient rejections")
+    if m["quarantined_served"] != 0 or m["requests_shed"] != 0:
+        fail(f"{what}: {m['quarantined_served']} stale pages served, "
+             f"{m['requests_shed']} requests shed")
+    if len(fin) != n_req or any(len(r.tokens) != gen_len for r in fin):
+        fail(f"{what}: not every request finished with its tokens")
+    if not (eng.alloc.check_conservation()
+            and eng.sched.conserved(eng._n_submitted)):
+        fail(f"{what}: pages or requests not conserved")
+    return m
+
+
+def serve_paged_chaos(ops, cfg, params, base):
+    """The paged engine at ``cfg``'s widths, features off, with PAGED_RUN's
+    traffic on CHAOS_RUN's 3-node pool under the pinned plan, armed after
+    the warmup and the reset as the serve CLI arms it, four times in the
+    order untraced, traced (the flight recorder on), traced, untraced, so
+    that the tracing overhead is read across the host's drift.  The first
+    traced run's Chrome trace is written to chiprun_out/.  Checks, on
+    every run, ``chaos_gates``, each kernel's launches against the
+    engine's pass counters (recovery prefills included) and the first
+    run's tokens; on the traced runs a valid trace and recorded spans.
+    ``base`` is serve_paged's fault-free run of the same traffic.
+    Returns, per run, (stats, launches, line)."""
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.serving.engine import PagedEngine
+    from repro_torch.serving.telemetry import validate_chrome_trace
+
+    run = PAGED_RUN
+    n_req, plen, gen_len, batch, ps = (run[k] for k in (
+        "requests", "prompt_len", "gen", "batch", "page_size"))
+    prompts = make_prompts(n_req, plen, cfg.vocab_size, SEED)
+    OUT.mkdir(exist_ok=True)
+    path = OUT / "chaos_trace.json"
+    out, first = [], None
+    for n, trace in enumerate((False, True, True, False)):
+        eng = PagedEngine(cfg, params, max_batch=batch, page_size=ps,
+                          n_pages=CHAOS_RUN["n_pages"],
+                          max_len=plen + gen_len,
+                          n_nodes=CHAOS_RUN["n_nodes"],
+                          prefill_budget=CHAOS_RUN["prefill_budget"],
+                          fused=True, max_window=run["window"], trace=trace,
+                          device=DEVICE)
+        if trace:
+            eng.tracer.dump_dir = str(OUT)
+        eng.warmup_windows()
+        eng.submit(prompts[0], 2, rid="warm")
+        eng.run()
+        eng.reset_metrics()
+        eng.install_faults(chaos_plan())     # plan step 0: the first step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                 # counts of this run only
+        t0 = time.time()
+        for i, p in enumerate(prompts):
+            eng.submit(p, gen_len, rid=f"req{i}")
+        fin = eng.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _launches(ops)
+        peak_gb = _peak_gb()
+        what = (f"{cfg.name} paged chaos" + (", traced" if trace else "")
+                + (f" (run {n + 1} of 4)" if n else ""))
+        m = chaos_gates(eng, fin, n_req, gen_len, what, exact=True)
+        if any(not (0 <= t < cfg.vocab_size) for r in fin for t in r.tokens):
+            fail(f"{what}: token ids out of range (NaN logits?)")
+        toks = {r.rid: list(r.tokens) for r in fin}
+        first = first or toks
+        if toks != first:
+            fail(f"{what}: tokens differ from the first chaos run's")
+        prefills, scan_steps, suffix = engine_passes(eng)
+        want = expected_launches(cfg, prefills, scan_steps, plen, batch,
+                                 True, suffix)
+        if launches != want:
+            fail(f"{what}: launches {launches} != expected {want} for "
+                 f"{prefills} prefills (recoveries included) and "
+                 f"{scan_steps} decode steps")
+        step_ms = m["decode_step_s"] * 1e3
+        stats = dict(arch=cfg.name, trace=trace, order=n + 1,
+                     requests=n_req, prompt_len=plen, gen=gen_len,
+                     max_batch=batch, page_size=ps, **CHAOS_RUN,
+                     events=CHAOS_EVENTS, wall_s=wall,
+                     tok_per_s=m["tokens_out"] / wall,
+                     decode_step_ms=step_ms, prefills=prefills,
+                     decode_steps=scan_steps, windows=m["windows"],
+                     steps=m["steps"], preemptions=m["preemptions"],
+                     h2d_syncs=m["h2d_syncs"], d2h_syncs=m["d2h_syncs"],
+                     launches=launches, peak_gb=peak_gb,
+                     **{k: m[k] for k in (
+                         "node_failures", "node_joins", "pages_quarantined",
+                         "requests_recovered", "tokens_recomputed",
+                         "transient_rejections", "requests_shed",
+                         "quarantined_served", "recovery_steps_p50",
+                         "recovery_steps_p99")})
+        if n:
+            line = (f"serve {what}: {wall:.2f} s, {stats['tok_per_s']:.1f} "
+                    f"tok/s, decode step {step_ms:.3f} ms; gates and "
+                    f"counters as run 1, tokens identical; launches "
+                    f"{launches}")
+        else:
+            line = (
+                f"serve {what} ({cfg.n_layers} layers, bf16 activations, "
+                f"impl=pallas; PAGED_RUN's traffic, pool of "
+                f"{CHAOS_RUN['n_pages']} pages striped over "
+                f"{CHAOS_RUN['n_nodes']} nodes, admission budget "
+                f"{CHAOS_RUN['prefill_budget']} decode steps, the pinned "
+                f"plan): {wall:.2f} s, {stats['tok_per_s']:.1f} tok/s "
+                f"(fault-free {base['tok_per_s']:.1f}), decode step "
+                f"{step_ms:.3f} ms (fault-free {base['decode_step_ms']:.3f}"
+                f"); {m['node_failures']} node failures / "
+                f"{m['node_joins']} re-joins, {m['pages_quarantined']} "
+                f"pages quarantined, {m['requests_recovered']} requests "
+                f"recovered ({m['tokens_recomputed']} tokens recomputed), "
+                f"{m['transient_rejections']} transient rejections, "
+                f"{m['requests_shed']} shed, {m['quarantined_served']} "
+                f"stale reads; recovery p50 {m['recovery_steps_p50']:.2f} / "
+                f"p99 {m['recovery_steps_p99']:.2f} steps (x this run's "
+                f"decode step: {m['recovery_steps_p50'] * step_ms:.1f} / "
+                f"{m['recovery_steps_p99'] * step_ms:.1f} ms); {prefills} "
+                f"prefills ({prefills - n_req} recoveries), {scan_steps} "
+                f"decode steps, {m['windows']} windows, "
+                f"{m['preemptions']} preemptions; peak memory "
+                f"{peak_gb:.2f} GB (fault-free {base['peak_gb']:.2f}); "
+                f"launches {launches}")
+        if trace:
+            eng.tracer.finalize(eng.sched.step_idx)
+            if eng.tracer.recorded <= 0:
+                fail(f"{what}: no span recorded")
+            doc = eng.tracer.chrome_trace()
+            if n == 1:
+                eng.tracer.write_chrome(str(path))
+                doc = json.loads(path.read_text())
+            problems = validate_chrome_trace(doc)
+            if problems:
+                fail(f"{what}: the Chrome trace does not validate: "
+                     f"{problems[:3]}")
+            stats.update(spans_recorded=eng.tracer.recorded,
+                         spans_dropped=eng.tracer.dropped,
+                         samples=len(eng.tracer.samples),
+                         model_error=eng.tracer.model_error_report())
+            if n == 2:
+                stats.update(tracer_cost_us=tracer_cost_us(eng))
+        out.append((stats, launches, line))
+        del eng
+        torch.cuda.empty_cache()
+    rates = [st["tok_per_s"] for st, _, _ in out]
+    ratio = (rates[1] + rates[2]) / (rates[0] + rates[3])
+    st = out[1][0]
+    cost = out[2][0]["tracer_cost_us"]
+    n_disp = sum(int(r["count"]) for r in st["model_error"].values())
+    per_run_ms = (n_disp * cost["dispatch"] + (st["spans_recorded"] - n_disp)
+                  * cost["lifecycle"] + st["samples"] * cost["sample"]) / 1e3
+    st.update(traced_over_untraced=ratio, trace_file=str(path.relative_to(
+        ROOT)), tracer_cost_us=cost, tracer_ms_per_run=per_run_ms)
+    report = st["model_error"]
+    out[1] = (st, out[1][1], out[1][2] + (
+        f"; tokens identical to the untraced runs; tok/s untraced, traced, "
+        f"traced, untraced {', '.join(f'{r:.1f}' for r in rates)}: traced "
+        f"/ untraced {ratio:.4f}; the tracer's own host time, timed "
+        f"apart: {cost['dispatch']:.2f} us a dispatch span (untraced "
+        f"{cost['untraced']:.3f} us), {cost['lifecycle']:.2f} us a "
+        f"lifecycle span, {cost['sample']:.2f} us an occupancy sample: "
+        f"{per_run_ms:.3f} ms a run, {per_run_ms / 10 / st['wall_s']:.4f}% "
+        f"of its wall; {st['spans_recorded']} spans recorded, "
+        f"{st['spans_dropped']} dropped; trace {st['trace_file']} valid; "
+        f"per-phase model error, measured on the card (host wall time of "
+        f"each span) vs predicted by the reference's TPU v5e-class cost "
+        f"model: " + ", ".join(
+            f"{ph} x{int(r['count'])} measured {r['measured_s']:.4f} s vs "
+            f"predicted {r['predicted_s']:.4f} s"
+            for ph, r in sorted(report.items()))))
+    return out
+
+
+def tracer_cost_us(eng, n=2000):
+    """Host microseconds of the tracer's own work, timed on this host
+    apart from any device work: a dispatch span around an empty body
+    with its memoized prediction (and the same with the tracer off), a
+    lifecycle transition, and an occupancy sample of the engine's
+    allocator.  Recorded into the engine's tracer after its trace was
+    checked."""
+    tr, step = eng.tracer, eng.sched.step_idx
+
+    def per_call(fn):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def span():
+        with eng._span("scan", lambda: eng._predict_scan(8), k=8, slots=8):
+            pass
+
+    def event():
+        tr.request_event("cost", "queued", step)
+        tr.request_event("cost", "running", step)
+
+    res = dict(dispatch=per_call(span),
+               lifecycle=per_call(event) / 2,
+               sample=per_call(lambda: tr.counter_sample(
+                   step, eng.alloc.occupancy_by_node())))
+    eng.tracer = None
+    res["untraced"] = per_call(span)
+    eng.tracer = tr
+    return res
+
+
+def one_token_chunk(cfg, params):
+    """The KV of one 513-token prompt written by 128-token chunks, the
+    last a 1-token chunk at position 512, against one suffix pass over
+    the whole prompt (a recovery's re-prefill with chunking on can end
+    in such a chunk): the max abs difference and whether they are
+    bit-equal, at the 1-token chunk's position and at the others, and
+    between the two final logits.  A report, not a gate."""
+    from repro_torch.models import lm
+    ps, chunk, n = 16, 128, 4 * 128 + 1
+    nmax = -(-n // ps)
+    row = torch.arange(1, nmax + 1, dtype=torch.int32, device=DEVICE)
+    toks = np.random.default_rng(SEED + 14).integers(
+        2, cfg.vocab_size, n, dtype=np.int32)
+
+    def padded(s, k):
+        w = 1 << max(k - 1, 0).bit_length()
+        t = np.zeros((1, w), np.int32)
+        t[0, :k] = toks[s:s + k]
+        return torch.tensor(t, device=DEVICE)
+
+    one = lm.init_paged_caches(cfg, nmax + 1, ps, DEVICE)
+    l_one, one = lm.prefill_suffix_paged(params, cfg, padded(0, n), one,
+                                         row, 0, n)
+    many = lm.init_paged_caches(cfg, nmax + 1, ps, DEVICE)
+    for s in range(0, n, chunk):
+        k = min(chunk, n - s)
+        l_many, many = lm.chunk_prefill_paged(params, cfg, padded(s, k),
+                                              many, row, s, k)
+    pos = torch.arange(n, device=DEVICE)
+    pages, slots = row[pos // ps].long(), pos % ps
+    last, rest, equal = 0.0, 0.0, [True, True]
+    for a, b in zip(_leaves(one), _leaves(many)):
+        ra, rb = a[pages, slots].float(), b[pages, slots].float()
+        d = (ra - rb).abs().reshape(n, -1).max(-1).values
+        last, rest = max(last, float(d[-1])), max(rest, float(d[:-1].max()))
+        equal[0] &= bool(torch.equal(ra[-1], rb[-1]))
+        equal[1] &= bool(torch.equal(ra[:-1], rb[:-1]))
+    res = dict(prompt=n, chunk=chunk, kv_err_1token=last,
+               kv_bitequal_1token=equal[0], kv_err_rest=rest,
+               kv_bitequal_rest=equal[1],
+               logit_err=max_err(l_one, l_many),
+               logits_bitequal=bool(torch.equal(l_one, l_many)),
+               same_argmax=bool(torch.equal(l_one.argmax(-1),
+                                            l_many.argmax(-1))))
+    line = (f"1-token chunk, {cfg.name} ({cfg.n_layers} layers, "
+            f"{cfg.activation_dtype}): a {n}-token prompt's KV by "
+            f"{chunk}-token chunks ending in a 1-token chunk vs one suffix "
+            f"pass: the 1-token chunk's KV max abs diff {last:.3g} "
+            f"(bit-equal {equal[0]}), the other positions' {rest:.3g} "
+            f"(bit-equal {equal[1]}); final logits max abs diff "
+            f"{res['logit_err']:.3g} (bit-equal {res['logits_bitequal']}, "
+            f"same argmax {res['same_argmax']}); a report, not a gate")
+    del one, many
+    return res, line
 
 
 def serve_dense(ops, cfg, params):
@@ -1688,25 +1999,39 @@ def answer_prompts(ref_cfg, params, prompts, shared, gen_len):
     return prompts, oracle, margins, ANSWER_ROUNDS
 
 
-def feature_parity():
-    """qwen3-1.7b at full width, 4 layers, fp32: the paged engine
-    (kernels) with each of the prefix cache, speculative decoding and
-    chunked prefill alone and with all three, on 4 prompts that share a
-    456-token prefix and end in motif tails (the first served first),
-    against the port's dense plain path with the near-tie rule.  Each
-    prompt quotes the model's own continuation with one token wrong
-    (``answer_prompts``): every run with speculation must both accept
-    and reject a draft."""
-    from repro_torch.serving.engine import PagedEngine
-
+def feature_parity_inputs():
+    """The model and prompts of phase 4's feature and chaos parity:
+    qwen3-1.7b at full width, 4 layers, fp32, and 4 prompts that share a
+    456-token prefix and end in motif tails, each quoting the model's own
+    continuation with one token wrong (``answer_prompts``), with the
+    plain oracle's tokens and margins on them."""
     full, cfg, params = _parity_model(SEED + 12)
-    n_req, gen_len, ps = 4, 16, 16
-    plen = PAGED_RUN["prompt_len"]
+    n_req, gen_len = 4, 16
     fr = FEATURE_RUN
-    prompts = feature_prompts(cfg.vocab_size, SEED + 12, 1, n_req, plen,
-                              fr["shared"], fr["motif"])
+    prompts = feature_prompts(cfg.vocab_size, SEED + 12, 1, n_req,
+                              PAGED_RUN["prompt_len"], fr["shared"],
+                              fr["motif"])
     prompts, oracle, margins, rounds = answer_prompts(
         cfg.replace(impl="ref"), params, prompts, fr["shared"], gen_len)
+    return dict(full=full, cfg=cfg, params=params, prompts=prompts,
+                oracle=oracle, margins=margins, rounds=rounds,
+                gen=gen_len)
+
+
+def feature_parity(inp):
+    """The paged engine (kernels) with each of the prefix cache,
+    speculative decoding and chunked prefill alone and with all three,
+    on ``feature_parity_inputs``' prompts (the first served first),
+    against the port's dense plain path with the near-tie rule: every
+    run with speculation must both accept and reject a draft."""
+    from repro_torch.serving.engine import PagedEngine
+
+    full, cfg, params, prompts, oracle, margins, rounds, gen_len = (
+        inp[k] for k in ("full", "cfg", "params", "prompts", "oracle",
+                         "margins", "rounds", "gen"))
+    n_req, ps = len(prompts), 16
+    plen = PAGED_RUN["prompt_len"]
+    fr = FEATURE_RUN
     max_len = plen + gen_len
     res, parts = {}, []
     for name, kw in FEATURE_PARITY:
@@ -1744,9 +2069,79 @@ def feature_parity():
             f"{ANSWER_WRONG} wrong (fixed point in {rounds} rounds), x "
             f"{gen_len} tokens, greedy tokens: "
             + "; ".join(parts))
-    del params
     torch.cuda.empty_cache()
     return dict(runs=res, answer_rounds=rounds), line
+
+
+# phase 4's chaos parity: 32 tokens, so that every run outlasts the plan's
+# last re-join (step 20), and windows capped at 4 scheduler steps, so
+# that the watchdog ticks inside every planned outage whatever the
+# speculation accepts (it may then also evict the straggler: a third
+# failure and re-join)
+CHAOS_PARITY = dict(gen=32, cap=4)
+
+
+def chaos_parity(inp):
+    """The paged engine (kernels) on ``feature_parity_inputs``' model and
+    prompts, on a pool striped over 3 nodes under the pinned plan, with
+    the features off and with all three on (the first prompt served
+    first), against the port's dense plain path with the near-tie rule;
+    ``chaos_gates`` (not exact) on each run."""
+    from repro_torch.serving.engine import PagedEngine
+
+    full, cfg, params, prompts = (inp[k] for k in ("full", "cfg", "params",
+                                                   "prompts"))
+    gen_len, cap = CHAOS_PARITY["gen"], CHAOS_PARITY["cap"]
+    n_req, ps, plen = len(prompts), 16, PAGED_RUN["prompt_len"]
+    oracle, margins, _ = _plain_oracle(cfg.replace(impl="ref"), params,
+                                       prompts, gen_len)
+    max_len = plen + gen_len
+    n_pages = n_req * (-(-max_len // ps)) + 1
+    n_pages += -n_pages % CHAOS_RUN["n_nodes"]
+    res, parts = {}, []
+    for name, kw in (("features off", {}),
+                     ("all three", dict(FEATURES, chunk_tokens=128))):
+        eng = PagedEngine(cfg, params, max_batch=n_req, page_size=ps,
+                          n_pages=n_pages, max_len=max_len,
+                          n_nodes=CHAOS_RUN["n_nodes"], fused=True,
+                          max_window=8, fault_plan=chaos_plan(),
+                          device=DEVICE, **kw)
+        fin = serve_leaders_first(eng, prompts, gen_len, [0], rid="r",
+                                  cap=cap)
+        what = f"chaos parity {name}"
+        m = chaos_gates(eng, fin, n_req, gen_len, what, exact=False)
+        if not _engaged(m, kw, 1, n_req):
+            fail(f"{what}: a feature did not engage: "
+                 f"{m.get('prefix_hits')} prefix hits, "
+                 f"{m.get('spec_verifies')} verifies, "
+                 f"{m.get('chunk_dispatches')} chunk passes")
+        ties = _near_ties(fin, oracle, margins, what)
+        res[name] = dict(near_ties=ties, **{k: m.get(k) for k in (
+            "node_failures", "node_joins", "pages_quarantined",
+            "requests_recovered", "tokens_recomputed",
+            "transient_rejections", "recovery_steps_p99", "prefix_hits",
+            "spec_verifies", "spec_accepted", "chunk_dispatches",
+            "model_passes")})
+        parts.append(f"{name}: "
+                     + ("identical" if not ties else f"near-ties {ties}")
+                     + f" ({m['node_failures']} failures / "
+                     f"{m['node_joins']} re-joins, "
+                     f"{m['requests_recovered']} recovered, "
+                     f"{m['tokens_recomputed']} tokens recomputed, "
+                     f"{m['transient_rejections']} transient rejections; "
+                     f"hits {m.get('prefix_hits')}, verifies "
+                     f"{m.get('spec_verifies')}, drafts accepted "
+                     f"{m.get('spec_accepted')}, chunk passes "
+                     f"{m.get('chunk_dispatches')})")
+        del eng
+    line = (f"parity {full.name} paged engine under the pinned fault plan, "
+            f"full width, depth cut {full.n_layers} -> {cfg.n_layers} "
+            f"layers, fp32, pool of {n_pages} pages over "
+            f"{CHAOS_RUN['n_nodes']} nodes, windows capped at {cap}: engine "
+            f"(kernels) vs dense path (impl=ref) on {n_req} prompts x "
+            f"{gen_len} tokens, greedy tokens: " + "; ".join(parts))
+    torch.cuda.empty_cache()
+    return res, line
 
 
 # full width with the depth cut, fp32: each family's kernel path
@@ -2135,6 +2530,12 @@ def main():
     on, off = serve_paged_features(ops, cfg, params)
     served("qwen3-1.7b paged, prefix+spec+chunked", on)
     served("qwen3-1.7b paged, prefix+spec+chunked off", off)
+    for n, res in enumerate(serve_paged_chaos(
+            ops, cfg, params, serve_stats["qwen3-1.7b paged"])):
+        served("qwen3-1.7b paged chaos" + ("", ", traced", ", traced 2",
+                                           " 2")[n], res)
+    parity["1-token chunk bf16"], line = one_token_chunk(cfg, params)
+    print(f"[parity] {line}")
     del params
     for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
         cfg, params = full_width_params(arch)
@@ -2143,8 +2544,16 @@ def main():
     torch.cuda.empty_cache()
     parity["qwen3-1.7b paged"], line = engine_parity()
     print(f"[parity] {line}")
-    parity["qwen3-1.7b paged features"], line = feature_parity()
+    inp = feature_parity_inputs()
+    parity["qwen3-1.7b paged features"], line = feature_parity(inp)
     print(f"[parity] {line}")
+    parity["qwen3-1.7b paged chaos"], line = chaos_parity(inp)
+    print(f"[parity] {line}")
+    parity["1-token chunk fp32"], line = one_token_chunk(inp["cfg"],
+                                                         inp["params"])
+    print(f"[parity] {line}")
+    del inp
+    torch.cuda.empty_cache()
     for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
         parity[f"{arch} dense"], line = dense_parity(arch)
         print(f"[parity] {line}")
@@ -2181,9 +2590,8 @@ def main():
     kernels = {"kernels": [{k: v for k, v in recs[fn.__name__].items()
                             if k not in ("shapes", "cases")}
                            for fn in ops.KERNELS]}
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps(
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(gpu=info, torch=torch.__version__, build_s=build_s, ptxas=ptxas,
              seconds=time.time() - t0,
              kernels=[recs[fn.__name__] for fn in ops.KERNELS],

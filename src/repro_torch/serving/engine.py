@@ -43,12 +43,35 @@ only the final chunk's logits are pulled.
 Greedy tokens are the same with each feature on or off: the suffix,
 chunk and verify passes compute the same function as the decode path
 (``tests/test_torch_flag_cube.py`` holds the 32 combinations of the
-features against the reference's dense oracle).  The fault plane,
-tracing and mesh-striped pools raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+features against the reference's dense oracle).
+
+Fault plane (``n_nodes``, ``fault_plan``): the allocator stripes the
+pool's pages over ``n_nodes`` nodes.  Without a mesh the striping is
+host-side only: the pools stay one tensor on one device, and a node's
+failure quarantines its pages in the allocator, resets every request
+whose block table touches them (exact greedy recompute through the
+preemption path) and sheds what the shrunken pool can never fit.  A
+quarantined page keeps its stale KV on the device, so the host is the
+only guard: ``_block_row`` and ``_assert_no_quarantined`` raise (after a
+flight-recorder dump) rather than let a dispatch read one.  A
+:class:`~repro_torch.serving.faults.FaultPlan` drives the failures,
+re-joins, stragglers and transient admission errors on the scheduler's
+step clock (:meth:`PagedEngine.install_faults`).
+
+Tracing (``trace=True``): a :class:`~repro_torch.serving.telemetry
+.StepTracer` records request-lifecycle spans (from the scheduler) and a
+span around every dispatch, stamped with the cost engine's predicted
+seconds and joules.  Those predictions price the reference's TPU
+v5e-class model (``launch/mesh.py``), not the device the port runs on.
+A span times its body on the host clock: it includes device time only
+where the body ends in a pull to the host (prefill, chunk, scan and
+verify bodies do; ``cow_copy`` times the enqueue).  Tracing never feeds
+back into scheduling, so tokens are the same on or off.  Mesh-striped
+pools raise ``NotImplementedError`` (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from typing import Dict, List, Optional
@@ -59,31 +82,32 @@ import torch
 from repro_torch import steps as steps_mod
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import costs
+from repro_torch.core.energy import step_energy
+from repro_torch.launch.mesh import HBM_BW
 from repro_torch.models import lm, modules as nn
+from repro_torch.serving.faults import FaultPlane
 from repro_torch.serving.paged_kv import NULL_PAGE, PageAllocator
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import ContinuousBatchScheduler, Request
 from repro_torch.serving.spec_decode import NGramSpec, SpecStats
 from repro_torch.serving.telemetry import (HistogramDigest, MetricsRegistry,
-                                           counter_attr)
+                                           StepTracer, counter_attr)
 from repro_torch.weights import resolve_device
-
-# (constructor flag, ROADMAP Queue A item that ports it)
-_UNPORTED = (("fault_plan", "the fault plane (Queue A item 4)"),
-             ("trace", "step tracing (Queue A item 5)"),
-             ("mesh", "mesh-striped pools (Queue A item 7)"))
 
 
 # -- cost-engine pricing (the scheduler's admission inputs) ----------------
-def _estimate(cfg, shape):
-    # one device: no stripe, so no interconnect term to price
-    return costs.estimate(cfg, costs.Layout(data=1, model=1), "circuit",
-                          shape)
+# functions of the config and the stripe, never bound methods: the
+# scheduler holds them, and the engine is freed when its last reference
+# goes, without the cycle collector
+def _estimate(cfg, link_mode: str, n_nodes: int, shape):
+    return costs.estimate(cfg, costs.Layout(data=1, model=n_nodes),
+                          link_mode, shape)
 
 
-def _prefill_cost(cfg, prompt_len: int) -> float:
+def _prefill_cost(cfg, link_mode: str, n_nodes: int,
+                  prompt_len: int) -> float:
     shape = ShapeConfig("serve_prefill", max(prompt_len, 1), 1, "prefill")
-    return _estimate(cfg, shape).step_time_s
+    return _estimate(cfg, link_mode, n_nodes, shape).step_time_s
 
 
 class PagedEngine:
@@ -96,9 +120,12 @@ class PagedEngine:
     ``prefix_cache``, ``spec_decode`` (``spec_k`` an int or ``"auto"``,
     ``spec_ngram``, ``spec_proposer`` ``"device"`` or ``"host"``) and
     ``chunked_prefill`` (``chunk_tokens``, 0 = two pages) take the
-    reference's defaults.  ``device`` defaults to ``cuda`` and must hold
-    ``params``; with no device given and no CUDA present the constructor
-    raises.
+    reference's defaults.  ``n_nodes`` stripes the allocator's pages
+    (host-side: the pools stay on one device) and, with ``link_mode``,
+    prices admission as the reference does; ``fault_plan`` arms the fault
+    plane, ``trace`` the flight recorder (``trace_capacity`` spans).
+    ``device`` defaults to ``cuda`` and must hold ``params``; with no
+    device given and no CUDA present the constructor raises.
     """
 
     steps_run = counter_attr()
@@ -117,23 +144,29 @@ class PagedEngine:
     # sequential model passes (a fused K-step window counts K, a verify
     # one): the numerator of dispatches_per_token
     model_passes = counter_attr()
+    # fault-plane counters (serving/faults.py)
+    node_failures = counter_attr()
+    node_joins = counter_attr()
+    pages_quarantined_total = counter_attr()
+    requests_recovered = counter_attr()
+    tokens_recomputed = counter_attr()  # emitted tokens discarded by resets
+    quarantined_served = counter_attr()  # MUST stay 0: stale-read guard hits
 
     def __init__(self, cfg, params, *, max_batch: int = 4,
                  page_size: int = 16, n_pages: int = 64,
-                 max_len: int = 256, prefill_budget: float = 2.0,
+                 max_len: int = 256, n_nodes: int = 1,
+                 link_mode: str = "circuit", prefill_budget: float = 2.0,
                  fused: bool = True, max_window: int = 8,
                  prefix_cache: bool = False, spec_decode: bool = False,
                  spec_k=8, spec_ngram: int = 3,
                  spec_proposer: str = "device",
                  chunked_prefill: bool = False, chunk_tokens: int = 0,
-                 fault_plan=None, trace: bool = False, mesh=None,
-                 device=None):
-        flags = dict(fault_plan=fault_plan is not None, trace=trace,
-                     mesh=mesh is not None)
-        for flag, what in _UNPORTED:
-            if flags[flag]:
-                raise NotImplementedError(
-                    f"{flag}: {what} is not ported yet; see ROADMAP.md")
+                 fault_plan=None, trace: bool = False,
+                 trace_capacity: int = 4096, mesh=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: mesh-striped pools (Queue A item 7) are not ported "
+                "yet; see ROADMAP.md")
         assert lm.paged_decodable(cfg), \
             f"{cfg.name} is not paged-decodable (attention-only, causal)"
         if spec_proposer not in ("device", "host"):
@@ -146,6 +179,7 @@ class PagedEngine:
             raise ValueError(f"params live on {self.device}, the engine "
                              f"was asked to run on {want}")
         self.registry = MetricsRegistry()
+        self.tracer = StepTracer(capacity=trace_capacity) if trace else None
         self.cfg = cfg
         self.params = params
         self.page_size = page_size
@@ -167,24 +201,26 @@ class PagedEngine:
             else:
                 self.spec = NGramSpec(k=int(spec_k), max_n=spec_ngram)
         self.alloc = PageAllocator(n_pages=n_pages, page_size=page_size,
-                                   registry=self.registry)
+                                   n_nodes=n_nodes, registry=self.registry)
         self.cache = None
         if prefix_cache:
             self.cache = PrefixCache(self.alloc, registry=self.registry)
             # under pool pressure, LRU-evict cold cache pages before the
             # scheduler resorts to preempting tenants
             self.alloc.reclaim = self.cache.evict
+        self.link_mode = link_mode
+        self.n_nodes = n_nodes
         self.decode_estimate = _estimate(
-            cfg, ShapeConfig("serve_decode", max_len, max_batch, "decode"))
-        # a callable of cfg alone, not a bound method: the engine is freed
-        # when its last reference goes, without the cycle collector
+            cfg, link_mode, n_nodes,
+            ShapeConfig("serve_decode", max_len, max_batch, "decode"))
         self.sched = ContinuousBatchScheduler(
             self.alloc, max_batch,
-            prefill_cost_s=functools.partial(_prefill_cost, cfg),
+            prefill_cost_s=functools.partial(_prefill_cost, cfg, link_mode,
+                                             n_nodes),
             decode_cost_s=self.decode_estimate.step_time_s,
             prefill_budget=prefill_budget, prefix_cache=self.cache,
             chunked=chunked_prefill, chunk_tokens=chunk_tokens,
-            registry=self.registry)
+            registry=self.registry, tracer=self.tracer)
         self.pools = lm.init_paged_caches(cfg, n_pages=n_pages,
                                           page_size=page_size,
                                           device=self.device)
@@ -240,7 +276,30 @@ class PagedEngine:
         self.prefill_tokens = 0
         self.chunk_dispatches = 0
         self.model_passes = 0
+        self.node_failures = 0
+        self.node_joins = 0
+        self.pages_quarantined_total = 0
+        self.requests_recovered = 0
+        self.tokens_recomputed = 0
+        self.quarantined_served = 0
+        # dispatch-span predictions, memoized: (seconds, joules across the
+        # fleet) per prefill-shaped width
+        self._pred_cache: Dict[int, tuple] = {}
+        self.faults = None
+        if fault_plan is not None:
+            self.install_faults(fault_plan)
         self.t0 = time.time()
+
+    def install_faults(self, plan) -> None:
+        """Attach a :class:`~repro_torch.serving.faults.FaultPlan`; its
+        step 0 is the *current* scheduler step, so install after warmup
+        and ``reset_metrics`` to keep warmup traffic out of the chaos
+        window.  The plane holds the engine's registry, never the engine
+        (``on_step`` takes it as an argument)."""
+        self.faults = FaultPlane(plan, self.n_nodes,
+                                 epoch=self.sched.step_idx,
+                                 registry=self.registry)
+        self.sched.transient_gate = self.faults.transient_gate
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """A device copy of a host array (never a view of the mirror)."""
@@ -248,15 +307,84 @@ class PagedEngine:
 
     def reset_metrics(self):
         """Zero every counter/clock/digest (e.g. after a warmup pass)
-        while keeping the pools and allocator state.  The prefix-cache
-        tree is kept (``cache.clear()`` starts it cold); its counters
-        restart."""
+        while keeping the pools and allocator state: the engine's,
+        scheduler's, allocator's, prefix cache's and fault plane's
+        counters and the histogram digests, so that warmup traffic never
+        reaches chaos or SLO percentiles.  The prefix-cache tree is kept
+        (``cache.clear()`` starts it cold); its counters restart.  The
+        tracer's ring restarts too: an exported trace begins after the
+        warmup."""
         self.registry.reset()
         self.sched.finished.clear()
         self._n_submitted = 0
+        self.sched.shed.clear()
+        self.sched.recovery_steps.clear()
         if self.spec is not None:
             self.spec.stats = SpecStats()
+        if self.tracer is not None:
+            self.tracer.reset()
         self.t0 = time.time()
+
+    # -- predicted-vs-measured attribution (telemetry spans) ---------------
+    # The pools are one tensor on one device, so no dispatch moves KV
+    # between stripes: the reference's predicted interconnect share of a
+    # span is 0 here (a mesh, ROADMAP Queue A item 7, brings it)
+    def _predict_prefill(self, n_tokens: int) -> tuple:
+        """(predicted seconds, predicted joules across the fleet) for one
+        prefill-shaped pass of ``n_tokens``: prices prefill, suffix
+        prefill, chunk and verify widths.  Memoized per width."""
+        n = max(int(n_tokens), 1)
+        hit = self._pred_cache.get(n)
+        if hit is None:
+            est = _estimate(self.cfg, self.link_mode, self.n_nodes,
+                            ShapeConfig("serve_prefill", n, 1, "prefill"))
+            hit = self._pred_cache[n] = (est.step_time_s,
+                                         est.energy.total_j * self.n_nodes)
+        return hit
+
+    def _predict_scan(self, k: int) -> tuple:
+        """(seconds, joules) for a fused K-step decode window: K times the
+        admission-priced decode step."""
+        return (k * self.sched.decode_cost_s,
+                k * self.decode_estimate.energy.total_j * self.n_nodes)
+
+    def _predict_cow(self) -> tuple:
+        """(seconds, joules) for one device page copy: read + write one
+        page of KV through HBM (no FLOPs)."""
+        nbytes = 2 * self.page_size * self.kv_bytes_per_token
+        secs = nbytes / HBM_BW
+        return secs, step_energy(flops_per_chip=0.0,
+                                 hbm_bytes_per_chip=nbytes,
+                                 ici_bytes_per_chip=0.0,
+                                 step_seconds=secs).total_j
+
+    _NULLCTX = contextlib.nullcontext()
+
+    def _span(self, phase: str, predfn, **extra):
+        """Dispatch-span context: a no-op when tracing is off (``predfn``
+        is never called: no cost-model work), else a
+        :meth:`StepTracer.dispatch` span stamped with the current step
+        and the cost engine's (seconds, joules) prediction.  The span
+        times its body on the host clock; it adds no device sync."""
+        if self.tracer is None:
+            return self._NULLCTX
+        ps, pj = predfn()
+        return self.tracer.dispatch(phase, self.sched.step_idx,
+                                    predicted_s=ps, predicted_j=pj, **extra)
+
+    def _flight_dump(self, reason: str) -> Optional[str]:
+        """Invariant-violation post-mortem: dump the flight recorder's
+        last spans and a registry snapshot before the caller raises.  No
+        tracer armed: no dump (never mask the original error)."""
+        if self.tracer is None:
+            return None
+        try:
+            path = self.tracer.flight_dump(reason, registry=self.registry)
+        except OSError:
+            return None
+        print(f"[flight-recorder] dumped last {len(self.tracer.spans)} "
+              f"spans to {path}")
+        return path
 
     # -- request intake ----------------------------------------------------
     def submit(self, prompt, gen: int, *, tenant: str = "default",
@@ -277,10 +405,73 @@ class PagedEngine:
         self.sched.submit(req)
         return req
 
+    # -- node failure / re-join (the fault plane's engine half) ------------
+    def fail_node(self, node: int) -> set:
+        """A stripe of the page pool went dark: quarantine its pages,
+        invalidate the prefix-cache subtrees that lived on them, reset
+        every running or prefilling request whose block table touches them
+        (exact greedy recompute through whatever cache survived), and
+        shed requests the shrunken pool can never fit again.  Idempotent
+        per down node.  Called by the fault plane's watchdog; callable
+        directly by tests and operators."""
+        quar = self.alloc.fail_node(node)
+        if not quar:
+            return quar
+        self.node_failures += 1
+        self.pages_quarantined_total += len(quar)
+        if self.cache is not None:
+            # tree-wide: a lost interior page strands its whole subtree
+            self.cache.invalidate_pages(quar)
+        victims = [r for r in (list(self.sched.running.values())
+                               + list(self.sched.prefilling.values()))
+                   if not quar.isdisjoint(self.alloc.held.get(r.rid, ()))]
+        for req in victims:
+            self.tokens_recomputed += len(req.tokens)
+            self.sched.fault_reset(req)
+        self.requests_recovered += len(victims)
+        self.sched.shed_infeasible(self.alloc.allocatable_pages)
+        self._assert_no_quarantined()
+        return quar
+
+    def join_node(self, node: int) -> int:
+        """Elastic re-join: the node's quarantined pages return to the
+        striped free lists.  Returns how many pages rejoined."""
+        was_down = node in self.alloc.failed_nodes
+        restored = self.alloc.restore_node(node)
+        if was_down:
+            self.node_joins += 1
+        return restored
+
+    def _assert_no_quarantined(self) -> None:
+        """The never-re-served invariant: after recovery, no live block
+        table references a quarantined page."""
+        quar = self.alloc.quarantined
+        if not quar:
+            return
+        for req in (list(self.sched.running.values())
+                    + list(self.sched.prefilling.values())):
+            bad = quar.intersection(self.alloc.held.get(req.rid, ()))
+            if bad:
+                self.quarantined_served += 1
+                self._flight_dump("quarantined-served")
+                raise RuntimeError(
+                    f"request {req.rid} still references quarantined "
+                    f"pages {sorted(bad)} after recovery")
+
     # -- host mirror maintenance -------------------------------------------
     def _block_row(self, rid: str) -> np.ndarray:
         row = np.full((self.nmax,), NULL_PAGE, np.int32)
         pages = self.alloc.held[rid]
+        if self.alloc.quarantined \
+                and not self.alloc.quarantined.isdisjoint(pages):
+            # a quarantined page about to be served is a recovery bug,
+            # never a runtime condition: fail fast, count the hit (the
+            # page's stale KV is still on the device)
+            self.quarantined_served += 1
+            bad = sorted(self.alloc.quarantined.intersection(pages))
+            self._flight_dump("stale-block-row")
+            raise RuntimeError(
+                f"block row for {rid} references quarantined pages {bad}")
         row[:len(pages)] = pages
         return row
 
@@ -296,6 +487,18 @@ class PagedEngine:
         self._hist_state[slot] = None
         self._dirty = True
         self._dirty_block = True
+
+    def _clear_vacated(self):
+        """Null every mirror slot that no running request holds.  A slot
+        is occupied while its active flag is set; its signature alone
+        would miss a speculating request whose rejected drafts made the
+        window forget the signature and which was then preempted or
+        reset before the next refresh: its stale row, naming pages since
+        freed, quarantined or reallocated, would stay active in the next
+        scan.  (The reference keys this on the signature.)"""
+        for slot in range(self.max_batch):
+            if slot not in self.sched.running and self.active[slot]:
+                self._clear_slot(slot)
 
     def _occupy_slot(self, req: Request, row: np.ndarray, token: int):
         self.block_tables[req.slot] = row
@@ -461,8 +664,9 @@ class PagedEngine:
         private page before any write can touch it."""
         match = req.prefix_match
         dst = self.alloc.held[req.rid][req.cached_tokens // self.page_size]
-        self.pools = self._copy_page(self.pools, int(match.cow_src),
-                                     int(dst))
+        with self._span("cow_copy", self._predict_cow, rid=req.rid):
+            self.pools = self._copy_page(self.pools, int(match.cow_src),
+                                         int(dst))
         self.cache.stats.cow_copies += 1
         self.cache.release_cow(match)
 
@@ -475,13 +679,16 @@ class PagedEngine:
         L = req.cached_tokens
         match = req.prefix_match
         if self.cache is None or L <= 0:
-            logits, self.pools = self._prefill(
-                self.params, self._dev(req.prompt[None]), self.pools,
-                self._dev(row))
-            self.h2d_syncs += 1    # prompt + block row push
-            self.model_passes += 1
-            tok = int(logits.argmax(-1)[0, 0])
-            self.d2h_syncs += 1    # blocking first-token pull
+            with self._span("prefill",
+                            lambda: self._predict_prefill(req.prompt_len),
+                            rid=req.rid, tokens=req.prompt_len):
+                logits, self.pools = self._prefill(
+                    self.params, self._dev(req.prompt[None]), self.pools,
+                    self._dev(row))
+                self.h2d_syncs += 1    # prompt + block row push
+                self.model_passes += 1
+                tok = int(logits.argmax(-1)[0, 0])
+                self.d2h_syncs += 1    # blocking first-token pull
             self.prefill_tokens += req.prompt_len
             return tok
         if match is not None and match.cow_src is not None:
@@ -491,13 +698,15 @@ class PagedEngine:
         k = self._pow2_ceil(slen)
         padded = np.zeros((1, k), np.int32)
         padded[0, :slen] = suffix
-        logits, self.pools = self._suffix(
-            self.params, self._dev(padded), self.pools, self._dev(row), L,
-            slen)
-        self.h2d_syncs += 1        # suffix + block row push
-        self.model_passes += 1
-        tok = int(logits.argmax(-1)[0, 0])
-        self.d2h_syncs += 1        # blocking first-token pull
+        with self._span("prefill", lambda: self._predict_prefill(k),
+                        rid=req.rid, tokens=slen, cached=L):
+            logits, self.pools = self._suffix(
+                self.params, self._dev(padded), self.pools, self._dev(row),
+                L, slen)
+            self.h2d_syncs += 1        # suffix + block row push
+            self.model_passes += 1
+            tok = int(logits.argmax(-1)[0, 0])
+            self.d2h_syncs += 1        # blocking first-token pull
         self.prefill_tokens += slen
         return tok
 
@@ -523,16 +732,18 @@ class PagedEngine:
         padded = np.zeros((1, w), np.int32)
         padded[0, :n] = seg
         final = start + n == req.prompt_len
-        logits, self.pools = self._chunk(
-            self.params, self._dev(padded), self.pools, self._dev(row),
-            start, n)
-        self.h2d_syncs += 1        # chunk + block row push
-        self.model_passes += 1
-        self.chunk_dispatches += 1
-        tok = None
-        if final:
-            tok = int(logits.argmax(-1)[0, 0])
-            self.d2h_syncs += 1    # blocking first-token pull
+        with self._span("chunk_prefill", lambda: self._predict_prefill(w),
+                        rid=req.rid, tokens=n, start=start):
+            logits, self.pools = self._chunk(
+                self.params, self._dev(padded), self.pools, self._dev(row),
+                start, n)
+            self.h2d_syncs += 1        # chunk + block row push
+            self.model_passes += 1
+            self.chunk_dispatches += 1
+            tok = None
+            if final:
+                tok = int(logits.argmax(-1)[0, 0])
+                self.d2h_syncs += 1    # blocking first-token pull
         self.prefill_tokens += n
         return tok
 
@@ -672,10 +883,12 @@ class PagedEngine:
             else:
                 self._push(force=not self.fused)
                 d_bt, d_act = self.d_block, self.d_active
-            toks, d_tok, d_pos, self.pools = self._scan(
-                self.params, self.d_tokens, self.pools, d_bt, self.d_pos,
-                d_act, k=kk)
-            tok_np = toks.cpu().numpy().reshape(self.max_batch, kk)
+            with self._span("scan", lambda: self._predict_scan(kk),
+                            k=kk, slots=len(scan_slots)):
+                toks, d_tok, d_pos, self.pools = self._scan(
+                    self.params, self.d_tokens, self.pools, d_bt, self.d_pos,
+                    d_act, k=kk)
+                tok_np = toks.cpu().numpy().reshape(self.max_batch, kk)
             self.d2h_syncs += 1
             self.decode_steps += kk
             self.model_passes += kk
@@ -709,27 +922,34 @@ class PagedEngine:
                 padded = np.zeros((1, W), np.int32)
                 padded[0, 0] = req.tokens[-1]
                 padded[0, 1:m + 1] = d
-                logits, self.pools = self._verify(
-                    self.params, self._dev(padded), self.pools,
-                    self._dev(self.block_tables[slot]), req.pos, m + 1)
-                self.h2d_syncs += 1   # draft + block row push
-                greedy = logits[0, :m + 1].argmax(-1).cpu().numpy()
-                self.d2h_syncs += 1   # blocking verdict pull
+                with self._span("draft_verify",
+                                lambda: self._predict_prefill(W),
+                                rid=req.rid, k=K, width=W):
+                    logits, self.pools = self._verify(
+                        self.params, self._dev(padded), self.pools,
+                        self._dev(self.block_tables[slot]), req.pos, m + 1)
+                    self.h2d_syncs += 1   # draft + block row push
+                    greedy = logits[0, :m + 1].argmax(-1).cpu().numpy()
+                    self.d2h_syncs += 1   # blocking verdict pull
                 out = self.spec.accept(d, greedy)   # updates stats
             else:
                 W = self._pow2_ceil(K + 1)
-                # slot, start and K as 0-d device tensors, in one copy
-                args = self._dev(np.asarray([slot, req.pos, K], np.int32))
-                emit_d, n_emit_d, m_d, self.d_hist, self.pools = \
-                    self._spec_step(self.params, self.d_hist, self.pools,
-                                    self.d_block, args[0], args[1],
-                                    args[2], W=W, max_n=self.spec.max_n,
-                                    min_n=self.spec.min_n)
-                # one blocking verdict pull: (emitted, n_emit, m)
-                got = torch.cat([emit_d, n_emit_d.reshape(1),
-                                 m_d.reshape(1)]).cpu().numpy()
-                n_emit, m = int(got[W]), int(got[W + 1])
-                self.d2h_syncs += 1
+                with self._span("draft_verify",
+                                lambda: self._predict_prefill(W),
+                                rid=req.rid, k=K, width=W):
+                    # slot, start and K as 0-d device tensors, in one copy
+                    args = self._dev(np.asarray([slot, req.pos, K],
+                                                np.int32))
+                    emit_d, n_emit_d, m_d, self.d_hist, self.pools = \
+                        self._spec_step(self.params, self.d_hist, self.pools,
+                                        self.d_block, args[0], args[1],
+                                        args[2], W=W, max_n=self.spec.max_n,
+                                        min_n=self.spec.min_n)
+                    # one blocking verdict pull: (emitted, n_emit, m)
+                    got = torch.cat([emit_d, n_emit_d.reshape(1),
+                                     m_d.reshape(1)]).cpu().numpy()
+                    n_emit, m = int(got[W]), int(got[W + 1])
+                    self.d2h_syncs += 1
                 out = [int(t) for t in got[:n_emit]]
                 st.drafted += m
                 st.accepted += n_emit - 1
@@ -781,12 +1001,14 @@ class PagedEngine:
         window).  ``max_window`` additionally caps this window (e.g. to
         the next trace arrival).  Returns requests finished this
         window."""
+        if self.faults is not None:
+            # watchdog tick BEFORE planning: detections quarantine pages
+            # and reset victims, so this step's plan sees the degraded
+            # pool and never dispatches against a dead stripe
+            self.faults.on_step(self)
         plan = self.sched.plan_step()
         finished: List[Request] = []
-        for slot in range(self.max_batch):   # preempted/idle slots -> null
-            if slot not in self.sched.running \
-                    and self._slot_sig[slot] is not None:
-                self._clear_slot(slot)
+        self._clear_vacated()           # preempted/reset slots -> null
         for req in plan.admitted:
             if self.sched.chunked:
                 self._begin_chunked(req)   # COW only; chunks do the rest
@@ -814,19 +1036,22 @@ class PagedEngine:
             self._refresh_slots()
             active = dict(self.sched.running)
             t_dec = time.time()
-            if self.fused:
-                self._push()
-                toks, self.d_tokens, self.d_pos, self.pools = self._scan(
-                    self.params, self.d_tokens, self.pools, self.d_block,
-                    self.d_pos, self.d_active, k=k)
-            else:
-                # per-step path: push the whole bundle and pull one token
-                # per scheduler step — O(1) syncs per token
-                self._push(force=True)
-                toks, _, self.pools = self._serve(
-                    self.params, self.d_tokens, self.pools, self.d_block,
-                    self.d_pos)
-            tok_np = toks.cpu().numpy()   # blocks: decode-only timing
+            with self._span("scan", lambda: self._predict_scan(k),
+                            k=k, slots=len(active)):
+                if self.fused:
+                    self._push()
+                    toks, self.d_tokens, self.d_pos, self.pools = \
+                        self._scan(self.params, self.d_tokens, self.pools,
+                                   self.d_block, self.d_pos, self.d_active,
+                                   k=k)
+                else:
+                    # per-step path: push the whole bundle and pull one
+                    # token per scheduler step — O(1) syncs per token
+                    self._push(force=True)
+                    toks, _, self.pools = self._serve(
+                        self.params, self.d_tokens, self.pools,
+                        self.d_block, self.d_pos)
+                tok_np = toks.cpu().numpy()   # blocks: decode-only timing
             self.d2h_syncs += 1
             self.decode_time_s += time.time() - t_dec
             tok_np = tok_np.reshape(self.max_batch, k)
@@ -848,11 +1073,12 @@ class PagedEngine:
         else:
             self.sched.step_idx += 1
             self.steps_run += 1
-        for slot in range(self.max_batch):   # finished slots -> null
-            if slot not in self.sched.running \
-                    and self._slot_sig[slot] is not None:
-                self._clear_slot(slot)
+        self._clear_vacated()           # finished slots -> null
         self.peak_pages = max(self.peak_pages, self.alloc.pages_in_use)
+        if self.tracer is not None:
+            # per-node occupancy counter track (Perfetto stacked counters)
+            self.tracer.counter_sample(self.sched.step_idx,
+                                       self.alloc.occupancy_by_node())
         return finished
 
     def run(self, max_steps: int = 100_000) -> List[Request]:
@@ -905,6 +1131,21 @@ class PagedEngine:
             "preemptions": sum(r.preemptions
                                for r in self.sched.all_requests),
             "prefill_tokens": self.prefill_tokens,
+            # fault plane: quarantine footprint, recovery work, and the
+            # reset -> first-token latency tail (the registry's digest)
+            "node_failures": self.node_failures,
+            "node_joins": self.node_joins,
+            "pages_quarantined": self.pages_quarantined_total,
+            "pages_quarantined_now": self.alloc.pages_quarantined,
+            "requests_recovered": self.requests_recovered,
+            "requests_shed": len(self.sched.shed),
+            "tokens_recomputed": self.tokens_recomputed,
+            "transient_rejections": self.sched.transient_rejections,
+            "quarantined_served": self.quarantined_served,
+            "recovery_steps_p50": self.registry.percentile(
+                "recovery_steps", 50),
+            "recovery_steps_p99": self.registry.percentile(
+                "recovery_steps", 99),
         }
         if self.sched.chunked:
             out.update({

@@ -35,12 +35,6 @@ COUNTERS = ("prefix_hits", "cow_copies", "spec_verifies", "spec_drafted",
             "spec_accepted", "spec_rollbacks", "accept_rate", "spec_k_mean",
             "chunk_dispatches", "chunk_tasks", "model_passes", "h2d_syncs",
             "d2h_syncs", "steps", "windows", "prefill_tokens")
-# the reference's fault-plane metrics (ROADMAP Queue A item 4)
-FAULT_KEYS = {"node_failures", "node_joins", "pages_quarantined",
-              "pages_quarantined_now", "requests_recovered", "requests_shed",
-              "tokens_recomputed", "transient_rejections",
-              "quarantined_served", "recovery_steps_p50",
-              "recovery_steps_p99"}
 
 _MEMO = {}
 
@@ -130,8 +124,8 @@ def check_point(point, dtype):
     m = eng.metrics()
     assert {k: m.get(k) for k in COUNTERS} == \
         {k: ref_m.get(k) for k in COUNTERS}, point
-    # every metric key of the reference but the fault plane's
-    assert set(m) == set(ref_m) - FAULT_KEYS
+    # every metric key of the reference, the fault plane's included
+    assert set(m) == set(ref_m)
     # the features engaged on their trigger configs
     if prefix_cache:
         assert m["prefix_hits"] >= 1 and m["cow_copies"] >= 1

@@ -6,10 +6,12 @@
   a pool small enough to force preemption, emits greedy tokens identical
   to the reference's dense oracle and to the reference ``PagedEngine``,
   with the same scheduler and transfer counters;
-* every engine feature this port lacks raises instead of being ignored
-  (the prefix cache, speculative decoding and chunked prefill are held
-  against the reference in ``test_torch_prefix_spec.py`` and
-  ``test_torch_flag_cube.py``).
+* the engine takes the fault plane and tracing, and raises for a mesh;
+  the serve CLI's chaos, trace and metrics flags run, and its flags that
+  need a mesh exit 2 (the prefix cache, speculative decoding and chunked
+  prefill are held against the reference in ``test_torch_prefix_spec.py``
+  and ``test_torch_flag_cube.py``; the fault plane in
+  ``test_torch_faults.py`` and ``test_torch_chaos_cube.py``).
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro.serving import (ContinuousBatchScheduler as JSched,
 from repro_torch.configs import get_tiny_config
 from repro_torch.launch import serve
 from repro_torch.serving.engine import PagedEngine
+from repro_torch.serving.faults import FaultEvent, FaultPlan
 from repro_torch.serving.paged_kv import NULL_PAGE, PageAllocator
 from repro_torch.serving.scheduler import ContinuousBatchScheduler, Request
 from repro_torch.weights import from_reference
@@ -198,23 +201,74 @@ def test_engine_warmup_and_cli_on_cpu(tiny, capsys):
         capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", ["trace"])
+@pytest.mark.parametrize("flag", ["trace", "fault_plan"])
 def test_engine_rejects_unported_features(tiny, flag):
+    """The fault plane and tracing are ported: the engine takes them and
+    serves; only mesh-striped pools still raise."""
     _, _, tcfg, tparams = tiny
+    kw = dict(trace=True) if flag == "trace" else dict(
+        fault_plan=FaultPlan([FaultEvent(1, "fail", 1),
+                              FaultEvent(3, "join", 1)]), n_nodes=2)
+    eng = PagedEngine(tcfg, tparams, device="cpu", max_batch=2, page_size=4,
+                      n_pages=16, max_len=16, **kw)
+    for i, p in enumerate(seeded_prompts(tcfg, 2, 8)):
+        eng.submit(p, 5, rid=f"r{i}")
+    assert len(eng.run()) == 2
+    assert (eng.tracer is not None) == (flag == "trace")
+    assert (eng.faults is not None) == (flag == "fault_plan")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedEngine(tcfg, tparams, device="cpu", **{flag: True})
-    for kw in (dict(fault_plan=object()), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PagedEngine(tcfg, tparams, device="cpu", **kw)
+        PagedEngine(tcfg, tparams, device="cpu", mesh=object(), **kw)
 
 
 @pytest.mark.parametrize("argv", [["--layout", "auto"],
-                                  ["--fault-plan", "chaos"],
-                                  ["--trace-out", "t.json"],
+                                  ["--engine", "paged", "--fault-plan",
+                                   "chaos"],
+                                  ["--engine", "dense", "--model", "2"],
                                   ["--devices", "4"],
-                                  ["--prompt-len", "0"]])
+                                  ["--prompt-len", "0"],
+                                  ["--data", "2"]])
 def test_serve_cli_rejects_unported_flags_with_exit_2(argv, capsys):
+    """Flags that need a device mesh, a chaos plan on a 1-node pool (node
+    0 never fails, as in the reference) and an empty prompt exit 2."""
     with pytest.raises(SystemExit) as e:
         serve.main(["--tiny", "--device", "cpu"] + argv)
     assert e.value.code == 2
-    assert argv[0] in capsys.readouterr().err
+    assert argv[-2] in capsys.readouterr().err
+
+
+CHAOS_ARGV = ["--tiny", "--engine", "paged", "--model", "3", "--fault-plan",
+              "chaos", "--requests", "6", "--prompt-len", "16", "--gen", "12",
+              "--batch", "3"]
+
+
+def _keys(snap):
+    return {k: sorted(v) for k, v in snap.items()}
+
+
+def test_serve_cli_chaos_trace_and_metrics_match_reference(tmp_path, capsys,
+                                                           monkeypatch):
+    """``--model 3 --fault-plan chaos --trace-out T --metrics-out M``: the
+    fault-plane line, the trace rollup and the nOS fleet view print, the
+    Chrome trace validates, and the registry snapshot has the reference
+    CLI's keys on the same arguments."""
+    import json
+    from repro.launch import serve as jserve
+    from repro_torch.serving.telemetry import validate_chrome_trace
+    trace, metrics = tmp_path / "t.json", tmp_path / "m.json"
+    serve.main(CHAOS_ARGV + ["--device", "cpu", "--trace-out", str(trace),
+                             "--metrics-out", str(metrics)])
+    out = capsys.readouterr().out
+    for line in ("[paged] fault plane: ", "[trace] per-phase model error",
+                 "[trace] wrote ", "[metrics] wrote registry snapshot",
+                 "[nOS] fleet serving view", "[nOS] predicted-vs-measured"):
+        assert line in out, line
+    assert " 0 stale reads" in out
+    assert validate_chrome_trace(json.loads(trace.read_text())) == []
+    ref_metrics = tmp_path / "ref_m.json"
+    monkeypatch.setattr("sys.argv", ["serve"] + CHAOS_ARGV + [
+        "--trace-out", str(tmp_path / "ref_t.json"),
+        "--metrics-out", str(ref_metrics)])
+    jserve.main()
+    mine, ref = (json.loads(f.read_text()) for f in (metrics, ref_metrics))
+    assert _keys(mine) == _keys(ref)
+    assert mine["counters"]["node_failures"] >= 2
