@@ -1,16 +1,20 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, holds each
-against its plain PyTorch version, serves qwen3-1.7b at full width through
-the paged engine (plain; with the prefix cache, speculative decoding and
-chunked prefill on, beside the same traffic with them off; and under the
-pinned chaos fault plan on a pool striped over three nodes, untraced and
-with the flight recorder on), rwkv6-1.6b and recurrentgemma-2b at full
-width through the dense engine, and grok-1-314b at full width with its
-depth cut to four layers through both engines, and checks each served
-path at a cut depth against the port's plain path (the paged engine's
-features each alone and all three for qwen3, and the chaos plan with the
-features off and on; for grok, all three against the plain engine
-without them).  It also reports whether a 1-token prefill chunk writes
-the KV of a longer suffix pass bit for bit.
+against its plain PyTorch version (the paged decode kernel also in its
+masked partials mode, per stripe of a striped pool), serves qwen3-1.7b at
+full width through the paged engine (plain; on a pool striped over four
+nodes, with the pools on one device and then on a 1x4 mesh of stripes,
+and through the serve CLI on that mesh; with the prefix cache,
+speculative decoding and chunked prefill on, beside the same traffic with
+them off; and under the pinned chaos fault plan on a pool striped over
+three nodes, untraced and with the flight recorder on), rwkv6-1.6b and
+recurrentgemma-2b at full width through the dense engine, and
+grok-1-314b at full width with its depth cut to four layers through both
+engines, and checks each served path at a cut depth against the port's
+plain path (the paged engine's features each alone and all three for
+qwen3, the chaos plan with the features off and on, and the striped
+pools on a 1x2 and a 2x2 mesh; for grok, all three against the plain
+engine without them).  It also reports whether a 1-token prefill chunk
+writes the KV of a longer suffix pass bit for bit.
 
     python3 chip_smoke.py
 
@@ -23,7 +27,8 @@ failure exits non-zero.  The last line of standard output is
 
 preceded by the kernels' JSON line and the card's name and power limit.
 The full record of the run is also written to chiprun_out/chip_smoke.json,
-the traced chaos run's Chrome trace to chiprun_out/chaos_trace.json.
+the traced chaos run's Chrome trace to chiprun_out/chaos_trace.json and
+the striped serve CLI's output to chiprun_out/serve_cli_striped.txt.
 """
 import ctypes
 import dataclasses
@@ -265,6 +270,152 @@ def check_paged(ops, ref):
                     f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
                     f"{nbytes / 1e6:.2f} MB), no library call")
     return rec, lines
+
+
+def striped_inputs(B, H, Kv, hd, ps, nmax, pos, dtype, gen, n_stripes):
+    """One pool cut into ``n_stripes`` stripes of L rows, as the engine
+    cuts it: q, pages (n_stripes * L rows), a block table of distinct
+    rows none of which is a stripe's local row 0 (those hold NaN: only an
+    unowned entry's safe index names them), sequence 1's pages all on
+    stripe 0 (it owns nothing on the others), pos.  Returns them and L."""
+    L = B * nmax // n_stripes + nmax + 1
+    P = n_stripes * L
+    q = torch.randn(B, H, hd, generator=gen, device=DEVICE).to(dtype)
+    kp = torch.randn(P, ps, Kv, hd, generator=gen, device=DEVICE).to(dtype)
+    vp = torch.randn(P, ps, Kv, hd, generator=gen, device=DEVICE).to(dtype)
+    kp[::L] = float("nan")
+    vp[::L] = float("nan")
+    rows = torch.tensor([r for r in range(P) if r % L], device=DEVICE)
+    perm = torch.randperm(rows.numel(), generator=gen, device=DEVICE)
+    bt = rows[perm[:B * nmax]].reshape(B, nmax).to(torch.int32)
+    bt[1] = torch.arange(1, nmax + 1, device=DEVICE)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=DEVICE)
+    return q, kp, vp, bt, pos, L
+
+
+def stripe_view(kp, vp, bt, j, L):
+    """Stripe j's pages, its safe local table (unowned entries name local
+    row 0) and its ownership mask, as the striped decode passes them."""
+    local = bt - j * L
+    mine = (local >= 0) & (local < L)
+    safe = torch.where(mine, local, 0).to(torch.int32)
+    return (kp[j * L:(j + 1) * L], vp[j * L:(j + 1) * L], safe,
+            mine.to(torch.int32))
+
+
+def merge_partials(parts, dtype):
+    """The striped decode's merge of the stripes' (acc, m, l)."""
+    m_g = torch.stack([m for _, m, _ in parts]).amax(0)
+    l_g = sum(l * torch.exp(m - m_g) for _, m, l in parts)
+    acc_g = sum(a * torch.exp(m - m_g)[..., None] for a, m, _ in parts)
+    B, Kv, G, hd = acc_g.shape
+    return (acc_g / torch.clamp(l_g, min=1e-37)[..., None]).reshape(
+        B, Kv * G, hd).to(dtype)
+
+
+def masked_bytes_flops(q, kp, bt, pos, mine, n_out):
+    """Bytes and operations of one masked partials launch: each owned
+    live slot's K and V rows, q, the table, the mask and pos read once,
+    ``n_out`` fp32 partials written once."""
+    B, H, hd = q.shape
+    ps, Kv = kp.shape[1], kp.shape[2]
+    e = q.element_size()
+    T = bt.shape[1] * ps
+    live = (torch.arange(T, device=q.device)[None, :] <= pos.long()[:, None]) \
+        & mine.bool().repeat_interleave(ps, dim=1)
+    slots = int(live.sum())
+    nbytes = (q.numel() * e + 2 * slots * Kv * hd * e + 8 * bt.numel()
+              + 4 * B + 4 * n_out)
+    return nbytes, 4 * slots * H * hd
+
+
+def check_paged_masked(ops, ref):
+    """The paged kernel's masked partials mode against its plain version
+    at qwen3's decode (B=8, H=16, Kv=8, hd 128, ps 16) and grok's (H=48,
+    softcap 30), bf16 and fp32, on masks of 2 and 4 stripes: per stripe
+    acc, m and l each within the kernel's tolerance, with a sequence that
+    owns no page on a stripe (m = NEG_INF, l = 0, acc = 0), pos on page
+    boundaries and NaN in every unowned entry's local row 0; the merged
+    stripes against the unstriped kernel.  Times a 4-stripe mask's
+    stripe-0 launch at qwen3's shape, every pos 575, beside its bound (the
+    owned pages' bytes, q and the partials over 3.35 TB/s); no library
+    call takes a page mask."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    B, Kv, hd, ps = 8, 8, 128, 16
+    nmax = 576 // ps
+    ragged = [575, 0, 15, 16, 31, 300, 511, 32]   # page boundaries
+    worst = {}
+    for H, cap in ((16, None), (48, 30.0)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for n in (2, 4):
+                q, kp, vp, bt, pos, L = striped_inputs(
+                    B, H, Kv, hd, ps, nmax, ragged, dtype, gen, n)
+                parts = []
+                for j in range(n):
+                    kj, vj, safe, mine = stripe_view(kp, vp, bt, j, L)
+                    got = ops.paged_decode_attention(
+                        q, kj, vj, safe, pos, softcap=cap, page_mask=mine,
+                        partials=True)
+                    want = ref.paged_decode_attention(
+                        q, kj, vj, safe, pos, softcap=cap, page_mask=mine,
+                        partials=True)
+                    for name, a, b in zip(("acc", "m", "l"), got, want):
+                        err = max_err(a, b)
+                        key = (H, str(dtype)[6:], name)
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        if not err <= TOL[dtype]:
+                            fail(f"paged decode masked partials H={H} "
+                                 f"{dtype} {n} stripes, stripe {j}: {name} "
+                                 f"max abs err {err}")
+                    if j and not (bool((got[1][1] == ref.NEG_INF).all())
+                                  and bool((got[2][1] == 0).all())
+                                  and bool((got[0][1] == 0).all())):
+                        fail(f"paged decode masked partials: a sequence "
+                             f"with no page on stripe {j} did not give m = "
+                             f"NEG_INF, l = 0, acc = 0")
+                    parts.append(got)
+                err = max_err(merge_partials(parts, dtype),
+                              ops.paged_decode_attention(q, kp, vp, bt, pos,
+                                                         softcap=cap))
+                key = (H, str(dtype)[6:], f"merged {n}")
+                worst[key] = err
+                if not err <= TOL[dtype]:
+                    fail(f"paged decode: {n} stripes merged vs the unstriped "
+                         f"kernel H={H} {dtype}: max abs err {err}")
+    # time: qwen3's shape, bf16, every pos 575, stripe 0 of 4
+    q, kp, vp, bt, pos, L = striped_inputs(B, 16, Kv, hd, ps, nmax,
+                                           [575] * B, torch.bfloat16, gen, 4)
+    kj, vj, safe, mine = stripe_view(kp, vp, bt, 0, L)
+
+    def kern():
+        return ops.paged_decode_attention(q, kj, vj, safe, pos,
+                                          page_mask=mine, partials=True)
+
+    def plain():
+        return ref.paged_decode_attention(q, kj, vj, safe, pos,
+                                          page_mask=mine, partials=True)
+
+    ms, plain_ms = time_ms(kern), time_ms(plain)
+    nbytes, flops = masked_bytes_flops(q, kj, safe, pos, mine,
+                                       B * 16 * (hd + 2))
+    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    rec = dict(shape="masked partials, stripe 0 of 4, B=8 H=16 Kv=8 hd=128 "
+               "pos 575", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None,
+               owned_slots=int(flops // (4 * 16 * hd)),
+               max_abs_err={" ".join(map(str, k)): v
+                            for k, v in worst.items()})
+    errs = ", ".join(f"H={h} {d} {n} {e:.3g}" for (h, d, n), e in
+                     worst.items())
+    line = (f"paged_decode_attention page_mask + partials (2 and 4 stripes, "
+            f"an empty stripe, pos on page boundaries, NaN in unowned local "
+            f"row 0): max abs err [{errs}] (tol fp32 {TOL[torch.float32]}, "
+            f"bf16 {TOL[torch.bfloat16]}); stripe 0 of 4 at B=8 H=16 pos "
+            f"575 bf16 ({rec['owned_slots']} owned slots): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {nbytes / 1e6:.3f} MB), no library call (SDPA takes "
+            f"no page mask)")
+    return rec, line
 
 
 def check_flash(ops, ref):
@@ -1089,7 +1240,7 @@ def serve_paged(ops, cfg, params):
         fail(f"{cfg.name} paged: launches {launches} != expected {want} for "
              f"{prefills} prefills and {decode_steps} decode steps")
     # a finite logit check on one decode step of the served pools
-    logits, _ = _one_step_logits(eng)
+    logits = _one_step_logits(eng)
     if not torch.isfinite(logits).all():
         fail(f"{cfg.name}: non-finite logits after serving")
     prefill_ms = _mean_prefill_ms(eng, prompts[0])
@@ -1104,7 +1255,8 @@ def serve_paged(ops, cfg, params):
                  decode_steps=decode_steps, windows=m["windows"],
                  preemptions=m["preemptions"], h2d_syncs=m["h2d_syncs"],
                  d2h_syncs=m["d2h_syncs"], launches=launches,
-                 peak_gb=peak_gb, profile=prof)
+                 peak_gb=peak_gb, profile=prof,
+                 tokens={r.rid: list(r.tokens) for r in fin})
     line = (f"serve {cfg.name} paged ({L} layers, d_model {cfg.d_model}, "
             f"{n_params / 1e9:.3f} B params, bf16 activations, impl=pallas): "
             f"{n_req} requests x {gen_len} tokens in {wall:.2f} s, "
@@ -1287,15 +1439,15 @@ def serve_paged_features(ops, cfg, params):
             fail(f"{what}: a feature did not engage: prefix hits "
                  f"{m['prefix_hits']}, verifies {m['spec_verifies']}, "
                  f"chunk passes {m['chunk_dispatches']}")
-        logits, _ = _one_step_logits(eng)
+        logits = _one_step_logits(eng)
         finite = bool(torch.isfinite(logits).all())
         if on:
             null_row = torch.full((eng.nmax,), NULL_PAGE, dtype=torch.int32,
                                   device=DEVICE)
-            vl, _ = lm.verify_window_paged(
+            vl = lm.verify_window_paged(
                 eng.params, cfg, torch.tensor(prompts[0][None, :16],
                                               device=DEVICE),
-                eng.pools, null_row, plen, 16)
+                eng.pools, null_row, plen, 16)[0]
             finite = finite and bool(torch.isfinite(vl).all())
         if not finite:
             fail(f"{what}: non-finite logits after serving")
@@ -1606,6 +1758,218 @@ def tracer_cost_us(eng, n=2000):
     return res
 
 
+# the phase 3 striped runs: PAGED_RUN's traffic on a pool striped over 4
+# nodes, 292 pages (serve_paged's 289 rounded up to divide by 4), first
+# with the pools on one device (the stripe host-side only, as --model
+# without a mesh) and then on a 1x4 mesh, every layer's pools in 4
+# stripes (on a one-card host all four on that card): the same admission
+# prices and allocator, so the same schedule, and only the device
+# placement and the decode attention differ.  Admission budget 4.0
+# decode steps: at 4 nodes the reference's TPU-priced 512-token prefill
+# costs 2.38 decode steps (1.09 at 1 node), over the default 2.0, which
+# admits a prompt only when no request runs; at 4.0 one prompt is
+# admitted a step, as in serve_paged's run
+STRIPED_RUN = dict(data=1, model=4, prefill_budget=4.0)
+# bf16 near-tie of two full-width runs: the two tokens' logits (the
+# kernels' dense path, teacher-forced to the first difference) within
+# this many bf16 units (2**-7 of the larger logit's magnitude)
+BF16_TIE_UNITS = 4
+
+
+def _bf16_ties(cfg, params, prompts, base, got, what):
+    """(rid, step, logit gap) of each request's first token that differs
+    between two bf16 runs.  Fails unless the dense kernel path, fed the
+    prompt and the tokens both runs agree on, gives the two tokens logits
+    within BF16_TIE_UNITS bf16 units of each other."""
+    from repro_torch import steps
+    ties = []
+    for rid, want in base.items():
+        have = got[rid]
+        j = next((j for j, (a, b) in enumerate(zip(want, have)) if a != b),
+                 None)
+        if j is None:
+            continue
+        i = int(rid[3:])
+        seq = np.concatenate([prompts[i], np.asarray(want[:j], np.int32)])
+        logits, _ = steps.make_prefill_step(cfg, len(seq) + 1)(
+            params, torch.tensor(seq[None], device=DEVICE))
+        la, lb = float(logits[0, 0, want[j]]), float(logits[0, 0, have[j]])
+        tol = BF16_TIE_UNITS * 2.0 ** -7 * max(abs(la), abs(lb), 1.0)
+        ties.append((rid, j, abs(la - lb)))
+        if not abs(la - lb) <= tol:
+            fail(f"{what} {rid} step {j}: token {have[j]} != {want[j]} with "
+                 f"logits {lb} vs {la} (gap {abs(la - lb)} > {tol})")
+    return ties
+
+
+def serve_paged_striped(ops, cfg, params):
+    """The paged engine at ``cfg``'s widths with PAGED_RUN's traffic on
+    STRIPED_RUN's pool, warm: the pools on one device, then striped over
+    the 1x4 mesh.  Checks every request's tokens (the mesh run's against
+    the one-device run's, near-tie rule ``_bf16_ties``), the same
+    schedule, each kernel's launches (paged decode once per stripe on the
+    mesh: 4 times the one-device run's, every one in the masked mode) and
+    the finite logits of one more decode step; reports tok/s, decode
+    step, peak memory, syncs, the distinct cards and a profiled window.
+    Returns, per run, (stats, launches, line)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.serving.engine import PagedEngine
+
+    run = PAGED_RUN
+    n_req, plen, gen_len, batch, ps = (run[k] for k in (
+        "requests", "prompt_len", "gen", "batch", "page_size"))
+    M = STRIPED_RUN["model"]
+    max_len = plen + gen_len
+    n_pages = batch * (-(-max_len // ps)) + 1
+    n_pages += -n_pages % M
+    prompts = make_prompts(n_req, plen, cfg.vocab_size, SEED)
+    out, base = [], None
+    for mesh in (None, make_test_mesh(STRIPED_RUN["data"], M)):
+        eng = PagedEngine(cfg, params, max_batch=batch, page_size=ps,
+                          n_pages=n_pages, max_len=max_len, n_nodes=M,
+                          fused=True, max_window=run["window"],
+                          prefill_budget=STRIPED_RUN["prefill_budget"],
+                          mesh=mesh, device=DEVICE)
+        eng.warmup_windows()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                 # counts of this run only
+        t0 = time.time()
+        for i, p in enumerate(prompts):
+            eng.submit(p, gen_len, rid=f"req{i}")
+        fin = eng.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _launches(ops)
+        masked = ops.paged_decode_attention.masked_launches
+        peak_gb = _peak_gb()
+        m = eng.metrics()
+        what = (f"{cfg.name} paged, {M} nodes, "
+                + ("pools on one device" if mesh is None else
+                   f"pools striped on a {STRIPED_RUN['data']}x{M} mesh"))
+        if len(fin) != n_req or any(len(r.tokens) != gen_len for r in fin):
+            fail(f"{what}: not every request finished with its tokens")
+        if any(not (0 <= t < cfg.vocab_size) for r in fin for t in r.tokens):
+            fail(f"{what}: token ids out of range (NaN logits?)")
+        prefills, scan_steps, suffix = engine_passes(eng)
+        want = expected_launches(cfg, prefills, scan_steps, plen, batch, True,
+                                 suffix)
+        stripes = 1 if mesh is None else M
+        want["paged_decode_attention"] *= stripes
+        if launches != want:
+            fail(f"{what}: launches {launches} != expected {want}")
+        paged = launches["paged_decode_attention"]
+        if masked != (0 if mesh is None else paged):
+            fail(f"{what}: {masked} of {paged} paged decode launches masked")
+        toks = {r.rid: list(r.tokens) for r in fin}
+        ties = []
+        if base is not None:
+            if (prefills, scan_steps, m["windows"]) != (
+                    base["prefills"], base["decode_steps"], base["windows"]):
+                fail(f"{what}: {prefills} prefills, {scan_steps} decode "
+                     f"steps, {m['windows']} windows; on one device "
+                     f"{base['prefills']}, {base['decode_steps']}, "
+                     f"{base['windows']}")
+            if paged != M * base["launches"]["paged_decode_attention"]:
+                fail(f"{what}: {paged} paged decode launches, not {M} x "
+                     f"{base['launches']['paged_decode_attention']}")
+            if (m["h2d_syncs"], m["d2h_syncs"]) != (base["h2d_syncs"],
+                                                    base["d2h_syncs"]):
+                fail(f"{what}: syncs {m['h2d_syncs']} h2d + "
+                     f"{m['d2h_syncs']} d2h, on one device "
+                     f"{base['h2d_syncs']} + {base['d2h_syncs']}")
+            ties = _bf16_ties(cfg, params, prompts, base["tokens"], toks,
+                              what)
+        logits = _one_step_logits(eng)
+        if not torch.isfinite(logits).all():
+            fail(f"{what}: non-finite logits after serving")
+        prof = _profile_window(eng, prompts)
+        pool = eng.pools[0][0][0]
+        devs = [str(t.device) for t in (pool.k if mesh is not None
+                                         else (pool.k,))]
+        stats = dict(arch=cfg.name, n_nodes=M,
+                     mesh=None if mesh is None else dict(mesh.shape),
+                     stripes=stripes, stripe_devices=devs,
+                     distinct_cards=len(set(devs)), n_pages=n_pages,
+                     prefill_budget=STRIPED_RUN["prefill_budget"],
+                     requests=n_req, prompt_len=plen, gen=gen_len,
+                     max_batch=batch, page_size=ps, wall_s=wall,
+                     tok_per_s=m["tokens_out"] / wall,
+                     decode_step_ms=m["decode_step_s"] * 1e3,
+                     prefills=prefills, decode_steps=scan_steps,
+                     windows=m["windows"], preemptions=m["preemptions"],
+                     h2d_syncs=m["h2d_syncs"], d2h_syncs=m["d2h_syncs"],
+                     launches=launches, masked_launches=masked,
+                     peak_gb=peak_gb, profile=prof, near_ties=ties,
+                     tokens=toks)
+        line = (f"serve {what} ({n_pages} pages on "
+                f"{sorted(set(devs))}, {len(set(devs))} distinct card(s); "
+                f"admission budget {STRIPED_RUN['prefill_budget']}): "
+                f"{n_req} requests x {gen_len} tokens in {wall:.2f} s, "
+                f"{stats['tok_per_s']:.1f} tok/s, decode step "
+                f"{stats['decode_step_ms']:.3f} ms; {prefills} prefills, "
+                f"{scan_steps} decode steps, {m['windows']} windows; syncs "
+                f"{m['h2d_syncs']} h2d + {m['d2h_syncs']} d2h; peak memory "
+                f"{peak_gb:.2f} GB; launches {launches}, {masked} masked")
+        if base is not None:
+            stats["step_ratio"] = (stats["decode_step_ms"]
+                                   / base["decode_step_ms"])
+            stats["peak_delta_gb"] = peak_gb - base["peak_gb"]
+            line += (f"; decode step {stats['step_ratio']:.3f}x, peak "
+                     f"{stats['peak_delta_gb']:+.3f} GB against the pools on "
+                     f"one device; paged decode {paged} = {M} x "
+                     f"{base['launches']['paged_decode_attention']}; schedule "
+                     f"and syncs equal; tokens "
+                     + ("equal" if not ties else f"equal but at near-ties "
+                        f"{ties}"))
+        line += (f"; profiled {prof['steps']}-step window: "
+                 f"{prof['wall_ms']:.3f} ms wall, device busy "
+                 f"{prof['busy_share']:.3f}, "
+                 f"{prof['launches_per_step']:.0f} device launches per step, "
+                 f"top {prof['top']}")
+        out.append((stats, launches, line))
+        base = stats
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_cli_striped():
+    """The serve CLI at qwen3-1.7b's full width on a 1x4 mesh
+    (``--engine paged --devices 4 --model 4``, PAGED_RUN's traffic and
+    STRIPED_RUN's budget) in a process of its own: it must serve every
+    request and report 4 stripes.  Its output goes to
+    chiprun_out/serve_cli_striped.txt."""
+    import os
+    run = PAGED_RUN
+    argv = ["--arch", "qwen3-1.7b", "--engine", "paged", "--devices", "4",
+            "--model", "4", "--requests", str(run["requests"]),
+            "--prompt-len", str(run["prompt_len"]), "--gen", str(run["gen"]),
+            "--batch", str(run["batch"]), "--page-size",
+            str(run["page_size"]), "--window", str(run["window"]),
+            "--prefill-budget", str(STRIPED_RUN["prefill_budget"])]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"]
+                       + argv, capture_output=True, text=True, timeout=600,
+                       cwd=ROOT, env=env)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "serve_cli_striped.txt").write_text(r.stdout + r.stderr)
+    served = [x for x in r.stdout.splitlines()
+              if x.startswith("[paged] cuda")]
+    n_tok = run["requests"] * run["gen"]
+    if r.returncode or not served or \
+            f"served {run['requests']} requests, {n_tok} tokens" \
+            not in served[0] or "each pool in 4 stripes" not in r.stdout:
+        fail(f"serve CLI {' '.join(argv)}: exit {r.returncode}; "
+             f"{r.stderr[-2000:]}")
+    stripes = [x for x in r.stdout.splitlines() if "stripes over" in x][0]
+    line = (f"serve CLI {' '.join(argv)}: exit 0 in {time.time() - t0:.1f} "
+            f"s; {served[0]}; {stripes}")
+    return dict(argv=argv, served=served[0], stripes=stripes), line
+
+
 def one_token_chunk(cfg, params):
     """The KV of one 513-token prompt written by 128-token chunks, the
     last a 1-token chunk at position 512, against one suffix pass over
@@ -1802,9 +2166,12 @@ def _leaves(tree):
 
 
 def _one_step_logits(eng):
+    """The logits of one more decode step on the engine's pools (only the
+    logits: a caller that kept the pools it returns would hold them past
+    the engine, into the next run's peak memory)."""
     from repro_torch.models import lm
     return lm.decode_step_paged(eng.params, eng.cfg, eng.d_tokens, eng.pools,
-                                eng.d_block, eng.d_pos)
+                                eng.d_block, eng.d_pos)[0]
 
 
 def _profile_window(eng, prompts):
@@ -2140,6 +2507,86 @@ def chaos_parity(inp):
             f"{CHAOS_RUN['n_nodes']} nodes, windows capped at {cap}: engine "
             f"(kernels) vs dense path (impl=ref) on {n_req} prompts x "
             f"{gen_len} tokens, greedy tokens: " + "; ".join(parts))
+    torch.cuda.empty_cache()
+    return res, line
+
+
+# phase 4's striped parity: the reference's mesh rung (1x2 and 2x2, the
+# prefix cache's COW copies on striped pools, and a pool that forces a
+# preemption), at full width with the depth cut, fp32, 32 tokens (a
+# request's pages then grow past its admission's 33)
+STRIPED_PARITY = dict(layouts=((1, 2), (2, 2)), gen=32)
+
+
+def striped_parity(inp):
+    """The paged engine (kernels) on a 1x2 and a 2x2 mesh, on
+    ``feature_parity_inputs``' model and prompts, against the port's
+    dense plain path (impl=ref, no mesh) with the near-tie rule: with the
+    prefix cache on (the first prompt served first; the others hit its
+    456-token prefix mid-page, so each hit copies a page across the
+    stripes), and on a pool of 68 pages with budget 0.0 (two 512-token
+    prompts are admitted with 33 pages each; at position 528 both need a
+    34th, one page is free, so one is preempted and recomputed).  Gates
+    conservation, no page left in use after the preemption run, and the
+    features' engagement."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serving.engine import PagedEngine
+
+    full, cfg, params, prompts = (inp[k] for k in ("full", "cfg", "params",
+                                                   "prompts"))
+    gen_len = STRIPED_PARITY["gen"]
+    oracle, margins, _ = _plain_oracle(cfg.replace(impl="ref"), params,
+                                       prompts, gen_len)
+    n_req, ps, plen = len(prompts), 16, PAGED_RUN["prompt_len"]
+    max_len = plen + gen_len
+    full_pool = n_req * (-(-max_len // ps)) + 1
+    admitted = -(-(plen + 1) // ps)
+    runs = (("prefix cache", dict(n_pages=full_pool + full_pool % 2,
+                                  prefix_cache=True)),
+            ("forced preemption", dict(n_pages=2 * admitted + 2,
+                                       prefill_budget=0.0)))
+    res, parts = {}, []
+    for d, mm in STRIPED_PARITY["layouts"]:
+        for name, kw in runs:
+            eng = PagedEngine(cfg, params, max_batch=n_req, page_size=ps,
+                              max_len=max_len, fused=True, max_window=8,
+                              mesh=make_test_mesh(d, mm), device=DEVICE,
+                              **kw)
+            what = f"striped parity {d}x{mm} {name}"
+            if kw.get("prefix_cache"):
+                fin = serve_leaders_first(eng, prompts, gen_len, [0],
+                                          rid="r")
+            else:
+                for i, p in enumerate(prompts):
+                    eng.submit(p, gen_len, rid=f"r{i}")
+                fin = eng.run()
+            m = eng.metrics()
+            if kw.get("prefix_cache") and not (
+                    m["prefix_hits"] >= n_req - 1 and m["cow_copies"] >= 1):
+                fail(f"{what}: {m['prefix_hits']} prefix hits, "
+                     f"{m['cow_copies']} COW copies")
+            if not kw.get("prefix_cache") and not (
+                    m["preemptions"] >= 1 and eng.alloc.pages_in_use == 0):
+                fail(f"{what}: {m['preemptions']} preemptions, "
+                     f"{eng.alloc.pages_in_use} pages left in use")
+            if not eng.alloc.check_conservation():
+                fail(f"{what}: the allocator lost pages")
+            ties = _near_ties(fin, oracle, margins, what)
+            res[f"{d}x{mm} {name}"] = dict(near_ties=ties, **{
+                k: m.get(k) for k in ("prefix_hits", "cow_copies",
+                                      "preemptions", "h2d_syncs",
+                                      "d2h_syncs", "model_passes")})
+            parts.append(f"{d}x{mm} {name}: "
+                         + ("identical" if not ties else f"near-ties {ties}")
+                         + f" (hits {m.get('prefix_hits')}, COW "
+                         f"{m.get('cow_copies')}, preemptions "
+                         f"{m['preemptions']})")
+            del eng
+    line = (f"parity {full.name} paged engine on striped pools, full width, "
+            f"depth cut {full.n_layers} -> {cfg.n_layers} layers, fp32: "
+            f"engine (kernels, masked partials per stripe) vs dense path "
+            f"(impl=ref, no mesh) on {n_req} prompts x {gen_len} tokens, "
+            f"greedy tokens: " + "; ".join(parts))
     torch.cuda.empty_cache()
     return res, line
 
@@ -2499,6 +2946,9 @@ def main():
         rec, ls = check(ops, ref)
         recs[rec["name"]] = rec
         lines += ls
+    masked_rec, line = check_paged_masked(ops, ref)
+    recs["paged_decode_attention"]["shapes"].append(masked_rec)
+    lines.append(line)
     flash_local = check_flash_local(ops, ref)
     lines.append(f"flash_attention at recurrentgemma's local layers "
                  f"(B=4, S=2100, H=10, hd 256, window 2048): "
@@ -2527,6 +2977,10 @@ def main():
 
     cfg, params = full_width_params("qwen3-1.7b")
     served("qwen3-1.7b paged", serve_paged(ops, cfg, params))
+    one, striped = serve_paged_striped(ops, cfg, params)
+    served("qwen3-1.7b paged, 4 nodes on one device", one)
+    served("qwen3-1.7b paged, 1x4 mesh", striped)
+    masked_rec["launches"] = striped[0]["masked_launches"]
     on, off = serve_paged_features(ops, cfg, params)
     served("qwen3-1.7b paged, prefix+spec+chunked", on)
     served("qwen3-1.7b paged, prefix+spec+chunked off", off)
@@ -2537,6 +2991,10 @@ def main():
     parity["1-token chunk bf16"], line = one_token_chunk(cfg, params)
     print(f"[parity] {line}")
     del params
+    torch.cuda.empty_cache()
+    serve_stats["qwen3-1.7b paged 1x4 mesh, serve CLI"], line = \
+        serve_cli_striped()
+    print(f"[serve] {line}")
     for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
         cfg, params = full_width_params(arch)
         served(f"{arch} dense", serve_dense(ops, cfg, params))
@@ -2548,6 +3006,8 @@ def main():
     parity["qwen3-1.7b paged features"], line = feature_parity(inp)
     print(f"[parity] {line}")
     parity["qwen3-1.7b paged chaos"], line = chaos_parity(inp)
+    print(f"[parity] {line}")
+    parity["qwen3-1.7b paged striped"], line = striped_parity(inp)
     print(f"[parity] {line}")
     parity["1-token chunk fp32"], line = one_token_chunk(inp["cfg"],
                                                          inp["params"])

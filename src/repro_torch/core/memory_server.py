@@ -1,7 +1,8 @@
 """Host half of the striped memory server (reference:
 ``repro/core/memory_server.py``): the address-to-node striping rule the
-page allocator accounts with.  The device-side ``StripedStore`` waits for
-the sharded-serving slice of the port.
+page allocator accounts with, and the slab index the paged engine places
+a striped pool's pages by (``models/attention.StripedPagedCache``).  The
+reference's device-side ``StripedStore`` is not ported.
 """
 from __future__ import annotations
 

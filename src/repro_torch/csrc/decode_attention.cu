@@ -33,6 +33,7 @@ struct DenseLayout {
   __device__ size_t row(int b, int slot) const {
     return static_cast<size_t>(b) * T + slot;
   }
+  __device__ bool owned(int, int) const { return true; }
 };
 
 }  // namespace
@@ -50,11 +51,14 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DenseLayout layout{T, pos};
+  const repro::decode::Partials normalized{nullptr, nullptr, nullptr};
   if (is_bf16) {
-    return repro::decode::launch<__nv_bfloat16>(q, k, v, layout, out, scratch,
-                                                B, Kv, G, hd, NS, tps, scale,
-                                                softcap, s);
+    return repro::decode::launch<__nv_bfloat16>(q, k, v, layout, out,
+                                                normalized, scratch, B, Kv, G,
+                                                hd, NS, tps, scale, softcap,
+                                                s);
   }
-  return repro::decode::launch<float>(q, k, v, layout, out, scratch, B, Kv, G,
-                                      hd, NS, tps, scale, softcap, s);
+  return repro::decode::launch<float>(q, k, v, layout, out, normalized,
+                                      scratch, B, Kv, G, hd, NS, tps, scale,
+                                      softcap, s);
 }

@@ -6,8 +6,19 @@
 //
 //   __device__ int last(int b) const;              // slots 0..last(b) valid
 //   __device__ size_t row(int b, int slot) const;  // cache row of the slot
+//   __device__ bool owned(int b, int slot) const;  // its page is attended
 //
-// where a cache row holds the Kv*hd values of one slot.
+// where a cache row holds the Kv*hd values of one slot.  A slot is live
+// when it is <= last(b) and owned: a slot that is not is never loaded (no
+// copy is issued for it), its score is masked and its probability is
+// exactly 0, so a split, a CTA or a whole sequence with no live slot
+// keeps m = NEG_INF, l = 0, acc = 0.
+//
+// Partials (the TPU kernel's ``partials=True``, for a striped pool whose
+// stripes merge across devices): instead of the normalized output the
+// launch writes the merged online-softmax state (acc (B,Kv,G,hd), m, l
+// (B,Kv,G)) in fp32, after the splits' merge and before the division by
+// l.
 //
 // What bounds them on the card: bytes.  A step reads the K/V slots
 // 0..last(b) of every sequence once, with G multiply-adds per element
@@ -48,6 +59,13 @@ namespace repro {
 namespace decode {
 
 constexpr int THREADS = 128;
+
+// where the partials go: acc == nullptr means the normalized output
+struct Partials {
+  float* acc;  // (B, Kv, G, hd)
+  float* m;    // (B, Kv, G)
+  float* l;    // (B, Kv, G)
+};
 constexpr int WARPS = THREADS / 32;
 constexpr int TS = 32;  // slots per tile: one per lane in the softmax
 
@@ -116,7 +134,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k_cache,
   }
 
   // stage tile `tile` into buffer `buf`: cp.async for live slots, zeros
-  // for slots past `last` (never read; zero keeps 0 * v finite)
+  // for the others (never loaded; zero keeps 0 * v finite)
   auto stage = [&](int tile, int buf) {
     T* kb = kv_s + static_cast<size_t>(buf) * 2 * TS * hd;
     T* vb = kb + TS * hd;
@@ -126,7 +144,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k_cache,
       const int slot = tile * TS + t;
       T* kd = kb + t * hd + ch * CE;
       T* vd = vb + t * hd + ch * CE;
-      if (slot <= last) {
+      if (slot <= last && layout.owned(b, slot)) {
         const size_t off =
             (layout.row(b, slot) * Kv + kvh) * static_cast<size_t>(hd) +
             static_cast<size_t>(ch) * CE;
@@ -158,7 +176,8 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k_cache,
 
     // scores: warp per slot, lanes across head_dim
     for (int t = warp; t < TS; t += WARPS) {
-      const bool live = tile * TS + t <= last;
+      const int slot = tile * TS + t;
+      const bool live = slot <= last && layout.owned(b, slot);
       const T* kr = kb + t * hd;
       for (int g = 0; g < G; ++g) {
         float a = 0.f;
@@ -172,11 +191,13 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k_cache,
     }
     __syncthreads();
 
+    const int my_slot = tile * TS + lane;
+    const bool my_live = my_slot <= last && layout.owned(b, my_slot);
     for (int g = warp; g < G; g += WARPS) {  // online softmax, lane = slot
       const float s = p_s[g * TS + lane];
       const float m_prev = m_s[g];
       const float mx = warp_max(fmaxf(m_prev, s));
-      const float e = expf(s - mx);
+      const float e = my_live ? expf(s - mx) : 0.f;
       const float sum = warp_sum(e);
       p_s[g * TS + lane] = e;
       if (lane == 0) {
@@ -211,13 +232,14 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k_cache,
 }
 
 // Grid (B, Kv): merge the NS partials of each (sequence, kv head).  Empty
-// splits carry m = NEG_INF and weigh exactly 0.
+// splits carry m = NEG_INF and weigh exactly 0.  With ``parts.acc`` set
+// the merged state is written unnormalized, in fp32, instead of out.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 decode_merge(const float* __restrict__ part_acc,
                    const float* __restrict__ part_m,
                    const float* __restrict__ part_l, T* __restrict__ out,
-                   int Kv, int G, int hd, int NS) {
+                   const Partials parts, int Kv, int G, int hd, int NS) {
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const size_t p0 = (static_cast<size_t>(b) * Kv + kvh) * NS;
@@ -232,7 +254,16 @@ decode_merge(const float* __restrict__ part_acc,
       l = fmaf(part_l[(p0 + s) * G + g], w, l);
       a = fmaf(part_acc[(p0 + s) * G * hd + i], w, a);
     }
-    ob[i] = from_float<T>(a / fmaxf(l, 1e-37f));
+    if (parts.acc) {
+      const size_t o = (static_cast<size_t>(b) * Kv + kvh) * G * hd + i;
+      parts.acc[o] = a;
+      if (i - g * hd == 0) {
+        parts.m[o / hd] = mg;
+        parts.l[o / hd] = l;
+      }
+    } else {
+      ob[i] = from_float<T>(a / fmaxf(l, 1e-37f));
+    }
   }
 }
 
@@ -306,8 +337,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k_cache,
                   const __nv_bfloat16* __restrict__ v_cache,
                   const Layout layout, __nv_bfloat16* __restrict__ out,
-                  int Kv, int G, int hd, int tps, float scale,
-                  float softcap) {
+                  const Partials parts, int Kv, int G, int hd, int tps,
+                  float scale, float softcap) {
   using bf16 = __nv_bfloat16;
   using L = MmaSmem<HP>;
   constexpr int RS = L::RS;
@@ -382,16 +413,16 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // stage tile `tile` into ring slot `buf`: thread t copies one row with
   // one bulk copy, the K row of slot tile*64 + t for t < 64, the V row of
   // slot tile*64 + t - 64 above (the copies of all four warps keep more
-  // requests in flight than fewer issuing warps); past `last` it zeroes a
-  // V row instead (masked; zero keeps 0 * v finite; a K row's score is
-  // masked whatever it holds)
+  // requests in flight than fewer issuing warps); for a slot that is not
+  // live it zeroes a V row instead (masked; zero keeps 0 * v finite; a K
+  // row's score is masked whatever it holds)
   auto stage = [&](int tile, int buf) {
     const int t = tid % MMA_TS;
     const bool is_v = tid >= MMA_TS;
     bf16* dst = ring + (static_cast<size_t>(buf * 2 + is_v) * MMA_TS + t) * RS;
     const uint32_t bar = full_bar + 8 * buf;
     const int slot = tile * MMA_TS + t;
-    if (slot <= last) {
+    if (slot <= last && layout.owned(b, slot)) {
       const size_t off =
           (layout.row(b, slot) * Kv + kvh) * static_cast<size_t>(hd);
       mbar_arrive_expect_tx(bar, hd * 2);
@@ -440,14 +471,19 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       mma_bf16(sc[1], a, kf[2], kf[3]);
     }
     float mx[2] = {m_r[0], m_r[1]};
+    bool live[2][2];  // this thread's slots: j, and e & 1
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int slot = tile * MMA_TS + s0 + 8 * j + 2 * tig + c;
+        live[j][c] = slot <= last && layout.owned(b, slot);
+      }
+#pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int slot = tile * MMA_TS + s0 + 8 * j + 2 * tig + (e & 1);
         float x = sc[j][e] * scale;
         if (softcap > 0.f) x = softcap_fast(x, softcap, inv_cap);
-        sc[j][e] = slot <= last ? x : NEG_INF;
+        sc[j][e] = live[j][e & 1] ? x : NEG_INF;
         mx[e / 2] = fmaxf(mx[e / 2], sc[j][e]);
       }
     }
@@ -463,7 +499,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        sc[j][e] = exp2f((sc[j][e] - mx[e / 2]) * LOG2E);
+        sc[j][e] = live[j][e & 1] ? exp2f((sc[j][e] - mx[e / 2]) * LOG2E)
+                                  : 0.f;
         sum[e / 2] += sc[j][e];
       }
     }
@@ -568,6 +605,11 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       l = fmaf(rl[r * 16 + tid], wt, l);
     }
     inv[tid] = 1.f / fmaxf(l, 1e-37f);
+    if (parts.acc && split == 0) {
+      const size_t r = static_cast<size_t>(b) * H + kvh * G + g0 + tid;
+      parts.m[r] = mg;
+      parts.l[r] = l;
+    }
   }
   __syncthreads();
   const float* racc[MAX_CLUSTER];
@@ -582,7 +624,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r)
       if (r < NS) a = fmaf(racc[r][g * PS + d], wts[g * MAX_CLUSTER + r], a);
-    ob[e] = __float2bfloat16_rn(a * inv[g]);
+    if (parts.acc)
+      parts.acc[(static_cast<size_t>(b) * H + kvh * G + g0) * hd + e] = a;
+    else
+      ob[e] = __float2bfloat16_rn(a * inv[g]);
   }
   cluster.sync();  // no CTA leaves while its partial may still be read
 }
@@ -590,9 +635,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // bf16: one launch on grid (NS, B, Kv * ceil(G/16)) in clusters of NS.
 template <int HP, typename Layout>
 int launch_mma_hp(const void* q, const void* k_cache, const void* v_cache,
-                  const Layout& layout, void* out, int B, int Kv, int G,
-                  int hd, int NS, int tps, float scale, float softcap,
-                  cudaStream_t stream) {
+                  const Layout& layout, void* out, const Partials& parts,
+                  int B, int Kv, int G, int hd, int NS, int tps, float scale,
+                  float softcap, cudaStream_t stream) {
   if (NS < 1 || NS > MAX_CLUSTER) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = decode_mma_kernel<HP, Layout>;
   const size_t smem = MmaSmem<HP>::BYTES;
@@ -614,35 +659,36 @@ int launch_mma_hp(const void* q, const void* k_cache, const void* v_cache,
                            static_cast<const __nv_bfloat16*>(q),
                            static_cast<const __nv_bfloat16*>(k_cache),
                            static_cast<const __nv_bfloat16*>(v_cache), layout,
-                           static_cast<__nv_bfloat16*>(out), Kv, G, hd, tps,
-                           scale, softcap);
+                           static_cast<__nv_bfloat16*>(out), parts, Kv, G, hd,
+                           tps, scale, softcap);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch the bf16 kernel (hd padded to a multiple of 64, scratch unused)
 // or, for fp32, the partial kernel on grid (B, Kv, NS) and the merge on
-// (B, Kv), scratch holding B*Kv*NS*G*(hd+2) floats.  Returns the
+// (B, Kv), scratch holding B*Kv*NS*G*(hd+2) floats.  With ``parts.acc``
+// set, out is unused and the partials are written.  Returns the
 // cudaError_t.
 template <typename T, typename Layout>
 int launch(const void* q, const void* k_cache, const void* v_cache,
-           const Layout& layout, void* out, void* scratch, int B, int Kv,
-           int G, int hd, int NS, int tps, float scale, float softcap,
-           cudaStream_t stream) {
+           const Layout& layout, void* out, const Partials& parts,
+           void* scratch, int B, int Kv, int G, int hd, int NS, int tps,
+           float scale, float softcap, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     switch ((hd + 63) / 64) {
       case 1:
-        return launch_mma_hp<64>(q, k_cache, v_cache, layout, out, B, Kv, G,
-                                 hd, NS, tps, scale, softcap, stream);
+        return launch_mma_hp<64>(q, k_cache, v_cache, layout, out, parts, B,
+                                  Kv, G, hd, NS, tps, scale, softcap, stream);
       case 2:
-        return launch_mma_hp<128>(q, k_cache, v_cache, layout, out, B, Kv, G,
-                                  hd, NS, tps, scale, softcap, stream);
+        return launch_mma_hp<128>(q, k_cache, v_cache, layout, out, parts, B,
+                                  Kv, G, hd, NS, tps, scale, softcap, stream);
       case 3:
-        return launch_mma_hp<192>(q, k_cache, v_cache, layout, out, B, Kv, G,
-                                  hd, NS, tps, scale, softcap, stream);
+        return launch_mma_hp<192>(q, k_cache, v_cache, layout, out, parts, B,
+                                  Kv, G, hd, NS, tps, scale, softcap, stream);
       default:
-        return launch_mma_hp<256>(q, k_cache, v_cache, layout, out, B, Kv, G,
-                                  hd, NS, tps, scale, softcap, stream);
+        return launch_mma_hp<256>(q, k_cache, v_cache, layout, out, parts, B,
+                                  Kv, G, hd, NS, tps, scale, softcap, stream);
     }
   } else {
     const size_t head = (2 * static_cast<size_t>(G) * hd + G * TS + 3 * G + 3) & ~size_t(3);
@@ -661,7 +707,7 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     decode_merge<T><<<dim3(B, Kv), THREADS, 0, stream>>>(
-        part_acc, part_m, part_l, static_cast<T*>(out), Kv, G, hd, NS);
+        part_acc, part_m, part_l, static_cast<T*>(out), parts, Kv, G, hd, NS);
     return static_cast<int>(cudaGetLastError());
   }
 }

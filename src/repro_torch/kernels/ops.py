@@ -23,9 +23,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, out, B, S, H, hd, scale, softcap, causal, window, bf16, stream
     "flash_attention": [_P] * 4 + [_I] * 4 + [_F] * 2 + [_I] * 3 + [_P],
-    # q, k_pages, v_pages, block_tables, pos, out, scratch, B, Kv, G, hd,
-    # ps, nmax, NS, tps, scale, softcap, bf16, stream
-    "paged_decode_attention": [_P] * 7 + [_I] * 8 + [_F] * 2 + [_I, _P],
+    # q, k_pages, v_pages, block_tables, pos, page_mask, out (acc with
+    # partials), m, l, scratch, B, Kv, G, hd, ps, nmax, NS, tps, scale,
+    # softcap, bf16, partials, stream
+    "paged_decode_attention": [_P] * 10 + [_I] * 8 + [_F] * 2 + [_I] * 2
+    + [_P],
     # q, k, v, out, scratch, B, T, Kv, G, hd, pos, NS, tps, scale,
     # softcap, bf16, stream
     "decode_attention": [_P] * 5 + [_I] * 8 + [_F] * 2 + [_I, _P],
@@ -174,42 +176,69 @@ def _decode_launch_args(q, Kv, max_slots):
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
-                           scale=None, softcap=None):
+                           scale=None, softcap=None, page_mask=None,
+                           partials=False):
     """q (B,H,hd); k_pages/v_pages (P,ps,Kv,hd); block_tables (B,nmax)
     int32 physical page ids; pos (B,) int32 per-sequence last valid slot.
     Returns (B,H,hd).  Slots past pos[b] are masked exactly and never read
-    by the kernel."""
+    by the kernel.
+
+    ``page_mask`` (B,nmax) int32: the table entries this caller owns (one
+    stripe of a striped pool); an unowned entry is skipped, never read.
+    ``partials=True`` returns the raw online-softmax state ``(acc
+    (B,Kv,G,hd), m (B,Kv,G), l (B,Kv,G))`` in fp32 for a merge across
+    stripes.  Launches with a mask count in ``masked_launches`` too."""
     if q.device.type == "cpu":
         return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
-                                          pos, scale=scale, softcap=softcap)
+                                          pos, scale=scale, softcap=softcap,
+                                          page_mask=page_mask,
+                                          partials=partials)
     B, H, hd = q.shape
     P, ps, Kv, hd_k = k_pages.shape
     nmax = block_tables.shape[1]
-    _check("paged_decode_attention", q.device,
-           {"q": q, "k_pages": k_pages, "v_pages": v_pages,
-            "block_tables": block_tables, "pos": pos},
-           ("q", "k_pages", "v_pages"), ("block_tables", "pos"))
+    tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+               "block_tables": block_tables, "pos": pos}
+    if page_mask is not None:
+        tensors["page_mask"] = page_mask
+    _check("paged_decode_attention", q.device, tensors,
+           ("q", "k_pages", "v_pages"), ("block_tables", "pos", "page_mask"))
     if v_pages.shape != k_pages.shape or hd_k != hd or H % Kv \
             or tuple(block_tables.shape) != (B, nmax) \
-            or tuple(pos.shape) != (B,):
+            or tuple(pos.shape) != (B,) or (
+                page_mask is not None
+                and tuple(page_mask.shape) != (B, nmax)):
         raise ValueError(
             f"paged_decode_attention: bad shapes q {tuple(q.shape)}, pages "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, block_tables "
-            f"{tuple(block_tables.shape)}, pos {tuple(pos.shape)}")
+            f"{tuple(block_tables.shape)}, pos {tuple(pos.shape)}, page_mask "
+            f"{None if page_mask is None else tuple(page_mask.shape)}")
     if hd % 16 or hd > 256:
         raise ValueError(f"paged_decode_attention: head_dim {hd} must be a "
                          "multiple of 16 and at most 256")
     scale = hd ** -0.5 if scale is None else scale
+    G = H // Kv
     ns, tps, scratch = _decode_launch_args(q, Kv, nmax * ps)
-    out = torch.empty_like(q)
+    if partials:
+        out = torch.empty((B, Kv, G, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.empty((B, Kv, G), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    else:
+        out = torch.empty_like(q)
+        m = l = None
     _launch("paged_decode_attention", q.device, q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-            pos.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), B, Kv,
-            H // Kv, hd, ps, nmax, ns, tps, scale, softcap or 0.0,
-            int(q.dtype == torch.bfloat16))
+            pos.data_ptr(),
+            None if page_mask is None else page_mask.data_ptr(),
+            out.data_ptr(), None if m is None else m.data_ptr(),
+            None if l is None else l.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, Kv, G, hd,
+            ps, nmax, ns, tps, scale, softcap or 0.0,
+            int(q.dtype == torch.bfloat16), int(partials))
     paged_decode_attention.launches += 1
-    return out
+    if page_mask is not None:
+        paged_decode_attention.masked_launches += 1
+    return (out, m, l) if partials else out
 
 
 def decode_attention(q, k, v, pos, *, scale=None, softcap=None):
@@ -528,6 +557,7 @@ KERNEL_OF = {fn.__name__: _LIBRARY.get(fn.__name__, fn.__name__)
 def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    paged_decode_attention.masked_launches = 0
 
 
 reset_launches()

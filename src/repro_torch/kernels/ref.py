@@ -51,11 +51,21 @@ def decode_attention(q, k, v, pos, *, scale=None, softcap=None):
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
-                           scale=None, softcap=None):
+                           scale=None, softcap=None, page_mask=None,
+                           partials=False):
     """Paged-KV oracle: gather pages, then dense masked decode attention.
 
     q (B,H,hd); k_pages/v_pages (P,ps,Kv,hd); block_tables (B,nmax) int32
     physical page ids; pos (B,) int32 — slots <= pos[b] are valid.
+
+    ``page_mask`` (B,nmax) int32 marks the table entries the caller owns
+    (a stripe of a striped pool): an unowned entry is skipped, its page
+    never reaches the arithmetic (its rows are replaced by zeros before
+    the scores, so a NaN there cannot leak), as the TPU kernel skips it
+    with ``pl.when``.  ``partials=True`` returns the raw online-softmax
+    state ``(acc (B,Kv,G,hd), m (B,Kv,G), l (B,Kv,G))`` in fp32 instead
+    of the normalized (B,H,hd) output; a sequence that owns no valid
+    slot gets m = NEG_INF, l = 0, acc = 0.
     """
     B, H, hd = q.shape
     ps, Kv = k_pages.shape[1], k_pages.shape[2]
@@ -64,16 +74,33 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
     G = H // Kv
     scale = hd ** -0.5 if scale is None else scale
     bt = block_tables.long()
+    ok = torch.arange(T, device=q.device)[None, :] <= pos.long()[:, None]
+    if page_mask is not None:
+        owned = page_mask != 0
+        ok = ok & owned.repeat_interleave(ps, dim=1)
+        bt = torch.where(owned, bt, 0)
     k = k_pages[bt].reshape(B, T, Kv, hd)
     v = v_pages[bt].reshape(B, T, Kv, hd)
+    if page_mask is not None:
+        keep = ok[:, :, None, None]
+        k = torch.where(keep, k, 0)
+        v = torch.where(keep, v, 0)
     qg = q.reshape(B, Kv, G, hd).float()
     s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    ok = torch.arange(T, device=q.device)[None, :] <= pos.long()[:, None]
     s = torch.where(ok[:, None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgt,btkd->bkgd", w, v.float())
+    if page_mask is None and not partials:
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgt,btkd->bkgd", w, v.float())
+        return o.reshape(B, H, hd).to(q.dtype)
+    m = s.amax(-1)
+    p = torch.where(ok[:, None, None, :], torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    if partials:
+        return acc, m, l
+    o = acc / torch.clamp(l, min=1e-37)[..., None]
     return o.reshape(B, H, hd).to(q.dtype)
 
 

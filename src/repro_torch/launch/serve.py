@@ -14,10 +14,18 @@ engine, for global-attention configs only, with the reference's
 ``--prefix-cache`` (and ``--shared-prefix`` to give the prompts a common
 system prompt), ``--spec-decode`` (``--spec-k``), ``--chunk-prefill``
 (``--chunk-tokens``) and ``--slo``.  ``--model N`` stripes the paged
-engine's page pool over N nodes on the host (the pools stay on one
-device); ``--fault-plan chaos`` then arms a seeded fault schedule (node
-failures and re-joins, a straggler, transient admission errors) after
-the warmup and prints the recovery report.  ``--trace-out T.json`` arms
+engine's page pool over N nodes.  With ``--devices D`` (D >= data x
+model mesh positions, spread round-robin over the visible cards, or the
+CPU with ``--device cpu``) the striping is literal: a ``--data`` x
+``--model`` mesh whose "model" axis holds each pool's stripes, every
+decode attention run once per stripe and merged; without enough
+positions it stays host-side (the allocator's, the pools on one device),
+as in the reference.  ``--layout auto`` ranks the (data, model) layouts
+of the D positions on the reference's cost model, stripe traffic
+included, and serves the best.  ``--fault-plan chaos`` then arms a
+seeded fault schedule (node failures and re-joins, a straggler,
+transient admission errors) after the warmup and prints the recovery
+report.  ``--trace-out T.json`` arms
 the flight recorder and exports the run as Chrome trace-event JSON, with
 the per-phase model error: the cost engine's predictions (the
 reference's TPU v5e-class model, not this device) beside the spans'
@@ -26,9 +34,10 @@ registry's snapshot.  The nOS fleet view closes every paged run.  Runs
 on the GPU (``--device cpu`` for the CPU) with ``impl="pallas"``, so
 every kernel of the path goes through ``kernels/ops.py``.  Weights are
 random, from ``--seed``; prompts are drawn with numpy from the same
-seed.  Flags that need a device mesh (``--layout auto``, ``--devices``,
-``--data`` > 1, and ``--model`` > 1 with the dense engine) are rejected
-with exit code 2.
+seed.  The dense engine's mesh (tensor parallelism) is not ported: with
+``--engine dense`` the flags that build one (``--layout auto``,
+``--devices``, ``--data`` > 1, ``--model`` > 1) are rejected with exit
+code 2.
 """
 from __future__ import annotations
 
@@ -39,9 +48,9 @@ import time
 
 import numpy as np
 
-# flag -> the value that means "no mesh"; anything else is rejected: a
-# device mesh is ROADMAP Queue A item 7
-_MESH_FLAGS = {"layout": "manual", "devices": 0, "data": 1}
+# flag -> the value that means "no mesh"; anything else is rejected with
+# the dense engine, whose mesh (ROADMAP Queue A item 7) is not ported
+_MESH_FLAGS = {"layout": "manual", "devices": 0, "data": 1, "model": 1}
 
 
 def make_prompts(n_requests: int, prompt_len: int, vocab_size: int,
@@ -130,11 +139,14 @@ def run_dense(args, cfg, params=None, device=None):
     return outputs, stats
 
 
-def run_paged(args, cfg, params=None, device=None, n_nodes: int = 1):
+def run_paged(args, cfg, params=None, device=None, n_nodes: int = 1,
+              mesh=None):
     """Paged continuous-batching path.  Returns (tokens, stats, engine).
 
-    ``n_nodes`` stripes the page pool over that many nodes (host-side:
-    the allocator's free lists and the cost engine's layout).  With
+    ``n_nodes`` stripes the page pool over that many nodes (the
+    allocator's free lists and the cost engine's layout); with ``mesh``
+    the striping is literal: each pool's stripes on the devices of the
+    mesh's "model" axis, decode merged across them.  With
     ``args.fault_plan == "chaos"`` the seeded fault schedule is armed
     after the warmup and the metrics reset, so plan step 0 is the first
     measured step."""
@@ -155,7 +167,7 @@ def run_paged(args, cfg, params=None, device=None, n_nodes: int = 1):
         n_pages += n_nodes - n_pages % n_nodes   # stripe divisibility
     eng = PagedEngine(cfg, params, max_batch=args.batch,
                       page_size=args.page_size, n_pages=n_pages,
-                      max_len=max_len, n_nodes=n_nodes,
+                      max_len=max_len, n_nodes=n_nodes, mesh=mesh,
                       link_mode=args.link_mode,
                       prefill_budget=args.prefill_budget,
                       fused=args.fused, max_window=args.window,
@@ -201,7 +213,7 @@ def report_fleet(args, cfg, eng, tokens_out: int):
     from repro_torch.core.nos import NOS
     from repro_torch.serving.slo import get_slo
 
-    pod = NOS(data_rows=4, model_cols=1)
+    pod = NOS(data_rows=4, model_cols=max(args.devices or 1, 1))
     shape = ShapeConfig("serve", args.prompt_len + args.gen, args.batch,
                         "decode")
     pod.submit(cfg, name="serve", shape=shape, steps=eng.steps_run,
@@ -306,10 +318,12 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["circuit", "packet"],
                     help="interconnect mode the cost engine prices")
     ap.add_argument("--data", type=int, default=1,
-                    help="data-parallel degree (> 1 needs a device mesh)")
+                    help="paged engine: the mesh's data degree (replicas "
+                         "of the engine's work; needs --devices)")
     ap.add_argument("--model", type=int, default=1,
                     help="paged engine: stripe the page pool over N nodes "
-                         "(host-side; the pools stay on one device)")
+                         "(on the mesh's devices with enough --devices, "
+                         "else host-side)")
     ap.add_argument("--fault-plan", default="off", choices=["off", "chaos"],
                     help="paged engine: arm a seeded deterministic fault "
                          "schedule (node failures quarantining their page "
@@ -329,34 +343,69 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-capacity", type=int, default=4096,
                     help="flight-recorder ring size (spans kept; oldest "
                          "evicted first)")
-    # flags of the reference CLI that build a device mesh (not ported)
-    ap.add_argument("--layout", default="manual", choices=["manual", "auto"])
-    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--layout", default="manual", choices=["manual", "auto"],
+                    help="paged engine: 'auto' ranks the (data, model) "
+                         "layouts of the mesh positions on the cost "
+                         "model and serves the best")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="paged engine: mesh positions, spread round-robin "
+                         "over the visible cards (the CPU with --device "
+                         "cpu); default one per visible card")
     return ap
+
+
+def _mesh(args, cfg):
+    """(mesh or None, n_nodes, the cost engine's chosen estimate or
+    None) of a paged run, as the reference CLI builds them: ``--layout
+    auto`` ranks the layouts of the mesh positions (``--devices``, else
+    one per visible card, else 1) and prints them; otherwise a ``--data``
+    x ``--model`` mesh when there are enough positions, else host-side
+    striping over ``--model`` nodes only."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import (autotune_layout,
+                                               make_layout_mesh)
+    on_cpu = args.device == "cpu" or (args.device is None
+                                      and not torch.cuda.is_available())
+    devices = "cpu" if on_cpu else None
+    n_pos = args.devices or (1 if on_cpu else torch.cuda.device_count())
+    if args.layout == "auto":
+        shape = ShapeConfig("serve", args.prompt_len + args.gen, args.batch,
+                            "decode")
+        # serving=True prices the striped-KV traffic (the reference's §V
+        # link model) on top of the transformer collectives
+        best, ranked = autotune_layout(cfg, shape, n_chips=n_pos,
+                                       mode=args.link_mode, serving=True)
+        print(f"[cost-engine] {len(ranked)} candidate layouts for "
+              f"{best.layout.n_chips} mesh positions ({args.link_mode} "
+              "mode; the reference's TPU v5e-class prices):")
+        for est in ranked:
+            tag = " <= chosen" if est is ranked[0] else ""
+            print(f"[cost-engine]   {est.describe()}{tag}")
+        print(f"[cost-engine] predicted decode step "
+              f"{best.step_time_s * 1e3:.3f} ms "
+              f"({best.tokens_per_s:.0f} tok/s)")
+        return (make_layout_mesh(best.layout, devices), best.layout.model,
+                best)
+    mesh = None
+    if args.data * args.model > 1 and n_pos >= args.data * args.model:
+        mesh = make_test_mesh(args.data, args.model, devices=devices)
+    return mesh, max(args.model, 1), None
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     for flag, off in _MESH_FLAGS.items():
-        if getattr(args, flag) != off:
-            print(f"error: --{flag} needs a device mesh, which is not "
+        if args.engine == "dense" and getattr(args, flag) != off:
+            print(f"error: --{flag} with --engine dense needs the dense "
+                  "engine's device mesh (tensor parallelism), which is not "
                   "ported to the PyTorch engine yet (see ROADMAP.md Queue A "
-                  "item 7)", file=sys.stderr)
+                  "item 7); the paged engine takes it", file=sys.stderr)
             raise SystemExit(2)
-    if args.engine == "dense" and args.model > 1:
-        print("error: --model > 1 with --engine dense needs a device mesh, "
-              "which is not ported to the PyTorch engine yet (see "
-              "ROADMAP.md Queue A item 7)", file=sys.stderr)
-        raise SystemExit(2)
     if args.prompt_len < 1:
         print(f"error: --prompt-len must be >= 1 (got {args.prompt_len})",
               file=sys.stderr)
-        raise SystemExit(2)
-    if args.engine == "paged" and args.fault_plan == "chaos" \
-            and args.model < 2:
-        print("error: --fault-plan chaos needs a striped pool (--model N "
-              ">= 2): node 0 never fails, so a 1-node pool has nothing to "
-              "quarantine", file=sys.stderr)
         raise SystemExit(2)
     if args.spec_k != "auto":
         args.spec_k = int(args.spec_k)
@@ -378,13 +427,30 @@ def main(argv=None):
               f"{cfg.name} has layer kinds {sorted(set(cfg.layer_kinds))} "
               "(use --engine dense)", file=sys.stderr)
         raise SystemExit(2)
+    mesh, n_nodes, predicted = _mesh(args, cfg)
+    if args.fault_plan == "chaos" and n_nodes < 2:
+        print("error: --fault-plan chaos needs a striped pool (--model N "
+              ">= 2): node 0 never fails, so a 1-node pool has nothing to "
+              "quarantine", file=sys.stderr)
+        raise SystemExit(2)
     outputs, m, eng = run_paged(args, cfg, device=args.device,
-                                n_nodes=max(args.model, 1))
+                                n_nodes=n_nodes, mesh=mesh)
     tokens = sum(len(t) for t in outputs.values())
     print(f"[paged] {eng.device}: served {m['finished']} requests, {tokens} "
           f"tokens in {m['seconds']:.2f}s "
           f"({tokens / max(m['seconds'], 1e-9):.1f} tok/s, "
           f"{m['steps']} engine steps)")
+    if mesh is not None and eng._stripe > 1:
+        print(f"[paged] mesh {dict(mesh.shape)}: each pool in "
+              f"{eng._stripe} stripes over "
+              f"{', '.join(str(d) for d in mesh.axis_devices('model'))} "
+              f"({mesh.distinct_devices} distinct device(s) in the mesh)")
+    elif mesh is not None:
+        print(f"[paged] mesh {dict(mesh.shape)}: no model axis to stripe "
+              f"over, the pools on {eng.device} (the data axis replicates)")
+    else:
+        print(f"[paged] no mesh: the pools on {eng.device}, the allocator "
+              f"striped over {n_nodes} node(s)")
     print(f"[paged] TTFT mean {m['ttft_steps_mean']:.1f} / p95 "
           f"{m['ttft_steps_p95']:.1f} steps; peak pages {m['peak_pages']} "
           f"({m['page_occupancy'] * 100:.0f}% of pool); "
@@ -451,6 +517,14 @@ def main(argv=None):
             json.dump(eng.registry.snapshot(), f, indent=2, sort_keys=True)
         print(f"[metrics] wrote registry snapshot to {args.metrics_out}")
     report_fleet(args, cfg, eng, tokens)
+    if predicted is not None:
+        # warmup ran before the clock: this ratio is steady-state only
+        print(f"[cost-engine] predicted {predicted.step_time_s * 1e3:.3f} "
+              f"ms vs measured {m['step_s'] * 1e3:.3f} ms per decode step "
+              f"(warmup excluded; ratio "
+              f"{m['step_s'] / predicted.step_time_s:.2f}x: the cost "
+              f"engine models the reference's TPU v5e-class chips, not "
+              f"{eng.device})")
 
 
 if __name__ == "__main__":

@@ -15,16 +15,30 @@ the reference; T is the max length for global layers and min(window,
 max_len) for the ring cache of local (sliding-window) layers.  The
 reference's caches are immutable and its jitted steps donate them; here
 the update functions write the cache tensors in place (``index_put_`` /
-slice assignment) and return them, which saves the copy.  The sharded
-decode branches wait for the sharded-serving slice.
+slice assignment) and return them, which saves the copy.
+
+Striped pools (:class:`StripedPagedCache`): under a sharding environment
+whose "pages" axis has M > 1 positions (``parallel/sharding.py``,
+``SERVING_RULES``), ``paged_cache_init`` cuts each pool into M stripes of
+P/M contiguous physical rows, stripe d on the mesh's device d: the
+placement the reference gets from a ``NamedSharding`` over the page
+axis.  GSPMD routes the reference's writes and gathers to the owning
+device; here every paged function routes them itself, with fixed shapes
+(one scatter a stripe, its rows that other stripes own sent to the
+stripe's sink row), so no routing decision waits for the host.  Decode
+runs the reference's ``shard_map`` body once per stripe and merges the
+stripes' online-softmax partials on the caller's device.  The split-T
+decode of the dense engine's mesh (``attend_decode_sharded``) is not
+ported.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.models import modules as nn
+from repro_torch.parallel.sharding import current_env
 
 NEG_INF = -2.0 ** 30  # large-negative that survives bf16 arithmetic
 
@@ -253,35 +267,193 @@ class PagedAttnCache(NamedTuple):
     v: torch.Tensor
 
 
+class StripedPagedCache(NamedTuple):
+    """A pool striped over M devices: stripe d holds physical rows
+    [d*L, (d+1)*L) (L = n_pages / M) as its local rows 0..L-1, plus a
+    sink row L that only receives the writes of rows other stripes own
+    (nothing reads it).  k[d], v[d] (L+1, page_size, Kv*hd) live on
+    stripe d's device."""
+    k: Tuple[torch.Tensor, ...]
+    v: Tuple[torch.Tensor, ...]
+
+    @property
+    def rows(self) -> int:
+        """L: the physical rows a stripe owns."""
+        return self.k[0].shape[0] - 1
+
+    @property
+    def page_size(self) -> int:
+        return self.k[0].shape[1]
+
+
+def _paged_shard_axes(env, n_pages: int):
+    """The mesh axis the page pools stripe over, or None when the
+    single-device path applies (no env, trivial axis, or a page count
+    the stripe cannot divide)."""
+    if env is None:
+        return None
+    axes = env.resolve("pages")
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    if len(axes) != 1:
+        return None
+    n = env.mesh.shape[axes[0]]
+    if n <= 1 or n_pages % n:
+        return None
+    return axes
+
+
 def paged_cache_init(cfg, n_pages: int, page_size: int, dtype, device):
-    shape = (n_pages, page_size, cfg.n_kv_heads * cfg.head_dim)
-    return PagedAttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                          v=torch.zeros(shape, dtype=dtype, device=device))
+    """The zeroed pools of one layer: one (n_pages, page_size, Kv*hd)
+    tensor pair on ``device``, or, under a sharding environment that
+    stripes "pages", a :class:`StripedPagedCache` over the devices along
+    that mesh axis."""
+    F = cfg.n_kv_heads * cfg.head_dim
+    env = current_env()
+    axes = _paged_shard_axes(env, n_pages)
+    if axes is None:
+        shape = (n_pages, page_size, F)
+        return PagedAttnCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device))
+    devs = env.mesh.axis_devices(axes[0])
+    shape = (n_pages // len(devs) + 1, page_size, F)
+    return StripedPagedCache(
+        k=tuple(torch.zeros(shape, dtype=dtype, device=d) for d in devs),
+        v=tuple(torch.zeros(shape, dtype=dtype, device=d) for d in devs))
 
 
-def paged_cache_update(pool: PagedAttnCache, k_new, v_new, block_tables,
-                       pos):
+def _striped_put(pool: StripedPagedCache, rows, slots, k, v):
+    """Write k/v (N, Kv*hd) at physical ``rows`` (N,), page slots
+    ``slots`` (N,), in place: one scatter a stripe, the rows it does not
+    own sent to its sink row (duplicates there collide harmlessly)."""
+    L = pool.rows
+    for j, (kj, vj) in enumerate(zip(pool.k, pool.v)):
+        d = kj.device
+        local = rows.to(d) - j * L
+        local = torch.where((local >= 0) & (local < L), local, L)
+        idx = (local, slots.to(d))
+        kj.index_put_(idx, k.to(d))
+        vj.index_put_(idx, v.to(d))
+
+
+def _striped_gather(pool: StripedPagedCache, rows, device):
+    """(k, v) (N, page_size, Kv*hd) of the physical ``rows`` (N,) on
+    ``device``, each row read from its owner stripe (one fixed-shape
+    gather a stripe, merged by select)."""
+    L = pool.rows
+    k = v = None
+    for j, (kj, vj) in enumerate(zip(pool.k, pool.v)):
+        d = kj.device
+        local = rows.to(d) - j * L
+        mine = (local >= 0) & (local < L)
+        safe = torch.where(mine, local, 0)
+        gk, gv = kj[safe].to(device), vj[safe].to(device)
+        if k is None:
+            k, v = gk, gv
+        else:
+            sel = mine.to(device)[:, None, None]
+            k = torch.where(sel, gk, k)
+            v = torch.where(sel, gv, v)
+    return k, v
+
+
+def paged_cache_update(pool, k_new, v_new, block_tables, pos):
     """Write step-t k/v (B,1,Kv,hd) into page ``block_tables[b, t//ps]``,
     slot t%ps, in place (the reference donates the pool instead).
     Inactive batch slots point at the null page; their writes collide
     there harmlessly."""
     B = k_new.shape[0]
-    ps = pool.k.shape[1]
+    striped = isinstance(pool, StripedPagedCache)
+    ps = pool.page_size if striped else pool.k.shape[1]
     pos = pos.long()
     page = block_tables.long().gather(1, (pos // ps)[:, None])[:, 0]
     slot = pos % ps
+    if striped:
+        _striped_put(pool, page, slot, k_new.reshape(B, -1),
+                     v_new.reshape(B, -1))
+        return pool
     pool.k.index_put_((page, slot), k_new.reshape(B, -1))
     pool.v.index_put_((page, slot), v_new.reshape(B, -1))
     return pool
 
 
-def attend_decode_paged(q, pool: PagedAttnCache, block_tables, pos, *,
-                        scale, softcap, n_kv: int, impl=None):
+def attend_decode_paged_sharded(q, pool: StripedPagedCache, block_tables,
+                                pos, *, scale, softcap, n_kv: int,
+                                impl=None):
+    """Striped-pool decode: the reference's ``shard_map`` body once per
+    stripe, on the stripe's device, then its merge on ``q``'s device.
+
+    Stripe j attends only the table entries whose physical rows it owns
+    (``[j*L, (j+1)*L)``), through its local safe table (unowned entries
+    name local row 0) and their ownership mask, and yields its
+    online-softmax partials (m, l, acc); the merge rescales them by
+    exp(m - max m) and sums, as the reference's ``pmax``/``psum``.  A
+    stripe a sequence does not touch has m = NEG_INF and adds exactly 0.
+    ``impl == "pallas"`` runs the paged-decode kernel in its masked
+    partials mode; otherwise the reference's plain body, whose
+    probabilities of unowned slots are set to exactly 0 (the reference
+    leaves exp(0) = 1 there when a stripe owns nothing; the merge gives
+    them weight 0 either way)."""
+    B, _, H, hd = q.shape
+    L, ps = pool.rows, pool.page_size
+    Kv = n_kv
+    G = H // Kv
+    T = block_tables.shape[1] * ps
+    dev = q.device
+    parts = []
+    for j, (kj, vj) in enumerate(zip(pool.k, pool.v)):
+        d = kj.device
+        local = block_tables.to(d) - j * L
+        mine = (local >= 0) & (local < L)
+        safe = torch.where(mine, local, 0)
+        q_l, pos_l = q.to(d), pos.to(d)
+        if impl == "pallas":
+            from repro_torch.kernels import ops as kops
+            acc, m, l = kops.paged_decode_attention(
+                q_l.reshape(B, H, hd), kj.view(L + 1, ps, Kv, hd),
+                vj.view(L + 1, ps, Kv, hd), safe, pos_l, scale=scale,
+                softcap=softcap, page_mask=mine.to(torch.int32),
+                partials=True)
+        else:
+            k = kj[safe.long()].reshape(B, T, Kv, hd)
+            v = vj[safe.long()].reshape(B, T, Kv, hd)
+            qg = q_l.reshape(B, Kv, G, hd)
+            s = _einsum32("bkgd,btkd->bkgt", qg, k) * scale
+            s = nn.softcap(s, softcap)
+            valid = (torch.arange(T, device=d)[None, :]
+                     <= pos_l.long()[:, None]) \
+                & mine.repeat_interleave(ps, dim=1)
+            valid = valid[:, None, None, :]
+            s = torch.where(valid, s, NEG_INF)
+            m = s.amax(-1)                                  # (B,Kv,G)
+            p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+            l = p.sum(-1)
+            acc = _einsum32("bkgt,btkd->bkgd", p.to(v.dtype), v)
+        parts.append((m.to(dev), l.to(dev), acc.to(dev)))
+    m_g = parts[0][0]
+    for m, _, _ in parts[1:]:
+        m_g = torch.maximum(m_g, m)
+    l_g = acc_g = 0.0
+    for m, l, acc in parts:
+        corr = torch.exp(m - m_g)
+        l_g = l_g + l * corr
+        acc_g = acc_g + acc * corr[..., None]
+    o = acc_g / torch.clamp(l_g[..., None], min=1e-37)
+    return o.to(q.dtype).reshape(B, 1, H * hd)
+
+
+def attend_decode_paged(q, pool, block_tables, pos, *, scale, softcap,
+                        n_kv: int, impl=None):
     """q (B,1,H,hd); pool pages (P,ps,Kv*hd); pos (B,) int32.
 
     ``impl == "pallas"`` runs the paged-decode kernel; otherwise the
     sequence's pages are gathered through the block table and attended
-    with the same masked arithmetic as the dense path."""
+    with the same masked arithmetic as the dense path.  A striped pool
+    takes the per-stripe partials path (same math, partials merged)."""
+    if isinstance(pool, StripedPagedCache):
+        return attend_decode_paged_sharded(
+            q, pool, block_tables, pos, scale=scale, softcap=softcap,
+            n_kv=n_kv, impl=impl)
     B, _, H, hd = q.shape
     P_, ps = pool.k.shape[0], pool.k.shape[1]
     Kv = n_kv
@@ -306,23 +478,26 @@ def attend_decode_paged(q, pool: PagedAttnCache, block_tables, pos, *,
     return o.reshape(B, 1, H * hd)
 
 
-def paged_cache_from_prefill(pool: PagedAttnCache, k, v, block_row,
-                             start: int = 0):
+def paged_cache_from_prefill(pool, k, v, block_row, start: int = 0):
     """Scatter prefill k/v (1,S,Kv,hd) of ONE sequence into the pool, in
     place; tokens land at logical slots start..start+S-1 of the pages
     named by ``block_row`` (nmax,)."""
     S = k.shape[1]
-    ps = pool.k.shape[1]
-    t = start + torch.arange(S, device=pool.k.device)
-    page = block_row.long()[t // ps]
+    striped = isinstance(pool, StripedPagedCache)
+    dev = pool.k[0].device if striped else pool.k.device
+    ps = pool.page_size if striped else pool.k.shape[1]
+    t = start + torch.arange(S, device=dev)
+    page = block_row.to(dev).long()[t // ps]
     slot = t % ps
+    if striped:
+        _striped_put(pool, page, slot, k.reshape(S, -1), v.reshape(S, -1))
+        return pool
     pool.k.index_put_((page, slot), k.reshape(S, -1))
     pool.v.index_put_((page, slot), v.reshape(S, -1))
     return pool
 
 
-def paged_cache_scatter_suffix(pool: PagedAttnCache, k, v, block_row,
-                               start, n_valid):
+def paged_cache_scatter_suffix(pool, k, v, block_row, start, n_valid):
     """Scatter a prompt *suffix*'s kv (1,W,Kv,hd) into the pool, in place,
     at logical positions start..start+W-1 (a prefix-cache hit: the first
     ``start`` positions already live in shared pages).  Slots at or past
@@ -330,13 +505,18 @@ def paged_cache_scatter_suffix(pool: PagedAttnCache, k, v, block_row,
     masked by design, so one width serves every suffix length in a
     bucket.  ``start`` and ``n_valid`` are ints or 0-d device tensors."""
     W = k.shape[1]
-    ps = pool.k.shape[1]
-    w = torch.arange(W, device=pool.k.device)
+    striped = isinstance(pool, StripedPagedCache)
+    dev = block_row.device
+    ps = pool.page_size if striped else pool.k.shape[1]
+    w = torch.arange(W, device=dev)
     t = start + w
     idx = torch.clamp(t // ps, 0, block_row.shape[0] - 1)
     # physical page 0 is the reserved null page (serving/paged_kv.py)
     page = torch.where(w < n_valid, block_row.long()[idx], 0)
     slot = t % ps
+    if striped:
+        _striped_put(pool, page, slot, k.reshape(W, -1), v.reshape(W, -1))
+        return pool
     pool.k.index_put_((page, slot), k.reshape(W, -1))
     pool.v.index_put_((page, slot), v.reshape(W, -1))
     return pool
@@ -346,16 +526,23 @@ def attend_prefill_paged(q, pool: PagedAttnCache, block_row, start, *,
                          scale, softcap, n_kv: int):
     """Suffix-prefill attention: q (1,W,H,hd) holds query positions
     start..start+W-1; keys/values are gathered from the sequence's pages
-    (cached prefix + the just-scattered suffix) and masked causally at
-    ``j <= start + w`` — plain tensor ops with the decode path's fp32
-    scores and softmax, as in the reference (which has no kernel here)."""
+    (cached prefix + the just-scattered suffix; each page from its stripe
+    in a striped pool) and masked causally at ``j <= start + w`` — plain
+    tensor ops with the decode path's fp32 scores and softmax, as in the
+    reference (which has no kernel here)."""
     B, W, H, hd = q.shape
-    ps = pool.k.shape[1]
-    T = block_row.shape[0] * ps
     Kv = n_kv
-    bt = block_row.long()
-    k = pool.k[bt].reshape(B, T, Kv, hd)
-    v = pool.v[bt].reshape(B, T, Kv, hd)
+    if isinstance(pool, StripedPagedCache):
+        ps = pool.page_size
+        T = block_row.shape[0] * ps
+        k, v = _striped_gather(pool, block_row.long(), q.device)
+        k, v = k.reshape(B, T, Kv, hd), v.reshape(B, T, Kv, hd)
+    else:
+        ps = pool.k.shape[1]
+        T = block_row.shape[0] * ps
+        bt = block_row.long()
+        k = pool.k[bt].reshape(B, T, Kv, hd)
+        v = pool.v[bt].reshape(B, T, Kv, hd)
     qg = q.reshape(B, W, Kv, H // Kv, hd)
     s = _einsum32("bwkgd,btkd->bkgwt", qg, k) * scale
     s = nn.softcap(s, softcap)

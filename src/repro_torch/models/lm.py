@@ -204,7 +204,10 @@ def paged_decodable(cfg) -> bool:
 
 
 def init_paged_caches(cfg, n_pages: int, page_size: int, device):
-    """One PagedAttnCache per layer; all layers share one block table."""
+    """One PagedAttnCache per layer; all layers share one block table.
+    Under a sharding environment that stripes "pages" (the paged engine
+    with a mesh), one StripedPagedCache per layer instead, its stripes on
+    the mesh's devices; every paged pass below takes either."""
     assert paged_decodable(cfg), f"{cfg.name} is not paged-decodable"
     dtype = nn.dt(cfg.activation_dtype)
     return _nest(cfg, lambda kind, key: blocks.paged_cache_init(

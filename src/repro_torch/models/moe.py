@@ -8,8 +8,11 @@ expert groups is a Python loop.  Its three grouped einsums
 (``preferred_element_type=float32``) run through the ``moe_gemm`` kernel
 under ``impl == "pallas"`` and as fp32 ``torch.einsum`` otherwise; both
 keep the reference's fp32 between the GEMMs.  The reference's sharded
-expert-TP and EP branches are not ported: the port refuses a mesh where
-it would enter (``PagedEngine(mesh=...)``, ROADMAP Queue A item 7).
+expert-TP and EP branches are not ported: under the paged engine's mesh
+(``SERVING_RULES``: only the KV pages are sharded) the reference's
+``shard_map`` splits nothing and computes this single-device function,
+and the dense engine's mesh, where they would split the experts, is
+refused (ROADMAP Queue A item 7).
 
 JAX's ``mode="drop"`` scatters have no torch counterpart (an index out of
 range raises), so every scatter here writes into a buffer one row longer

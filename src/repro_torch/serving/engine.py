@@ -45,6 +45,25 @@ chunk and verify passes compute the same function as the decode path
 (``tests/test_torch_flag_cube.py`` holds the 32 combinations of the
 features against the reference's dense oracle).
 
+Striped pools (``mesh``, a :class:`~repro_torch.launch.mesh.DeviceMesh`
+whose "model" axis has M > 1 positions, as the reference's): every
+layer's pools are cut into M stripes, stripe d on the mesh's device d
+(``models/attention.StripedPagedCache``, placed under ``SERVING_RULES``),
+and the allocator stripes over the same M nodes.  The host reasons in
+logical page ids; every array that crosses to the device carries the
+physical slab rows of ``core/memory_server.stripe_slab_index`` (logical
+page p on node p % M), so the allocator's accounting and the device
+placement agree by construction (:meth:`PagedEngine._phys`).  Each
+decode attention runs the paged kernel once per stripe in its masked
+partials mode and merges the stripes' online-softmax state; writes and
+the suffix, chunk and verify passes' gathers are routed to the owning
+stripe with fixed shapes, so the striped engine has the same host syncs
+as the unstriped one.  The "data" axis replicates in the reference and
+computes nothing more here.  One controller drives every stripe: on one
+card a mesh of M positions puts all M stripes on it, on a host with M
+cards each on its own.  Dispatch spans carry the reference's predicted
+stripe traffic (``predicted_comms_s``, ``comms_bytes``).
+
 Fault plane (``n_nodes``, ``fault_plan``): the allocator stripes the
 pool's pages over ``n_nodes`` nodes.  Without a mesh the striping is
 host-side only: the pools stay one tensor on one device, and a node's
@@ -66,8 +85,7 @@ v5e-class model (``launch/mesh.py``), not the device the port runs on.
 A span times its body on the host clock: it includes device time only
 where the body ends in a pull to the host (prefill, chunk, scan and
 verify bodies do; ``cow_copy`` times the enqueue).  Tracing never feeds
-back into scheduling, so tokens are the same on or off.  Mesh-striped
-pools raise ``NotImplementedError`` (ROADMAP Queue A item 7).
+back into scheduling, so tokens are the same on or off.
 """
 from __future__ import annotations
 
@@ -83,8 +101,10 @@ from repro_torch import steps as steps_mod
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import costs
 from repro_torch.core.energy import step_energy
+from repro_torch.core.memory_server import stripe_slab_index
 from repro_torch.launch.mesh import HBM_BW
 from repro_torch.models import lm, modules as nn
+from repro_torch.parallel.sharding import SERVING_RULES, use_sharding
 from repro_torch.serving.faults import FaultPlane
 from repro_torch.serving.paged_kv import NULL_PAGE, PageAllocator
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -111,7 +131,8 @@ def _prefill_cost(cfg, link_mode: str, n_nodes: int,
 
 
 class PagedEngine:
-    """Paged-KV serving engine over one model on one device.
+    """Paged-KV serving engine over one model, its pools on one device
+    or striped over a mesh.
 
     ``max_len`` bounds prompt+gen per sequence; the block table has
     ``ceil(max_len / page_size)`` entries per slot.  ``n_pages`` includes
@@ -124,8 +145,11 @@ class PagedEngine:
     (host-side: the pools stay on one device) and, with ``link_mode``,
     prices admission as the reference does; ``fault_plan`` arms the fault
     plane, ``trace`` the flight recorder (``trace_capacity`` spans).
-    ``device`` defaults to ``cuda`` and must hold ``params``; with no
-    device given and no CUDA present the constructor raises.
+    ``mesh`` (a ``DeviceMesh``) stripes the pools over its "model" axis:
+    ``n_nodes`` then defaults to that degree and must equal it, and
+    ``n_pages`` must divide by it.  ``device`` defaults to ``cuda`` and
+    must hold ``params``; with no device given and no CUDA present the
+    constructor raises.
     """
 
     steps_run = counter_attr()
@@ -163,10 +187,6 @@ class PagedEngine:
                  chunked_prefill: bool = False, chunk_tokens: int = 0,
                  fault_plan=None, trace: bool = False,
                  trace_capacity: int = 4096, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: mesh-striped pools (Queue A item 7) are not ported "
-                "yet; see ROADMAP.md")
         assert lm.paged_decodable(cfg), \
             f"{cfg.name} is not paged-decodable (attention-only, causal)"
         if spec_proposer not in ("device", "host"):
@@ -178,6 +198,30 @@ class PagedEngine:
                 None, self.device.index):
             raise ValueError(f"params live on {self.device}, the engine "
                              f"was asked to run on {want}")
+        # mesh: its "model" axis stripes the page pools (page p lives on
+        # node p % M via core/memory_server.stripe_slab_index: the host
+        # allocator's striped_owner accounting and the device placement
+        # agree by construction).  The "data" axis replicates.
+        self._stripe = 1
+        if mesh is not None and "model" in getattr(mesh, "axis_names", ()):
+            self._stripe = int(mesh.shape["model"])
+        if self._stripe > 1:
+            if n_nodes == 1:
+                n_nodes = self._stripe
+            elif n_nodes != self._stripe:
+                raise ValueError(
+                    f"n_nodes={n_nodes} disagrees with the mesh's model "
+                    f"degree {self._stripe}: the host allocator's stripe "
+                    "and the device stripe must be the same partition")
+            if n_pages % self._stripe:
+                raise ValueError(
+                    f"n_pages={n_pages} not divisible by the stripe "
+                    f"degree {self._stripe}: every node must own an "
+                    "equal contiguous slab shard")
+            other = [d for d in mesh.devices if d.type != self.device.type]
+            if other:
+                raise ValueError(f"mesh devices {other} are not of the "
+                                 f"engine's device type {self.device.type}")
         self.registry = MetricsRegistry()
         self.tracer = StepTracer(capacity=trace_capacity) if trace else None
         self.cfg = cfg
@@ -221,9 +265,13 @@ class PagedEngine:
             prefill_budget=prefill_budget, prefix_cache=self.cache,
             chunked=chunked_prefill, chunk_tokens=chunk_tokens,
             registry=self.registry, tracer=self.tracer)
-        self.pools = lm.init_paged_caches(cfg, n_pages=n_pages,
-                                          page_size=page_size,
-                                          device=self.device)
+        with use_sharding(mesh, SERVING_RULES):
+            # a "model" axis of M > 1 stripes the pools: stripe d on the
+            # mesh's device d, the slab rows stripe_slab_index maps to
+            # node d; without one the pools are one tensor pair a layer
+            self.pools = lm.init_paged_caches(cfg, n_pages=n_pages,
+                                              page_size=page_size,
+                                              device=self.device)
         self._prefill = steps_mod.make_paged_prefill_step(cfg)
         self._serve = steps_mod.make_paged_serve_step(cfg)
         self._scan = steps_mod.make_paged_serve_scan(cfg)
@@ -246,7 +294,7 @@ class PagedEngine:
         self.active = np.zeros((max_batch,), np.int32)
         self.d_tokens = self._dev(self.tokens)
         self.d_pos = self._dev(self.pos)
-        self.d_block = self._dev(self.block_tables)
+        self.d_block = self._dev(self._phys(self.block_tables))
         self.d_active = self._dev(self.active)
         self._dirty = False
         self._dirty_block = False
@@ -285,6 +333,8 @@ class PagedEngine:
         # dispatch-span predictions, memoized: (seconds, joules across the
         # fleet) per prefill-shaped width
         self._pred_cache: Dict[int, tuple] = {}
+        # predicted stripe-interconnect cost per (tokens, merges) shape
+        self._comms_cache: Dict[tuple, tuple] = {}
         self.faults = None
         if fault_plan is not None:
             self.install_faults(fault_plan)
@@ -304,6 +354,20 @@ class PagedEngine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """A device copy of a host array (never a view of the mirror)."""
         return torch.tensor(a, device=self.device)
+
+    # -- stripe boundary (logical pages -> physical slab rows) -------------
+    def _phys(self, pages):
+        """Translate logical page ids to physical slab rows at the device
+        boundary.  The host side (allocator, scheduler, prefix cache,
+        fault plane) reasons entirely in logical ids (``striped_owner``
+        accounting); arrays crossing to the device carry slab rows, so
+        every page lands on its owner node's stripe.  Identity on a
+        single stripe, and NULL_PAGE (0) maps to row 0 on node 0 always.
+        Host arithmetic only: no sync."""
+        if self._stripe == 1:
+            return pages
+        return stripe_slab_index(np.asarray(pages), self._stripe,
+                                 self.alloc.n_pages)
 
     def reset_metrics(self):
         """Zero every counter/clock/digest (e.g. after a warmup pass)
@@ -326,27 +390,51 @@ class PagedEngine:
         self.t0 = time.time()
 
     # -- predicted-vs-measured attribution (telemetry spans) ---------------
-    # The pools are one tensor on one device, so no dispatch moves KV
-    # between stripes: the reference's predicted interconnect share of a
-    # span is 0 here (a mesh, ROADMAP Queue A item 7, brings it)
+    def _serving_comms(self, n_tokens: int, n_merges: int) -> tuple:
+        """(predicted seconds, predicted wire bytes a device) of the stripe
+        interconnect traffic one dispatch implies: the reference's §V link
+        model on the (M-1)/M remote fraction of ``n_tokens`` KV writes
+        plus ``n_merges`` per-layer decode-partials merges, priced for its
+        TPU v5e-class chips.  (0, 0) on a single stripe.  Memoized per
+        shape."""
+        if self._stripe <= 1:
+            return (0.0, 0.0)
+        key = (int(n_tokens), int(n_merges))
+        hit = self._comms_cache.get(key)
+        if hit is None:
+            hit = self._comms_cache[key] = costs.serving_comm_cost(
+                self.cfg, costs.Layout(data=1, model=self._stripe),
+                self.link_mode, n_tokens=key[0], n_merges=key[1])
+        return hit
+
     def _predict_prefill(self, n_tokens: int) -> tuple:
-        """(predicted seconds, predicted joules across the fleet) for one
-        prefill-shaped pass of ``n_tokens``: prices prefill, suffix
-        prefill, chunk and verify widths.  Memoized per width."""
+        """(predicted seconds, predicted joules across the fleet[, comms
+        seconds, comms bytes]) for one prefill-shaped pass of
+        ``n_tokens``: prices prefill, suffix prefill, chunk and verify
+        widths.  Memoized per width; the comms tail appears only under a
+        stripe."""
         n = max(int(n_tokens), 1)
         hit = self._pred_cache.get(n)
         if hit is None:
             est = _estimate(self.cfg, self.link_mode, self.n_nodes,
                             ShapeConfig("serve_prefill", n, 1, "prefill"))
-            hit = self._pred_cache[n] = (est.step_time_s,
-                                         est.energy.total_j * self.n_nodes)
+            hit = (est.step_time_s, est.energy.total_j * self.n_nodes)
+            if self._stripe > 1:
+                hit = hit + self._serving_comms(n, 0)
+            self._pred_cache[n] = hit
         return hit
 
     def _predict_scan(self, k: int) -> tuple:
-        """(seconds, joules) for a fused K-step decode window: K times the
-        admission-priced decode step."""
-        return (k * self.sched.decode_cost_s,
+        """(seconds, joules[, comms seconds, comms bytes]) for a fused
+        K-step decode window: K times the admission-priced decode step
+        (each step writes one KV entry a slot and merges the stripes'
+        decode partials once)."""
+        base = (k * self.sched.decode_cost_s,
                 k * self.decode_estimate.energy.total_j * self.n_nodes)
+        if self._stripe > 1:
+            cs, cb = self._serving_comms(self.max_batch, 1)
+            base = base + (k * cs, k * cb)
+        return base
 
     def _predict_cow(self) -> tuple:
         """(seconds, joules) for one device page copy: read + write one
@@ -368,7 +456,13 @@ class PagedEngine:
         times its body on the host clock; it adds no device sync."""
         if self.tracer is None:
             return self._NULLCTX
-        ps, pj = predfn()
+        vals = predfn()
+        ps, pj = vals[0], vals[1]
+        if len(vals) >= 4:
+            # striped engine: the predicted interconnect share rides the
+            # span, so the rollups attribute it per phase
+            extra = dict(extra, predicted_comms_s=vals[2],
+                         comms_bytes=vals[3])
         return self.tracer.dispatch(phase, self.sched.step_idx,
                                     predicted_s=ps, predicted_j=pj, **extra)
 
@@ -551,7 +645,7 @@ class PagedEngine:
         growth."""
         if not self._dirty_block:
             return
-        self.d_block = self._dev(self.block_tables)
+        self.d_block = self._dev(self._phys(self.block_tables))
         self.h2d_syncs += 1
         self._dirty_block = False
 
@@ -665,8 +759,9 @@ class PagedEngine:
         match = req.prefix_match
         dst = self.alloc.held[req.rid][req.cached_tokens // self.page_size]
         with self._span("cow_copy", self._predict_cow, rid=req.rid):
-            self.pools = self._copy_page(self.pools, int(match.cow_src),
-                                         int(dst))
+            self.pools = self._copy_page(
+                self.pools, int(self._phys(match.cow_src)),
+                int(self._phys(dst)))
         self.cache.stats.cow_copies += 1
         self.cache.release_cow(match)
 
@@ -684,7 +779,7 @@ class PagedEngine:
                             rid=req.rid, tokens=req.prompt_len):
                 logits, self.pools = self._prefill(
                     self.params, self._dev(req.prompt[None]), self.pools,
-                    self._dev(row))
+                    self._dev(self._phys(row)))
                 self.h2d_syncs += 1    # prompt + block row push
                 self.model_passes += 1
                 tok = int(logits.argmax(-1)[0, 0])
@@ -701,8 +796,8 @@ class PagedEngine:
         with self._span("prefill", lambda: self._predict_prefill(k),
                         rid=req.rid, tokens=slen, cached=L):
             logits, self.pools = self._suffix(
-                self.params, self._dev(padded), self.pools, self._dev(row),
-                L, slen)
+                self.params, self._dev(padded), self.pools,
+                self._dev(self._phys(row)), L, slen)
             self.h2d_syncs += 1        # suffix + block row push
             self.model_passes += 1
             tok = int(logits.argmax(-1)[0, 0])
@@ -735,8 +830,8 @@ class PagedEngine:
         with self._span("chunk_prefill", lambda: self._predict_prefill(w),
                         rid=req.rid, tokens=n, start=start):
             logits, self.pools = self._chunk(
-                self.params, self._dev(padded), self.pools, self._dev(row),
-                start, n)
+                self.params, self._dev(padded), self.pools,
+                self._dev(self._phys(row)), start, n)
             self.h2d_syncs += 1        # chunk + block row push
             self.model_passes += 1
             self.chunk_dispatches += 1
@@ -878,7 +973,7 @@ class PagedEngine:
                     act[s] = 0
                 self.d_tokens = self._dev(self.tokens)
                 self.d_pos = self._dev(self.pos)
-                d_bt, d_act = self._dev(bt), self._dev(act)
+                d_bt, d_act = self._dev(self._phys(bt)), self._dev(act)
                 self.h2d_syncs += 1
             else:
                 self._push(force=not self.fused)
@@ -927,7 +1022,8 @@ class PagedEngine:
                                 rid=req.rid, k=K, width=W):
                     logits, self.pools = self._verify(
                         self.params, self._dev(padded), self.pools,
-                        self._dev(self.block_tables[slot]), req.pos, m + 1)
+                        self._dev(self._phys(self.block_tables[slot])),
+                        req.pos, m + 1)
                     self.h2d_syncs += 1   # draft + block row push
                     greedy = logits[0, :m + 1].argmax(-1).cpu().numpy()
                     self.d2h_syncs += 1   # blocking verdict pull

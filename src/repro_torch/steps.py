@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import attention, lm
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
@@ -166,12 +166,14 @@ def make_spec_draft_verify(cfg: ModelConfig):
     return draft_verify
 
 
-def _pool_leaves(tree):
-    if isinstance(tree, torch.Tensor):
+def _pools(tree):
+    """The per-layer pools of a pool nesting (plain or striped)."""
+    if isinstance(tree, (attention.PagedAttnCache,
+                         attention.StripedPagedCache)):
         yield tree
     else:
         for t in tree:
-            yield from _pool_leaves(t)
+            yield from _pools(t)
 
 
 def make_page_copy():
@@ -179,12 +181,20 @@ def make_page_copy():
     pool, in place.
 
     (pools, src, dst) -> pools with page ``dst`` := page ``src``
-    everywhere (the page axis is third-from-last in every pool leaf).
-    The whole page is copied: slots past the shared fill point hold
-    stale values the diverging request overwrites before its position
-    ever reaches them."""
+    everywhere.  The whole page is copied: slots past the shared fill
+    point hold stale values the diverging request overwrites before its
+    position ever reaches them.  In a striped pool each page is found on
+    its stripe, and a copy between two stripes crosses devices when they
+    are on different ones."""
     def copy_page(pools, src: int, dst: int):
-        for a in _pool_leaves(pools):
-            a[..., dst, :, :] = a[..., src, :, :]
+        for pool in _pools(pools):
+            if isinstance(pool, attention.StripedPagedCache):
+                L = pool.rows
+                for stripes in (pool.k, pool.v):
+                    stripes[dst // L][dst % L] = \
+                        stripes[src // L][src % L].to(stripes[dst // L].device)
+            else:
+                for a in pool:
+                    a[dst] = a[src]
         return pools
     return copy_page

@@ -6,11 +6,13 @@
   a pool small enough to force preemption, emits greedy tokens identical
   to the reference's dense oracle and to the reference ``PagedEngine``,
   with the same scheduler and transfer counters;
-* the engine takes the fault plane and tracing, and raises for a mesh;
-  the serve CLI's chaos, trace and metrics flags run, and its flags that
-  need a mesh exit 2 (the prefix cache, speculative decoding and chunked
-  prefill are held against the reference in ``test_torch_prefix_spec.py``
-  and ``test_torch_flag_cube.py``; the fault plane in
+* the engine takes the fault plane and tracing, and raises for a mesh
+  whose stripe does not divide the pool; the serve CLI's chaos, trace
+  and metrics flags run, its mesh flags serve with the paged engine and
+  exit 2 with the dense engine (the prefix cache, speculative decoding
+  and chunked prefill are held against the reference in
+  ``test_torch_prefix_spec.py`` and ``test_torch_flag_cube.py``; the
+  fault plane in
   ``test_torch_faults.py`` and ``test_torch_chaos_cube.py``).
 """
 import numpy as np
@@ -22,6 +24,7 @@ from repro.serving import (ContinuousBatchScheduler as JSched,
                            Request as JRequest)
 from repro_torch.configs import get_tiny_config
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.serving.engine import PagedEngine
 from repro_torch.serving.faults import FaultEvent, FaultPlan
 from repro_torch.serving.paged_kv import NULL_PAGE, PageAllocator
@@ -204,7 +207,9 @@ def test_engine_warmup_and_cli_on_cpu(tiny, capsys):
 @pytest.mark.parametrize("flag", ["trace", "fault_plan"])
 def test_engine_rejects_unported_features(tiny, flag):
     """The fault plane and tracing are ported: the engine takes them and
-    serves; only mesh-striped pools still raise."""
+    serves.  Mesh-striped pools are ported too (``test_torch_mesh.py``):
+    what still raises is a mesh whose stripe does not divide the pool,
+    as in the reference."""
     _, _, tcfg, tparams = tiny
     kw = dict(trace=True) if flag == "trace" else dict(
         fault_plan=FaultPlan([FaultEvent(1, "fail", 1),
@@ -216,8 +221,27 @@ def test_engine_rejects_unported_features(tiny, flag):
     assert len(eng.run()) == 2
     assert (eng.tracer is not None) == (flag == "trace")
     assert (eng.faults is not None) == (flag == "fault_plan")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedEngine(tcfg, tparams, device="cpu", mesh=object(), **kw)
+    kw.pop("n_nodes", None)
+    with pytest.raises(ValueError, match="not divisible by the stripe"):
+        PagedEngine(tcfg, tparams, device="cpu", n_pages=15,
+                    mesh=make_test_mesh(1, 2, devices="cpu"), **kw)
+
+
+@pytest.mark.parametrize("argv", [["--layout", "auto"], ["--devices", "2"],
+                                  ["--data", "2"],
+                                  ["--devices", "2", "--model", "2"]])
+def test_serve_cli_paged_engine_takes_mesh_flags(argv, capsys):
+    """The flags that build a device mesh exit 2 with the dense engine
+    (above) and serve with the paged engine: ``--layout auto`` on the one
+    position the CPU has, ``--devices 2`` and ``--data 2`` without a
+    model axis to stripe over, and a 1x2 mesh."""
+    serve.main(["--tiny", "--device", "cpu", "--engine", "paged",
+                "--requests", "3", "--prompt-len", "8", "--gen", "4",
+                "--batch", "2"] + argv)
+    out = capsys.readouterr().out
+    assert "[paged] cpu: served 3 requests, 12 tokens" in out
+    if "--model" in argv:
+        assert "each pool in 2 stripes over cpu, cpu" in out
 
 
 @pytest.mark.parametrize("argv", [["--layout", "auto"],
