@@ -7,21 +7,30 @@ and through the serve CLI on that mesh; with the prefix cache,
 speculative decoding and chunked prefill on, beside the same traffic with
 them off; and under the pinned chaos fault plan on a pool striped over
 three nodes, untraced and with the flight recorder on), rwkv6-1.6b and
-recurrentgemma-2b at full width through the dense engine, and
+recurrentgemma-2b at full width through the dense engine,
 grok-1-314b at full width with its depth cut to four layers through both
-engines, and checks each served path at a cut depth against the port's
-plain path (the paged engine's features each alone and all three for
-qwen3, the chaos plan with the features off and on, and the striped
-pools on a 1x2 and a 2x2 mesh; for grok, all three against the plain
-engine without them).  It also reports whether a 1-token prefill chunk
-writes the KV of a longer suffix pass bit for bit.
+engines, DeepSeek-V3 (five layers: three dense, two MoE) and gemma2-27b
+(every layer) at full width through the dense engine, qwen3-14b and
+minitron-8b at full width through the paged engine, qwen2-vl-7b (four
+layers) through ``lm.prefill`` and ``lm.decode_step`` with embeddings at
+3-D M-RoPE positions, and hubert-xlarge through ``lm.forward``, and
+checks each served path at a cut depth against the port's plain path
+(the paged engine's features each alone and all three for qwen3, the
+chaos plan with the features off and on, and the striped pools on a 1x2
+and a 2x2 mesh; for grok, all three against the plain engine without
+them; DeepSeek at one dense and one MoE layer, gemma2 at two local and
+two global layers, qwen3-14b and minitron-8b at four layers through the
+paged engine, qwen2-vl-7b and hubert-xlarge on the served weights).  It
+also reports whether a 1-token prefill chunk writes the KV of a longer
+suffix pass bit for bit.
 
     python3 chip_smoke.py
 
-Needs one CUDA card with 80 GB (the kernels target Hopper, sm_90a; grok's
-four layers hold 42.6 GB of bf16 parameters) and the CUDA toolkit;
-imports nothing of JAX.  Every phase prints one line of results; any
-failure exits non-zero.  The last line of standard output is
+Needs one CUDA card with 80 GB (the kernels target Hopper, sm_90a;
+gemma2-27b's 46 layers hold 54.5 GB of bf16 parameters, DeepSeek's five
+53.3 GB) and the CUDA toolkit; imports nothing of JAX.  Every phase
+prints one line of results; any failure exits non-zero.  The last line
+of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -207,7 +216,7 @@ def check_paged(ops, ref):
         fail("paged decode on all-null rows")
     # GQA group sizes and head dims: G up to 16 fills the bf16 kernel's 16
     # tensor-core rows, hd 256 its widest tiles
-    for G in (1, 2, 4, 6, 8, 12, 16):
+    for G in (1, 2, 4, 5, 6, 7, 8, 12, 16):
         for hd_ in (16, 64, 128, 256):
             for dtype in (torch.float32, torch.bfloat16):
                 q, kp, vp, bt, p = paged_inputs(3, 2 * G, 2, hd_, 16, 5,
@@ -225,7 +234,7 @@ def check_paged(ops, ref):
             ref.paged_decode_attention(q, kp, vp, bt, p, softcap=30.0))
         if not err <= TOL[dtype]:
             fail(f"paged decode H=48 softcap 30 {dtype}: err {err}")
-    lines.append("null-page poisoning exact; G in {1,2,4,6,8,12,16} x hd "
+    lines.append("null-page poisoning exact; G in {1,2,4,5,6,7,8,12,16} x hd "
                  "in {16,64,128,256} x {fp32,bf16} and grok's H=48 Kv=8 "
                  "with softcap 30 x {fp32,bf16} within tolerance")
     # time at the main path's shapes and type (bf16, every pos 575)
@@ -581,6 +590,236 @@ def check_flash_local(ops, ref):
                 earlier_ms=EARLIER_MS["flash (4, 2100, 10, 256) window 2048"])
 
 
+# the flash kernel at this slice's prefills: gemma2-27b's dense batch (H=32,
+# hd 128, scale 1/12, softcap 50; its local layers with the 4096 window,
+# its global layers causal) and hubert-xlarge's (H=16, hd 80,
+# bidirectional, no softcap)
+GEMMA_SCALE = (4608 // 32) ** -0.5
+FAMILY_FLASH = [
+    ("gemma2-27b local", (4, 4200, 32, 128),
+     dict(causal=True, window=4096, scale=GEMMA_SCALE, softcap=50.0)),
+    ("gemma2-27b global", (4, 4200, 32, 128),
+     dict(causal=True, scale=GEMMA_SCALE, softcap=50.0)),
+    ("hubert-xlarge", (4, 1024, 16, 80), dict(causal=False)),
+]
+
+
+# the paged decode of the paged engine's new families (B=8, PAGED_RUN's
+# last slot 575): qwen3-14b's 40 query heads over 8 kv heads (G=5, which
+# the bf16 kernel pads to 16 tensor-core rows) and minitron-8b's 32 over 8
+FAMILY_PAGED = [("qwen3-14b", 40, 8), ("minitron-8b", 32, 8)]
+# qwen2-vl-7b's dense decode: 28 query heads over 4 kv heads (G=7) at the
+# last slot of its phase 3 run (prompt 512, gen 16)
+VL_DECODE = (2, 28, 4, 128, 528)
+
+
+def check_families(ops, ref):
+    """This slice's shapes and modes against the plain versions, timed:
+    the flash kernel at FAMILY_FLASH (window, softcap 50 and scale 1/12
+    in one launch; hd 80, which pads to 128 columns), the paged decode
+    kernel at FAMILY_PAGED (every pos 575, and ragged), decode_attention
+    at gemma2's dense decode (B=4, H=32, Kv=16, softcap 50, scale 1/12,
+    pos 4231) and at qwen2-vl's (VL_DECODE), and rmsnorm on MLA's latent
+    rows (the first 512 columns of each 576-wide row: the wrapper refuses
+    the strided view, and the model hands it a contiguous copy).
+    Tolerances as check_flash_local (flash), check_paged (paged) and
+    check_decode (decode): in bf16 both sides round the output once,
+    |kernel - plain| <= 2**-7 |plain| + the fp32 tolerance.  Returns
+    ({kernel: [shape records]}, lines)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    out = {"flash_attention": [], "decode_attention": [], "rmsnorm": [],
+           "paged_decode_attention": []}
+    lines = []
+    ragged = [575, 0, 17, 300, 16, 15, 511, 255]
+    for what, H, Kv in FAMILY_PAGED:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, pos in (("ragged", ragged), ("main", [575] * 8)):
+                q, kp, vp, bt, p = paged_inputs(8, H, Kv, 128, 16, 36, pos,
+                                                dtype, gen)
+                err = max_err(ops.paged_decode_attention(q, kp, vp, bt, p),
+                              ref.paged_decode_attention(q, kp, vp, bt, p))
+                errs[(name, dtype)] = err
+                if not err <= TOL[dtype]:
+                    fail(f"paged decode {what} H={H} Kv={Kv} {name} {dtype}: "
+                         f"max abs err {err}")
+        ms = time_ms(lambda: ops.paged_decode_attention(q, kp, vp, bt, p))
+        plain_ms = time_ms(lambda: ref.paged_decode_attention(q, kp, vp, bt,
+                                                              p))
+        b_ms, b_by = bound(*paged_bytes_flops(q, kp, bt, p), torch.bfloat16)
+        out["paged_decode_attention"].append(dict(
+            shape=f"B=8 H={H} Kv={Kv} hd=128 pos 575 ({what})",
+            max_abs_err=errs[("main", torch.bfloat16)], ms=ms,
+            plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+            bound_by=b_by))
+        lines.append(
+            f"paged_decode_attention at {what}'s B=8 H={H} Kv={Kv} hd=128: "
+            f"max abs err " + ", ".join(f"{n} {str(d)[6:]} {x:.3g}"
+                                        for (n, d), x in errs.items())
+            + f" (tol fp32 {TOL[torch.float32]}, bf16 "
+            f"{TOL[torch.bfloat16]}); bf16 kernel {ms:.4f} ms at pos 575, "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), no "
+            f"library call")
+        del q, kp, vp
+    for what, shape, kw in FAMILY_FLASH:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = [torch.randn(shape, generator=gen,
+                                   device=DEVICE).to(dtype)
+                       for _ in range(3)]
+            o = ops.flash_attention(q, k, v, **kw).float()
+            o_p = ref.flash_attention(q, k, v, **kw).float()
+            err = (o - o_p).abs()
+            errs[dtype] = float(err.max())
+            limit = TOL[torch.float32] + (
+                2.0 ** -7 * o_p.abs() if dtype == torch.bfloat16 else 0.0)
+            if not within(err, limit):
+                fail(f"flash {what} {shape} {kw} {dtype}: max abs err "
+                     f"{errs[dtype]} (typical |out| "
+                     f"{float(o_p.abs().mean())})")
+            del o, o_p, err
+            if dtype == torch.float32:
+                del q, k, v
+                torch.cuda.empty_cache()
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), iters=10)
+        plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, **kw),
+                           iters=3)
+        b_ms, b_by = bound(*flash_bytes_flops(q, kw["causal"],
+                                              kw.get("window")),
+                           torch.bfloat16)
+        lib_ms = None
+        if kw.get("softcap") is None and kw.get("window") is None:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = time_ms(lambda: sdpa(qt, kt, vt,
+                                          is_causal=kw["causal"]), iters=10)
+            del qt, kt, vt
+        out["flash_attention"].append(dict(
+            name=what, shape=list(shape), window=kw.get("window"),
+            softcap=kw.get("softcap"), scale=kw.get("scale"),
+            causal=kw["causal"], max_abs_err=errs[torch.bfloat16],
+            max_abs_err_fp32=errs[torch.float32], ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        lines.append(
+            f"flash_attention at {what} {shape} {kw}: max abs err fp32 "
+            f"{errs[torch.float32]:.3g} (tol {TOL[torch.float32]}), bf16 "
+            f"{errs[torch.bfloat16]:.3g} (tol 2**-7 |plain| + "
+            f"{TOL[torch.float32]}); bf16 kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            + (f"SDPA {lib_ms:.4f} ms" if lib_ms is not None else
+               "no library call (SDPA takes no softcap)"))
+        del q, k, v
+        torch.cuda.empty_cache()
+    # gemma2's dense decode of a global layer: the cache of prompt 4200 +
+    # gen 32, read at its last slot
+    B, H, Kv, hd, T = 4, 32, 16, 128, 4232
+    pos, tol = T - 1, 2e-5
+    dkw = dict(scale=GEMMA_SCALE, softcap=50.0)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(B, H, hd, generator=gen, device=DEVICE).to(dtype)
+        k, v = (torch.randn(B, T, Kv, hd, generator=gen,
+                            device=DEVICE).to(dtype) for _ in range(2))
+        for p_ in (0, 4095, pos):
+            o = ops.decode_attention(q, k, v, p_, **dkw).float()
+            o_p = ref.decode_attention(q, k, v, p_, **dkw).float()
+            err = (o - o_p).abs()
+            limit = tol + (2.0 ** -7 * o_p.abs()
+                           if dtype == torch.bfloat16 else 0.0)
+            if not within(err, limit):
+                fail(f"decode_attention gemma2 pos {p_} {dtype}: max abs "
+                     f"err {float(err.max())}")
+            errs[(p_, dtype)] = float(err.max())
+    e = q.element_size()
+    nb = 2 * q.numel() * e + 2 * B * (pos + 1) * Kv * hd * e
+    b_ms, b_by = bound(nb, 4 * B * H * (pos + 1) * hd, torch.bfloat16)
+    ms = time_ms(lambda: ops.decode_attention(q, k, v, pos, **dkw))
+    plain_ms = time_ms(lambda: ref.decode_attention(q, k, v, pos, **dkw))
+    out["decode_attention"].append(dict(
+        shape=f"B={B} H={H} Kv={Kv} hd={hd} pos {pos} softcap 50 scale 1/12",
+        max_abs_err=errs[(pos, torch.bfloat16)], ms=ms, plain_ms=plain_ms,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    lines.append(
+        f"decode_attention at gemma2's B={B} H={H} Kv={Kv} hd={hd} T={T}, "
+        f"softcap 50, scale 1/12: max abs err "
+        + ", ".join(f"pos {p_} {str(d)[6:]} {x:.3g}"
+                    for (p_, d), x in errs.items())
+        + f" (tol fp32 {tol}, bf16 {tol} + 2**-7 |plain|); bf16 kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), no library call (SDPA takes no softcap)")
+    del q, k, v
+    # qwen2-vl's dense decode (G=7), beside SDPA
+    B, H, Kv, hd, T = VL_DECODE
+    pos = T - 1
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(B, H, hd, generator=gen, device=DEVICE).to(dtype)
+        k, v = (torch.randn(B, T, Kv, hd, generator=gen,
+                            device=DEVICE).to(dtype) for _ in range(2))
+        for p_ in (0, 511, pos):
+            o = ops.decode_attention(q, k, v, p_).float()
+            o_p = ref.decode_attention(q, k, v, p_).float()
+            err = (o - o_p).abs()
+            limit = tol + (2.0 ** -7 * o_p.abs()
+                           if dtype == torch.bfloat16 else 0.0)
+            if not within(err, limit):
+                fail(f"decode_attention qwen2-vl pos {p_} {dtype}: max abs "
+                     f"err {float(err.max())}")
+            errs[(p_, dtype)] = float(err.max())
+    e = q.element_size()
+    nb = 2 * q.numel() * e + 2 * B * (pos + 1) * Kv * hd * e
+    b_ms, b_by = bound(nb, 4 * B * H * (pos + 1) * hd, torch.bfloat16)
+    ms = time_ms(lambda: ops.decode_attention(q, k, v, pos))
+    plain_ms = time_ms(lambda: ref.decode_attention(q, k, v, pos))
+    qt = q[:, :, None]
+    kt, vt = (t[:, :pos + 1].transpose(1, 2) for t in (k, v))
+    lib_ms = time_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True))
+    out["decode_attention"].append(dict(
+        shape=f"B={B} H={H} Kv={Kv} hd={hd} pos {pos} (qwen2-vl-7b)",
+        max_abs_err=errs[(pos, torch.bfloat16)], ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+    lines.append(
+        f"decode_attention at qwen2-vl's B={B} H={H} Kv={Kv} hd={hd} T={T}: "
+        f"max abs err " + ", ".join(f"pos {p_} {str(d)[6:]} {x:.3g}"
+                                    for (p_, d), x in errs.items())
+        + f" (tol fp32 {tol}, bf16 {tol} + 2**-7 |plain|); bf16 kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA (enable_gqa) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del q, k, v, kt, vt
+    # MLA's kv_a_norm: a decode step of 8 and the dense prefill of 8 x 512
+    for N in (8, 4096):
+        scale = torch.randn(512, generator=gen, device=DEVICE)
+        lat = torch.randn(N, 576, generator=gen,
+                          device=DEVICE).to(torch.bfloat16)
+        row = lat[:, :512]
+        try:
+            ops.rmsnorm(row, scale)
+            fail("rmsnorm took a strided row")
+        except ValueError:
+            pass
+        o = ops.rmsnorm(row.contiguous(), scale).float()
+        o_p = ref.rmsnorm(row, scale).float()
+        err = (o - o_p).abs()
+        if not within(err, 2e-5 + 2.0 ** -7 * o_p.abs()):
+            fail(f"rmsnorm MLA latent ({N}, 512 of 576): max abs err "
+                 f"{float(err.max())}")
+        ms = time_ms(lambda: ops.rmsnorm(row.contiguous(), scale))
+        b_ms, b_by = bound(2 * 2 * N * 512 + 4 * 512, 3 * N * 512,
+                           torch.bfloat16)
+        out["rmsnorm"].append(dict(
+            shape=[N, 512], strided_from=576, max_abs_err=float(err.max()),
+            ms=ms, plain_ms=time_ms(lambda: ref.rmsnorm(row, scale)),
+            bound_ms=b_ms, bound_by=b_by))
+        lines.append(
+            f"rmsnorm at MLA's latent rows ({N}, 512 of 576) bf16: the "
+            f"wrapper refuses the strided view; on the contiguous copy max "
+            f"abs err {float(err.max()):.3g} (tol 2e-5 + 2**-7 |plain|), "
+            f"copy and kernel {ms:.4f} ms, plain (strided) "
+            f"{out['rmsnorm'][-1]['plain_ms']:.4f} ms, bound {b_ms:.5f} ms")
+    torch.cuda.empty_cache()
+    return out, lines
+
+
 def rwkv6_inputs(B, S, H, K, dtype, gen, strong=False):
     """r, k, v in ``dtype``; log-decay lw = -exp(N(0,1) - 1), bonus u and
     a nonzero S0 in fp32 (the reference kernel test's distributions).
@@ -771,16 +1010,24 @@ def moe_tol(xt, wt, ot):
 
 
 # grok-1's GEMMs at 4 layers: (name, E, C, D, F); D=6144, F=32768 is an
-# up/gate projection, D=32768, F=6144 its down projection
+# up/gate projection, D=32768, F=6144 its down projection; then
+# DeepSeek-V3's: a decode step of 8 (C=8, all 256 experts in one launch)
+# and one expert group of 16 of the dense engine's prefill of 8 x 512
+# tokens (C=160, 16 groups)
 MOE_SHAPES = [("dense prefill up", 4, 1280, 6144, 32768),
               ("dense prefill down", 4, 1280, 32768, 6144),
               ("paged prefill up", 8, 160, 6144, 32768),
               ("paged prefill down", 8, 160, 32768, 6144),
               ("decode up", 8, 8, 6144, 32768),
-              ("decode down", 8, 8, 32768, 6144)]
+              ("decode down", 8, 8, 32768, 6144),
+              ("deepseek decode up", 256, 8, 7168, 2048),
+              ("deepseek decode down", 256, 8, 2048, 7168),
+              ("deepseek prefill up", 16, 160, 7168, 2048),
+              ("deepseek prefill down", 16, 160, 2048, 7168)]
 # edge and operand-type cases, (E, C, D, F), x, w and out dtypes: ragged
 # C, D and F (the fp32-core path when D or F is not a multiple of 8),
-# fp32, and mixed both ways (the phase 4 decode GEMM is fp32 x bf16); then
+# fp32, and mixed both ways (the phase 4 decode GEMMs of grok and
+# DeepSeek are fp32 x bf16); then
 # bf16 x bf16 at the edges of the tensor-core paths (ops.moe_plan): C
 # ragged against the row tile on both sides of the stream/wgmma threshold
 # (24, 72, 200), D and F multiples of 8 but not of 64 (TMA's zero fill),
@@ -791,6 +1038,8 @@ MOE_CASES = [((2, 70, 100, 90),) + (torch.bfloat16,) * 3,
               torch.float32),
              ((3, 77, 200, 300),) + (torch.float32,) * 3,
              ((8, 8, 6144, 32768), torch.float32, torch.bfloat16,
+              torch.float32),
+             ((256, 8, 7168, 2048), torch.float32, torch.bfloat16,
               torch.float32),
              ((2, 40, 96, 136), torch.bfloat16, torch.float32,
               torch.float32)] + [
@@ -879,7 +1128,7 @@ def check_moe_gemm(ops, ref):
         b_ms, b_by = bound(nbytes, 2 * E * C * D * F, bf)
         shapes.append(dict(name=what, shape=[E, C, D, F],
                            plan=plan(E, C, D, F, bf, bf),
-                           earlier_ms=EARLIER_MS[f"moe_gemm {what}"],
+                           earlier_ms=EARLIER_MS.get(f"moe_gemm {what}"),
                            max_abs_err=err,
                            max_rel_err=rel, control_rel_err=ctl, ms=ms,
                            plain_ms=plain_ms, library_ms=lib_ms,
@@ -903,8 +1152,9 @@ def check_moe_gemm(ops, ref):
     lines += [f"moe_gemm {r['name']} {tuple(r['shape'])} bf16 -> fp32 "
               f"[{r['plan']}]: rel "
               f"err {r['max_rel_err']:.3g} (abs {r['max_abs_err']:.3g}, bf16 "
-              f"control {r['control_rel_err']:.3g}); kernel {r['ms']:.4f} ms "
-              f"(earlier design {r['earlier_ms']} ms), plain "
+              f"control {r['control_rel_err']:.3g}); kernel {r['ms']:.4f} ms"
+              + (f" (earlier design {r['earlier_ms']} ms)"
+                 if r["earlier_ms"] else "") + ", plain "
               f"{r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               for r in shapes]
@@ -930,8 +1180,8 @@ def check_decode(ops, ref):
     worst = {}
     cases = [((B, H, Kv, hd, T), pos, cap) for pos in (0, 300, 575)
              for cap in (30.0, None)]
-    cases += [((3, 2 * G, 2, d, 77), 60, None) for G in (1, 4, 6, 8, 12, 16)
-              for d in (16, 64, 256)]
+    cases += [((3, 2 * G, 2, d, 77), 60, None)
+              for G in (1, 4, 5, 6, 7, 8, 12, 16) for d in (16, 64, 256)]
     for shape, pos, cap in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = inputs(dtype, shape)
@@ -985,7 +1235,7 @@ def check_decode(ops, ref):
                      for (p, c, d), x in worst.items())
     line = (f"decode_attention B={B} H={H} Kv={Kv} hd={hd} T={T}: max abs "
             f"err [{errs}] (tol fp32 {tol}, bf16 {tol} + 2**-7 |plain|); "
-            f"G in {{1,4,6,8,12,16}} x hd in {{16,64,256}} at T=77 within "
+            f"G in {{1,4,5,6,7,8,12,16}} x hd in {{16,64,256}} at T=77 within "
             f"tolerance; kernel {ms:.4f} ms (earlier design "
             f"{EARLIER_MS['decode_attention B=8 H=48 pos 575 softcap 30']} "
             f"ms), plain {plain_ms:.4f} ms, SDPA (enable_gqa, slots 0..pos) "
@@ -999,8 +1249,11 @@ def check_decode(ops, ref):
 
 # rmsnorm rows on the served paths: (rows, D) — decode rows of d_model
 # (grok 6144, qwen3 2048, recurrentgemma 2560), qwen3's q-norm rows of one
-# decode step (8 x 16 heads of 128), and grok's dense prefill (8 x 512)
-RMS_SHAPES = [(8, 6144), (8, 2048), (4, 2560), (128, 128), (4096, 6144)]
+# decode step (8 x 16 heads of 128), and grok's dense prefill (8 x 512);
+# then DeepSeek's decode rows (7168) and MLA's q-latent norm over its
+# dense prefill of 8 x 512 (1536), and gemma2's decode rows (4608)
+RMS_SHAPES = [(8, 6144), (8, 2048), (4, 2560), (128, 128), (4096, 6144),
+              (8, 7168), (4096, 1536), (4, 4608)]
 # the paged engine's suffix-body widths on qwen3: verify windows (4, 16),
 # a prefix hit's 64-token suffix, a 128-token prefill chunk
 SUFFIX_WIDTHS = (4, 16, 64, 128)
@@ -1078,7 +1331,7 @@ def check_rmsnorm(ops, ref):
             plain_ms=time_ms(lambda: ref.rmsnorm(x, scale)),
             library_ms=time_ms(lambda: F.rms_norm(x, (D,), w, 1e-6)),
             bound_ms=b_ms, bound_by=b_by, floor_ms=floor_ms,
-            earlier_ms=EARLIER_MS[f"rmsnorm {(N, D)}"],
+            earlier_ms=EARLIER_MS.get(f"rmsnorm {(N, D)}"),
             add_ms=time_ms(lambda: ops.add_rmsnorm(x, d, scale)),
             add_plain_ms=time_ms(lambda: ref.add_rmsnorm(x, d, scale)),
             add_bound_ms=bound(4 * 2 * N * D + 4 * D, 4 * N * D,
@@ -1106,8 +1359,9 @@ def check_rmsnorm(ops, ref):
              f"floor (one elementwise kernel on one element) "
              f"{floor_ms:.4f} ms"]
     lines += [f"rmsnorm {tuple(t['shape'])} bf16: kernel {t['ms']:.4f} ms "
-              f"(earlier design {t['earlier_ms']} ms; launch floor "
-              f"{floor_ms:.4f}), plain {t['plain_ms']:.4f} ms, F.rms_norm "
+              + (f"(earlier design {t['earlier_ms']} ms; launch floor "
+                 if t["earlier_ms"] else "(launch floor ")
+              + f"{floor_ms:.4f}), plain {t['plain_ms']:.4f} ms, F.rms_norm "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']}); add_rmsnorm {t['add_ms']:.4f} ms, plain "
               f"{t['add_plain_ms']:.4f} ms, bound {t['add_bound_ms']:.5f} ms"
@@ -1128,8 +1382,22 @@ DENSE_RUNS = {
     "rwkv6-1.6b": dict(requests=16, batch=8, prompt_len=512, gen=64),
     "recurrentgemma-2b": dict(requests=8, batch=4, prompt_len=2100, gen=32),
     "grok-1-314b": dict(requests=16, batch=8, prompt_len=512, gen=64),
+    "deepseek-v3-671b": dict(requests=16, batch=8, prompt_len=512, gen=64),
+    # prompts past the 4096 window: the local layers' rings wrap
+    "gemma2-27b": dict(requests=8, batch=4, prompt_len=4200, gen=32),
 }
 GROK_DEPTH = 4     # 4 x 9.84 GB of layers + 3.2 GB of embedding and head
+# the depth cuts of phase 3 (every width as published): grok-1's
+# GROK_DEPTH layers, DeepSeek-V3's 3 dense layers and 2 MoE layers (3 x
+# 1.16 + 2 x 23.0 GB of layers, 3.7 GB of embedding and head) without the
+# MTP module (a training loss, about 23 GB), qwen2-vl-7b's first 4 layers
+CUTS = {"grok-1-314b": dict(n_layers=GROK_DEPTH),
+        "deepseek-v3-671b": dict(n_layers=5, mtp_depth=0),
+        "qwen2-vl-7b": dict(n_layers=4)}
+# qwen2-vl-7b's run: one prefill of (batch, prompt) embeddings, then decode
+# steps; hubert-xlarge's: one forward of (batch, frames) embeddings
+EMBED_RUNS = {"qwen2-vl-7b": dict(batch=2, prompt_len=512, gen=16),
+              "hubert-xlarge": dict(batch=4, prompt_len=1024)}
 
 
 def expected_launches(cfg, prefills, steps, prefill_tokens, decode_tokens,
@@ -1153,6 +1421,7 @@ def expected_launches(cfg, prefills, steps, prefill_tokens, decode_tokens,
     kinds = cfg.layer_kinds
     n_glob, n_attn = kinds.count("attn"), kinds.count("attn") + kinds.count(
         "local")
+    n_mla = kinds.count("mla")         # each: a q-latent and a kv-latent norm
     passes = prefills + steps + suffix_passes
     gemms = 0
     if cfg.moe is not None:
@@ -1171,7 +1440,8 @@ def expected_launches(cfg, prefills, steps, prefill_tokens, decode_tokens,
             "rglru_scan": kinds.count("rglru") * prefills,
             "moe_gemm": gemms,
             "decode_attention": 0 if paged else n_glob * steps,
-            "rmsnorm": (1 + 2 * cfg.post_norm * len(kinds)) * passes,
+            "rmsnorm": (1 + 2 * cfg.post_norm * len(kinds) + 2 * n_mla)
+                       * passes,
             "add_rmsnorm": 2 * len(kinds) * passes,
             "qk_rmsnorm": cfg.qk_norm * n_attn * passes}
 
@@ -2092,16 +2362,185 @@ def serve_dense(ops, cfg, params):
     return stats, launches, line
 
 
-def full_width_params(arch, depth=None):
+def full_width_params(arch):
     """(cfg with impl=pallas, random parameters from SEED) at the config's
-    published widths; ``depth`` cuts the layers."""
+    published widths, with the fields CUTS sets for ``arch``."""
     from repro_torch.configs import get_config
     from repro_torch.weights import init_params
-    cfg = get_config(arch).replace(impl="pallas")
-    if depth is not None:
-        cfg = cfg.replace(n_layers=depth)
+    cfg = get_config(arch).replace(impl="pallas", **CUTS.get(arch, {}))
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     return cfg, init_params(cfg, g, DEVICE)
+
+
+def cut_params(big, params, cfg):
+    """``params`` of config ``big`` cut to ``cfg``'s layers, sharing the
+    tensors: each layer of ``cfg`` takes the next unused layer of ``big``
+    with its kind and FFN (dense or MoE).  Once the caller drops ``big``'s
+    tree, the unused layers are freed."""
+    from repro_torch.models import lm
+    pool = {}
+    for kind, p, _, (si, _, _) in lm._layers(big, params, None):
+        pool.setdefault((kind, lm.make_segments(big)[si].is_moe),
+                        []).append(p)
+    segs = [[[pool[kind, seg.is_moe].pop(0) for kind in seg.kinds]
+             for _ in range(seg.n_cycles)] for seg in lm.make_segments(cfg)]
+    return {**params, "segments": segs}
+
+
+def vl_positions(B, S, device):
+    """Text-like 3-D M-RoPE ids for a (B, S) prompt: S/8 text tokens, a
+    square grid of image patches at one temporal id (height and width ids
+    from the grid), then text again from the next id on."""
+    n_text = S // 8
+    side = int(np.sqrt(S // 2))
+    hh, ww = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    pos = np.zeros((3, S), np.int64)
+    pos[:, :n_text] = np.arange(n_text)
+    img = slice(n_text, n_text + side * side)
+    pos[0, img] = n_text
+    pos[1, img] = n_text + hh.reshape(-1)
+    pos[2, img] = n_text + ww.reshape(-1)
+    rest = S - img.stop
+    pos[:, img.stop:] = n_text + side + np.arange(rest)
+    return torch.tensor(pos, dtype=torch.int32, device=device)[:, None] \
+        .expand(3, B, S).contiguous()
+
+
+def _synced_ms(fn, n):
+    """Device-synchronized host time of ``fn`` in ms, the mean of ``n``
+    calls after one unclocked call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) / n * 1e3
+
+
+def serve_embeddings(ops, cfg, params):
+    """qwen2-vl-7b through ``lm.prefill`` and ``lm.decode_step``, the
+    entry points that take embeddings: one prefill of EMBED_RUNS' (batch,
+    prompt) random embeddings at text-like 3-D positions, then ``gen``
+    decode steps of random embeddings (every plane at the step's
+    position, as the reference's ``decode_step`` gives them), bf16
+    activations, impl=pallas.  Checks the logits' shapes and finiteness
+    and each kernel's launches; times the prefill and a decode step and
+    profiles four decode steps."""
+    from repro_torch.models import lm
+    run = EMBED_RUNS[cfg.name]
+    B, S, gen_len = run["batch"], run["prompt_len"], run["gen"]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    x = torch.randn(B, S, cfg.d_model, generator=g, device=DEVICE)
+    e = torch.randn(gen_len, B, 1, cfg.d_model, generator=g, device=DEVICE)
+    pos = vl_positions(B, S, DEVICE)
+    max_len = S + gen_len
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                     # counts of this path only
+    t0 = time.time()
+    logits, caches = lm.prefill(params, cfg, x, max_len=max_len,
+                                positions=pos)
+    outs = [logits]
+    torch.cuda.synchronize()
+    t1 = time.time()
+    for i in range(gen_len):
+        logits, caches = lm.decode_step(params, cfg, e[i], caches, S + i)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    launches = _launches(ops)
+    peak_gb = _peak_gb()
+    want = expected_launches(cfg, 1, gen_len, B * S, B, False)
+    if launches != want:
+        fail(f"{cfg.name}: launches {launches} != expected {want}")
+    if any(tuple(l.shape) != (B, 1, cfg.vocab_size)
+           or not bool(torch.isfinite(l).all()) for l in outs):
+        fail(f"{cfg.name}: logits not finite or not (B, 1, V)")
+    prefill_ms = _synced_ms(lambda: lm.prefill(params, cfg, x,
+                                               max_len=max_len,
+                                               positions=pos), 3)
+
+    def decode4():
+        c = caches
+        for i in range(4):
+            c = lm.decode_step(params, cfg, e[i], c, S + gen_len - 4 + i)[1]
+        return 4
+
+    prof = _profile(decode4)
+    stats = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                 n_params=n_params, **run, first_prefill_s=t1 - t0,
+                 decode_step_ms=(t2 - t1) / gen_len * 1e3,
+                 prefill_ms=prefill_ms, launches=launches, peak_gb=peak_gb,
+                 profile=prof)
+    line = (f"serve {cfg.name} through lm.prefill / lm.decode_step "
+            f"({cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{n_params / 1e9:.3f} B params, bf16 activations, impl=pallas): "
+            f"one prefill of ({B}, {S}) embeddings at 3-D M-RoPE positions "
+            f"{prefill_ms:.3f} ms, {gen_len} decode steps of embeddings, "
+            f"{stats['decode_step_ms']:.3f} ms a step; peak memory "
+            f"{peak_gb:.2f} GB; launches {launches}; profiled 4 decode "
+            f"steps: {prof['wall_ms'] / 4:.3f} ms wall a step, device busy "
+            f"{prof['busy_share']:.3f}, "
+            f"{prof['launches_per_step']:.0f} launches a step, top "
+            f"{prof['top']}")
+    del caches, outs
+    torch.cuda.empty_cache()
+    return stats, launches, line
+
+
+def serve_encoder(ops, cfg, params):
+    """hubert-xlarge through ``lm.forward``: one bidirectional forward of
+    EMBED_RUNS' (batch, frames) random frame embeddings, the final norm
+    and the head over every frame, bf16 activations, impl=pallas.  Checks
+    the logits' shape and finiteness and each kernel's launches; times
+    and profiles the forward."""
+    from repro_torch.models import lm
+    run = EMBED_RUNS[cfg.name]
+    B, S = run["batch"], run["prompt_len"]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    x = torch.randn(B, S, cfg.d_model, generator=g, device=DEVICE)
+    n_params = sum(t.numel() for t in _leaves(params))
+
+    def frames():
+        h, pending, _ = lm.forward(params, cfg, x)
+        return lm.head_logits(params, cfg,
+                              lm.final_norm(params, cfg, h, pending))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                     # counts of this path only
+    logits = frames()
+    torch.cuda.synchronize()
+    launches = _launches(ops)
+    peak_gb = _peak_gb()
+    want = expected_launches(cfg, 1, 0, B * S, B, False)
+    if launches != want:
+        fail(f"{cfg.name}: launches {launches} != expected {want}")
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"{cfg.name}: logits not finite or not (B, S, V)")
+    del logits
+    fwd_ms = _synced_ms(frames, 3)
+
+    def one_forward():
+        frames()
+        return 1
+
+    prof = _profile(one_forward)
+    stats = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                 n_params=n_params, **run, forward_ms=fwd_ms,
+                 launches=launches, peak_gb=peak_gb, profile=prof)
+    line = (f"serve {cfg.name} through lm.forward ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B params, bf16 "
+            f"activations, impl=pallas): one bidirectional forward of "
+            f"({B}, {S}) frame embeddings and the head over every frame "
+            f"{fwd_ms:.3f} ms; peak memory {peak_gb:.2f} GB; launches "
+            f"{launches}; profiled: {prof['wall_ms']:.3f} ms wall, device "
+            f"busy {prof['busy_share']:.3f}, top {prof['top']}")
+    torch.cuda.empty_cache()
+    return stats, launches, line
 
 
 def _profile(fn):
@@ -2604,13 +3043,44 @@ def striped_parity(inp):
 # another expert; a near-tie in a row's prefill likewise exempts that
 # row's first-token logits.  grok's parity runs on the bf16 weights served
 # in phase 3, under fp32 activations.
-DENSE_PARITY = {
-    "rwkv6-1.6b": dict(depth=4, batch=4, prompt_len=512, gen=16, tol=1e-3),
-    "recurrentgemma-2b": dict(depth=6, batch=2, prompt_len=2100, gen=16,
-                              tol=1e-2),
-    "grok-1-314b": dict(depth=GROK_DEPTH, batch=2, prompt_len=64, gen=16,
-                        tol=1e-3),
+PARITY = {
+    "rwkv6-1.6b": dict(cut=dict(n_layers=4), batch=4, prompt_len=512,
+                       gen=16, tol=1e-3),
+    "recurrentgemma-2b": dict(cut=dict(n_layers=6), batch=2,
+                              prompt_len=2100, gen=16, tol=1e-2),
+    "grok-1-314b": dict(cut=dict(n_layers=GROK_DEPTH), batch=2,
+                        prompt_len=64, gen=16, tol=1e-3),
+    # one dense layer and one MoE layer of the phase 3 weights
+    "deepseek-v3-671b": dict(cut=dict(n_layers=2, first_k_dense=1,
+                                      mtp_depth=0),
+                             batch=2, prompt_len=64, gen=16, tol=1e-3),
+    # two (local, global) cycles of the phase 3 weights; prompts past the
+    # window
+    "gemma2-27b": dict(cut=dict(n_layers=4), batch=2, prompt_len=4200,
+                       gen=16, tol=1e-2),
+    # the paged engine's new families: four layers of the phase 3 weights,
+    # PAGED_RUN's prompt length
+    "qwen3-14b": dict(cut=dict(n_layers=4), batch=2, prompt_len=512, gen=16,
+                      tol=1e-3),
+    "minitron-8b": dict(cut=dict(n_layers=4), batch=2, prompt_len=512,
+                        gen=16, tol=1e-3),
 }
+
+
+def parity_cfg(arch):
+    """The config of ``arch``'s parity run: PARITY's cut, fp32
+    activations, impl=pallas."""
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(activation_dtype="float32",
+                                    impl="pallas", **PARITY[arch]["cut"])
+
+
+def _cut_text(arch, cfg):
+    """'depth cut L -> l layers' and PARITY's other cut fields."""
+    from repro_torch.configs import get_config
+    extra = {k: v for k, v in PARITY[arch]["cut"].items() if k != "n_layers"}
+    return (f"depth cut {get_config(arch).n_layers} -> {cfg.n_layers} layers"
+            + (f" ({extra})" if extra else ""))
 ROUTER_TIE = 1e-5
 
 
@@ -2708,14 +3178,11 @@ def _token_flips(seqs, margins, tol, gaps, what):
 
 
 def dense_parity(arch, params=None):
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_prompts
     from repro_torch.weights import init_params
 
-    run = DENSE_PARITY[arch]
-    full = get_config(arch)
-    cfg = full.replace(n_layers=run["depth"], activation_dtype="float32",
-                       impl="pallas")
+    run = PARITY[arch]
+    cfg = parity_cfg(arch)
     if params is None:
         g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
         params = init_params(cfg, g, DEVICE)
@@ -2731,8 +3198,8 @@ def dense_parity(arch, params=None):
     logit_err, exempt = _first_logits(first, gaps[0], run["tol"], arch)
     ties = _token_flips(seqs, margins["ref"], run["tol"], gaps, arch)
     gap = min(min(g) for g in gaps)
-    line = (f"parity {arch} dense, full width, depth cut {full.n_layers} -> "
-            f"{run['depth']} layers, fp32 activations: kernel path "
+    line = (f"parity {arch} dense, full width, {_cut_text(arch, cfg)}, "
+            f"fp32 activations: kernel path "
             f"(impl=pallas) vs plain path (impl=ref) on {run['batch']} "
             f"prompts of {plen} x {gen_len} tokens: first-token logits max "
             f"abs err {logit_err:.3g} (atol {run['tol']}"
@@ -2741,13 +3208,60 @@ def dense_parity(arch, params=None):
             + ("identical" if not ties else f"differ only at near-ties {ties}")
             + (f"; smallest top-{cfg.moe.top_k}/top-{cfg.moe.top_k + 1} "
                f"router gap {gap:.3g}" if cfg.moe else ""))
-    return dict(depth=run["depth"], logit_err=logit_err, exempt_rows=exempt,
-                near_ties=ties, router_gap=gap), line
+    return dict(depth=cfg.n_layers, logit_err=logit_err,
+                exempt_rows=exempt, near_ties=ties, router_gap=gap), line
+
+
+EMBED_PARITY_TOL = 1e-3
+
+
+def embed_parity(cfg, params):
+    """The embedding-input families at fp32 activations, on the phase 3
+    weights: the kernel path (impl=pallas) against the plain path
+    (impl=ref) on the same inputs.  qwen2-vl-7b: a (2, 512) prefill at
+    text-like 3-D positions and 4 decode steps, each step's logits;
+    hubert-xlarge: a (2, 1024) forward, every frame's logits.  Within
+    EMBED_PARITY_TOL abs."""
+    from repro_torch.models import lm
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    B, S = (2, 512) if cfg.supports_decode else (2, 1024)
+    x = torch.randn(B, S, cfg.d_model, generator=g, device=DEVICE)
+    e = torch.randn(4, B, 1, cfg.d_model, generator=g, device=DEVICE)
+    pos = vl_positions(B, S, DEVICE) if cfg.mrope_sections else None
+    logits = {}
+    for impl in ("pallas", "ref"):
+        c = cfg.replace(activation_dtype="float32", impl=impl)
+        if cfg.supports_decode:
+            l0, caches = lm.prefill(params, c, x, max_len=S + 4,
+                                    positions=pos)
+            seq = [l0]
+            for i in range(4):
+                l0, caches = lm.decode_step(params, c, e[i], caches, S + i)
+                seq.append(l0)
+            logits[impl] = torch.cat(seq, 1)
+            del caches
+        else:
+            h, pending, _ = lm.forward(params, c, x)
+            logits[impl] = lm.head_logits(params, c,
+                                          lm.final_norm(params, c, h,
+                                                        pending))
+    err = max_err(logits["pallas"], logits["ref"])
+    if not err <= EMBED_PARITY_TOL:
+        fail(f"{cfg.name} parity: logits differ by {err} > "
+             f"{EMBED_PARITY_TOL}")
+    what = (f"a ({B}, {S}) prefill at 3-D M-RoPE positions and 4 decode "
+            f"steps" if cfg.supports_decode else
+            f"a bidirectional ({B}, {S}) forward, every frame")
+    line = (f"parity {cfg.name}, full width, {cfg.n_layers} layers, fp32 "
+            f"activations: kernel path (impl=pallas) vs plain path "
+            f"(impl=ref) on {what}: logits max abs err {err:.3g} (atol "
+            f"{EMBED_PARITY_TOL})")
+    return dict(n_layers=cfg.n_layers, logit_err=err), line
 
 
 def paged_parity(arch, params, features=False):
     """The paged engine under impl=pallas against the same engine under
-    impl=ref, on DENSE_PARITY's prompts one request per slot; with
+    impl=ref, on PARITY's prompts one request per slot; with
     ``features``, the impl=pallas engine with the prefix cache,
     speculative decoding and chunked prefill (chunks of two pages) on
     against the impl=ref engine with all three off, over prompts that
@@ -2764,15 +3278,13 @@ def paged_parity(arch, params, features=False):
     replay's decode steps (the engine's decode batch of two cannot drop
     a token, C >= 8, so each row routes as it does alone)."""
     from repro_torch import steps
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models import lm, moe
     from repro_torch.serving.engine import PagedEngine
     from repro_torch.serving.paged_kv import NULL_PAGE
 
-    run = DENSE_PARITY[arch]
-    full = get_config(arch)
-    cfg = full.replace(n_layers=run["depth"], activation_dtype="float32")
+    run = PARITY[arch]
+    cfg = parity_cfg(arch)
     n_req, plen, gen_len, ps = run["batch"], run["prompt_len"], run["gen"], 16
     max_len = plen + gen_len
     n_pages = n_req * (-(-max_len // ps)) + 1
@@ -2835,8 +3347,8 @@ def paged_parity(arch, params, features=False):
                 gaps[j][b] = min(gaps[j][b], gp[j][0])
     ties = _token_flips(toks, margins, run["tol"], gaps, f"{arch} paged")
     gap = min(min(g) for g in gaps)
-    line = (f"parity {arch} paged engine, full width, depth cut "
-            f"{full.n_layers} -> {run['depth']} layers, fp32 activations"
+    line = (f"parity {arch} paged engine, full width, "
+            f"{_cut_text(arch, cfg)}, fp32 activations"
             + (f", capacity factor {cfg.moe.capacity_factor}: kernel path "
                f"(impl=pallas) with prefix cache, spec decode and chunked "
                f"prefill (engaged: {engaged['pallas']}) vs plain path "
@@ -2848,9 +3360,11 @@ def paged_parity(arch, params, features=False):
             + (f"; rows {exempt} exempt at a router near-tie" if exempt
                else "") + "); greedy tokens "
             + ("identical" if not ties else f"differ only at near-ties {ties}")
-            + f"; smallest prefill router gap {min(pre_gaps):.3g}")
-    return dict(depth=run["depth"], logit_err=logit_err, exempt_rows=exempt,
-                near_ties=ties, router_gap=gap, engaged=engaged), line
+            + (f"; smallest prefill router gap {min(pre_gaps):.3g}"
+               if cfg.moe else ""))
+    return dict(depth=cfg.n_layers, logit_err=logit_err,
+                exempt_rows=exempt, near_ties=ties, router_gap=gap,
+                engaged=engaged), line
 
 
 def moe_layer_parity(ops, cfg, params):
@@ -2964,6 +3478,10 @@ def main():
                  + (f"{flash_local['library_ms']:.4f} ms"
                     if flash_local["library_ms"] is not None
                     else f"refused: {flash_local['library_note']}"))
+    fam, fam_lines = check_families(ops, ref)
+    for name, shapes in fam.items():
+        recs[name]["shapes"] += shapes
+    lines += fam_lines
     for line in lines:
         print(f"[kernels] {line}")
 
@@ -3020,8 +3538,8 @@ def main():
     # grok-1 at its published widths, cut to GROK_DEPTH layers: one set of
     # bf16 parameters for both engines and for the parity runs
     torch.cuda.empty_cache()
-    cfg, params = full_width_params("grok-1-314b", GROK_DEPTH)
-    print(f"[serve] grok-1-314b at {GROK_DEPTH} layers: "
+    cfg, params = full_width_params("grok-1-314b")
+    print(f"[serve] grok-1-314b at {cfg.n_layers} layers: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of parameters on "
           f"the card")
     served("grok-1-314b dense", serve_dense(ops, cfg, params))
@@ -3038,6 +3556,38 @@ def main():
     print(f"[parity] {line}")
     del params
     torch.cuda.empty_cache()
+    # DeepSeek-V3 (5 layers) and gemma2-27b (every layer) at their
+    # published widths through the dense engine; each parity run then
+    # takes its layers from the served weights, and the rest are freed
+    for arch in ("deepseek-v3-671b", "gemma2-27b"):
+        cfg, params = full_width_params(arch)
+        print(f"[serve] {arch} at {cfg.n_layers} layers: "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of parameters "
+              f"on the card")
+        served(f"{arch} dense", serve_dense(ops, cfg, params))
+        params = cut_params(cfg, params, parity_cfg(arch))
+        torch.cuda.empty_cache()
+        parity[f"{arch} dense"], line = dense_parity(arch, params)
+        print(f"[parity] {line}")
+        del params
+        torch.cuda.empty_cache()
+    for arch in ("qwen3-14b", "minitron-8b"):
+        cfg, params = full_width_params(arch)
+        served(f"{arch} paged", serve_paged(ops, cfg, params))
+        params = cut_params(cfg, params, parity_cfg(arch))
+        torch.cuda.empty_cache()
+        parity[f"{arch} paged"], line = paged_parity(arch, params)
+        print(f"[parity] {line}")
+        del params
+        torch.cuda.empty_cache()
+    for arch, serve_fn in (("qwen2-vl-7b", serve_embeddings),
+                           ("hubert-xlarge", serve_encoder)):
+        cfg, params = full_width_params(arch)
+        served(arch, serve_fn(ops, cfg, params))
+        parity[arch], line = embed_parity(cfg, params)
+        print(f"[parity] {line}")
+        del params
+        torch.cuda.empty_cache()
 
     for name, rec in recs.items():
         rec["launches"] = sum(l[w] for l in path_launches.values()

@@ -8,9 +8,12 @@ continuous-batching engine.
 
 Reference: ``repro/launch/serve.py``.  ``--engine dense`` (the default) is
 the fixed-size-batch loop: one batched prefill, then ``gen - 1`` decode
-steps at a shared position; it serves every ported config, the recurrent
-families included.  ``--engine paged`` is the paged continuous-batching
-engine, for global-attention configs only, with the reference's
+steps at a shared position; it serves every config that decodes token
+prompts, the recurrent, MLA and local-attention families included (the
+encoder-only hubert-xlarge and the embedding-input qwen2-vl-7b exit with
+code 2: ``lm.forward``, ``lm.prefill`` and ``lm.decode_step`` take them).
+``--engine paged`` is the paged continuous-batching engine, for
+global-attention configs only, with the reference's
 ``--prefix-cache`` (and ``--shared-prefix`` to give the prompts a common
 system prompt), ``--spec-decode`` (``--spec-k``), ``--chunk-prefill``
 (``--chunk-tokens``) and ``--slo``.  ``--model N`` stripes the paged
@@ -414,6 +417,16 @@ def main(argv=None):
 
     cfg = get_tiny_config(args.arch) if args.tiny else get_config(args.arch)
     cfg = cfg.replace(impl="pallas")
+    if not cfg.supports_decode:
+        print(f"error: {cfg.name} is encoder-only: nothing to decode "
+              "(lm.forward runs it)", file=sys.stderr)
+        raise SystemExit(2)
+    if not cfg.embed_inputs:
+        print(f"error: {cfg.name} takes embeddings from a stub frontend, "
+              "and the CLI draws token prompts (lm.prefill and "
+              "lm.decode_step take embeddings and positions)",
+              file=sys.stderr)
+        raise SystemExit(2)
     if args.engine == "dense":
         outputs, m = run_dense(args, cfg, device=args.device)
         print(f"[dense] {cfg.name}: served {m['requests']} requests, "

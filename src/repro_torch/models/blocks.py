@@ -1,23 +1,25 @@
-"""Per-layer block assembly: norm -> mixer -> residual -> norm -> FFN.
+"""Per-layer block assembly: norm -> mixer -> residual -> norm -> FFN/MoE.
 
-Reference: ``repro/models/blocks.py``.  The port has the global and local
-(sliding-window) attention blocks and the RG-LRU block, each with a dense
-FFN or an MoE FFN (routed experts only), and the RWKV-6 layer, which is
-complete in itself (its channel-mix takes the place of the FFN and its
-second norm sits inside the branch).  MLA blocks and shared experts raise
-until their slice lands.
+Reference: ``repro/models/blocks.py``.  Layer kinds: attn / local (GQA
+attention), mla (DeepSeek latent attention) and rglru (Griffin recurrent
+block), each with a dense FFN or an MoE FFN (with the config's shared
+experts beside the routed ones), and rwkv6, the complete RWKV-6 layer
+(its channel-mix takes the place of the FFN and its second norm sits
+inside the branch).  gemma2-style post-norms via ``cfg.post_norm``: a
+branch is normed before it joins the residual stream.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ATTN, LOCAL, RGLRU, RWKV6
-from repro_torch.models import attention, modules as nn, moe as moe_mod
+from repro_torch.configs.base import ATTN, LOCAL, MLA, RGLRU, RWKV6
+from repro_torch.models import attention, mla as mla_mod, modules as nn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod, rwkv6 as rwkv6_mod
 
 
-def _unported(what) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md for the order of the "
-        "remaining model families")
+def shared_cfg(cfg):
+    """The config of the shared experts' FFN: one dense FFN as wide as
+    ``n_shared`` experts."""
+    return cfg.replace(d_ff=cfg.moe.d_ff_expert * cfg.moe.n_shared)
 
 
 def _post(p, cfg, name, y):
@@ -37,12 +39,13 @@ def _add_norm(p, cfg, name, x, pending):
 
 
 def _ffn_part(p, cfg, x):
-    """Dense FFN or MoE.  The MoE load-balance loss is dropped: the serving
-    paths drop it in the reference too."""
+    """Dense FFN, or MoE plus the shared experts.  The MoE load-balance
+    loss is dropped: the serving paths drop it in the reference too."""
     if "moe" in p:
-        if cfg.moe.n_shared:
-            raise _unported("shared experts (the DeepSeek slice)")
-        return moe_mod.apply(p["moe"], cfg, x)[0]
+        out = moe_mod.apply(p["moe"], cfg, x)[0]
+        if "shared" in p:
+            out = out + nn.ffn_apply(p["shared"], shared_cfg(cfg), x)
+        return out
     return nn.ffn_apply(p["ffn"], cfg, x)
 
 
@@ -76,13 +79,15 @@ def apply(p, cfg, kind: str, x, pending, *, angles):
     if kind in (ATTN, LOCAL):
         out, cache = attention.apply(p["attn"], cfg, h, kind=kind,
                                      angles=angles)
+    elif kind == MLA:
+        out, cache = mla_mod.apply(p["mla"], cfg, h, angles=angles)
     elif kind == RGLRU:
         out, cache = rglru_mod.apply(p["rglru"], cfg, h)
     elif kind == RWKV6:
         cache0 = rwkv6_mod.cache_init(cfg, x.shape[0], x.dtype, x.device)
         return _rwkv(p, cfg, x, h, cache0)
     else:
-        raise _unported(f"layer kind {kind!r}")
+        raise ValueError(kind)
     return (*_ffn_half(p, cfg, x, out), cache)
 
 
@@ -94,12 +99,15 @@ def apply_decode(p, cfg, kind: str, x, pending, cache, pos, *, angles):
     if kind in (ATTN, LOCAL):
         out, cache = attention.apply_decode(p["attn"], cfg, h, cache, pos,
                                             kind=kind, angles=angles)
+    elif kind == MLA:
+        out, cache = mla_mod.apply_decode(p["mla"], cfg, h, cache, pos,
+                                          angles=angles)
     elif kind == RGLRU:
         out, cache = rglru_mod.apply_decode(p["rglru"], cfg, h, cache)
     elif kind == RWKV6:
         return _rwkv(p, cfg, x, h, cache)
     else:
-        raise _unported(f"layer kind {kind!r}")
+        raise ValueError(kind)
     return (*_ffn_half(p, cfg, x, out), cache)
 
 
@@ -156,11 +164,13 @@ def cache_init(cfg, kind: str, batch: int, max_len: int, dtype, device):
     if kind == LOCAL:
         return attention.cache_init(cfg, batch, max_len, cfg.sliding_window,
                                     dtype, device)
+    if kind == MLA:
+        return mla_mod.cache_init(cfg, batch, max_len, dtype, device)
     if kind == RGLRU:
         return rglru_mod.cache_init(cfg, batch, dtype, device)
     if kind == RWKV6:
         return rwkv6_mod.cache_init(cfg, batch, dtype, device)
-    raise _unported(f"the decode cache of layer kind {kind!r}")
+    raise ValueError(kind)
 
 
 def cache_from_prefill(cfg, kind: str, raw, max_len: int):
@@ -169,6 +179,9 @@ def cache_from_prefill(cfg, kind: str, raw, max_len: int):
         k, v = raw
         window = cfg.sliding_window if kind == LOCAL else None
         return attention.cache_from_prefill(k, v, window, max_len)
+    if kind == MLA:
+        ckv, k_rope = raw
+        return mla_mod.cache_from_prefill(ckv, k_rope, max_len)
     if kind in (RGLRU, RWKV6):
         return raw       # the recurrent caches are already decode-ready
-    raise _unported(f"the decode cache of layer kind {kind!r}")
+    raise ValueError(kind)

@@ -88,24 +88,35 @@ def _nest(cfg, fn):
 # ---------------------------------------------------------------------------
 # shared pieces
 # ---------------------------------------------------------------------------
+def _rope_dim(cfg) -> int:
+    return cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.head_dim
+
+
 def _angles(cfg, positions):
     if not cfg.rope:
         return None
-    return nn.rope_angles(positions, cfg.head_dim, cfg.rope_theta,
+    return nn.rope_angles(positions, _rope_dim(cfg), cfg.rope_theta,
                           cfg.mrope_sections)
 
 
-def default_positions(batch: int, seq: int, device=None):
-    return torch.arange(seq, dtype=torch.int32, device=device)[None].expand(
+def default_positions(cfg, batch: int, seq: int, device=None):
+    """(B, S) positions 0..S-1, or (3, B, S) under M-RoPE: every plane
+    the text position, as the reference's stub frontend gives them."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None].expand(
         batch, seq)
+    if cfg.mrope_sections is not None:
+        pos = pos[None].expand(3, batch, seq)
+    return pos
 
 
 def embed_tokens(params, cfg, tokens):
-    if not cfg.embed_inputs:
-        raise NotImplementedError(
-            "embedding-input (audio/vlm) frontends are not ported yet")
-    table = params["embed"]["embed_table"]
-    x = table[tokens.long()].to(nn.dt(cfg.activation_dtype))
+    """(B, S) int ids through the table, or the (B, S, D) embeddings of a
+    stub frontend (``embed_inputs=False``) cast to the activation dtype."""
+    if cfg.embed_inputs:
+        table = params["embed"]["embed_table"]
+        x = table[tokens.long()].to(nn.dt(cfg.activation_dtype))
+    else:
+        x = tokens.to(nn.dt(cfg.activation_dtype))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -126,16 +137,20 @@ def head_logits(params, cfg, h):
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
-def forward(params, cfg: ModelConfig, tokens):
+def forward(params, cfg: ModelConfig, tokens, positions=None):
     """Prefill forward (the training path is not ported yet).  tokens:
-    (B,S) int ids.  Returns (x, pending, raw caches): the residual stream
+    (B,S) int ids or (B,S,D) embeddings (stub frontends); positions
+    (B,S), or (3,B,S) under M-RoPE, default ``default_positions``.
+    Returns (x, pending, raw caches): the residual stream
     before the last layer's branch output ``pending`` is added (h_final =
     x + pending, pre-final-norm; ``last_logits`` adds it fused with the
     final norm), and the per-layer nesting of (k, v) or recurrent caches,
     converted by ``caches_from_prefill``."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[:2]
-    angles = _angles(cfg, default_positions(B, S, device=x.device))
+    if positions is None:
+        positions = default_positions(cfg, B, S, device=x.device)
+    angles = _angles(cfg, positions)
     raw, pending = {}, None
     for kind, p, _, key in _layers(cfg, params, None):
         x, pending, raw[key] = blocks.apply(p, cfg, kind, x, pending,
@@ -163,9 +178,9 @@ def caches_from_prefill(cfg, raw_caches, max_len: int):
         cfg, kind, raw_caches[key[0]][key[1]][key[2]], max_len))
 
 
-def prefill(params, cfg, tokens, *, max_len: int):
+def prefill(params, cfg, tokens, *, max_len: int, positions=None):
     """Returns (next-token logits (B,1,V), decode caches)."""
-    x, pending, raw = forward(params, cfg, tokens)
+    x, pending, raw = forward(params, cfg, tokens, positions)
     caches = caches_from_prefill(cfg, raw, max_len)
     return last_logits(params, cfg, x, pending), caches
 
@@ -177,12 +192,14 @@ def init_caches(cfg, batch: int, max_len: int, device):
 
 
 def decode_step(params, cfg, tokens, caches, pos):
-    """One decode step. tokens (B,1) ids; pos int (shared position).
+    """One decode step. tokens (B,1) ids or (B,1,D) embeddings; pos int
+    (shared position; under M-RoPE every plane's).
 
     Returns (logits (B,1,V), new caches)."""
     x = embed_tokens(params, cfg, tokens)
-    positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32,
-                           device=x.device)
+    lead = (3,) if cfg.mrope_sections is not None else ()
+    positions = torch.full(lead + (x.shape[0], 1), int(pos),
+                           dtype=torch.int32, device=x.device)
     angles = _angles(cfg, positions)
     new, pending = {}, None
     for kind, p, cache, key in _layers(cfg, params, caches):

@@ -87,12 +87,20 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def rope_angles(positions, head_dim: int, theta: float,
                 sections: Optional[Tuple[int, int, int]] = None):
-    """Angles (B, S, head_dim/2) for positions (B, S) int."""
-    if sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet; see ROADMAP.md")
+    """Angles (B, S, head_dim/2).
+
+    positions: (B, S) int for standard RoPE, or (3, B, S) for M-RoPE,
+    whose planes are the (temporal, height, width) ids; ``sections``
+    gives how many of the head_dim/2 frequencies each plane owns."""
     inv = rope_freqs(head_dim, theta, positions.device)
-    return positions[..., None].float() * inv
+    ang = positions[..., None].float() * inv              # (..., B, S, half)
+    if sections is None:
+        return ang
+    t, h, w = sections
+    assert t + h + w == head_dim // 2, (sections, head_dim)
+    # per frequency, the angle of the plane it belongs to
+    return torch.cat([ang[0, ..., :t], ang[1, ..., t:t + h],
+                      ang[2, ..., t + h:]], dim=-1)
 
 
 def apply_rope(x, angles):

@@ -3,9 +3,10 @@ reference's parameter tree.
 
 Layout (see ``models/lm.py``): ``params["segments"][seg][cycle][j]`` holds
 the block parameters of layer kind ``seg.kinds[j]`` as the reference's
-per-block dict (``ln1``, the mixer's ``attn`` / ``rglru`` / ``rwkv``,
-``ln2``, and ``ffn`` or ``moe`` except in RWKV-6 layers), unstacked per
-cycle.
+per-block dict (``ln1``, the mixer's ``attn`` / ``mla`` / ``rglru`` /
+``rwkv``, ``ln2``, and ``ffn`` or ``moe`` with ``shared`` except in RWKV-6
+layers), unstacked per cycle.  DeepSeek's ``mtp`` module (one more block
+and its projections) is built and bridged; no serving path reads it.
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, LOCAL, RGLRU, RWKV6
-from repro_torch.models import lm, modules as nn, rglru, rwkv6
+from repro_torch.configs.base import ATTN, LOCAL, MLA, RGLRU, RWKV6
+from repro_torch.models import blocks, lm, modules as nn, rglru, rwkv6
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,9 +73,9 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
                 device=None):
     """Random parameters drawn from the reference's distributions
     (``repro/models/modules.py`` dense/embed init, ``attention.init``,
-    ``moe.init``, ``rglru.init``, ``rwkv6.init``, ``lm.init_params``).
-    The bits differ from the reference's: torch and JAX generators
-    differ."""
+    ``mla.init``, ``moe.init``, ``rglru.init``, ``rwkv6.init``,
+    ``blocks.init``, ``lm.init_params``).  The bits differ from the
+    reference's: torch and JAX generators differ."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -82,7 +83,7 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
 
     def normal(shape, std=1.0, to=dtype):
         # scaled in place: at grok's widths one expert tensor is 6.4 GB
-        # in fp32 before the cast
+        # in fp32 before the cast (DeepSeek's 15 GB)
         x = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
         return x.mul_(std).to(to)
@@ -108,6 +109,20 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
             p["q_norm"] = full((hd,), 1.0)
             p["k_norm"] = full((hd,), 1.0)
         return p
+
+    def mla_block():
+        m = cfg.mla
+        qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {
+            "q_a": dense(d, m.q_lora_rank),
+            "q_a_norm": full((m.q_lora_rank,), 1.0),
+            "q_b": dense(m.q_lora_rank, cfg.n_heads * qd),
+            "kv_a": dense(d, m.kv_lora_rank + m.qk_rope_head_dim),
+            "kv_a_norm": full((m.kv_lora_rank,), 1.0),
+            "kv_b": dense(m.kv_lora_rank, cfg.n_heads
+                          * (m.qk_nope_head_dim + m.v_head_dim)),
+            "wo": dense(cfg.n_heads * m.v_head_dim, d, layer_scale),
+        }
 
     def rglru_block():
         w = cfg.lru_width or d
@@ -156,12 +171,15 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
             "rwkv_cm_wr": dense(d, d),
         }
 
+    def ffn(c):
+        p = {"w_up": dense(d, c.d_ff),
+             "w_down": dense(c.d_ff, d, layer_scale)}
+        if c.gated_ffn:
+            p["w_gate"] = dense(d, c.d_ff)
+        return p
+
     def moe_block():
         m = cfg.moe
-        if m.n_shared:
-            raise NotImplementedError(
-                "init of shared experts (the DeepSeek slice) is not ported "
-                "yet; see ROADMAP.md")
         E, fe = m.n_experts, m.d_ff_expert
         p = {"router_w": dense(d, E, to=torch.float32),
              "e_up": normal((E, d, fe), d ** -0.5),
@@ -171,34 +189,41 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
         return p
 
     def block(kind, is_moe):
-        if kind not in (ATTN, LOCAL, RGLRU, RWKV6):
-            raise NotImplementedError(
-                f"init of {kind!r} blocks is not ported yet; see ROADMAP.md")
         p = {"ln1": ones(d)}
         if kind == RWKV6:
             p["rwkv"] = rwkv_block()
         elif kind == RGLRU:
             p["rglru"] = rglru_block()
-        else:
+        elif kind == MLA:
+            p["mla"] = mla_block()
+        elif kind in (ATTN, LOCAL):
             p["attn"] = attn()
+        else:
+            raise ValueError(kind)
         p["ln2"] = ones(d)
         if is_moe and kind != RWKV6:
             p["moe"] = moe_block()
+            if cfg.moe.n_shared:
+                p["shared"] = ffn(blocks.shared_cfg(cfg))
         elif kind != RWKV6:
-            p["ffn"] = {"w_up": dense(d, cfg.d_ff),
-                        "w_down": dense(cfg.d_ff, d, layer_scale)}
-            if cfg.gated_ffn:
-                p["ffn"]["w_gate"] = dense(d, cfg.d_ff)
+            p["ffn"] = ffn(cfg)
         if cfg.post_norm:
             p["ln1_post"] = ones(d)
             p["ln2_post"] = ones(d)
         return p
 
-    params = {"embed": {"embed_table": normal((cfg.vocab_size, d))},
-              "segments": [[[block(k, seg.is_moe) for k in seg.kinds]
-                            for _ in range(seg.n_cycles)]
-                           for seg in lm.make_segments(cfg)],
-              "final_norm": ones(d)}
-    if not cfg.tie_embeddings:
+    segs = lm.make_segments(cfg)
+    params = {}
+    if cfg.embed_inputs:
+        params["embed"] = {"embed_table": normal((cfg.vocab_size, d))}
+    params["segments"] = [[[block(k, seg.is_moe) for k in seg.kinds]
+                           for _ in range(seg.n_cycles)] for seg in segs]
+    params["final_norm"] = ones(d)
+    if not cfg.tie_embeddings or not cfg.embed_inputs:
         params["head"] = {"head_w": dense(d, cfg.vocab_size)}
+    if cfg.mtp_depth:
+        params["mtp"] = {"mtp_proj": dense(2 * d, d), "norm_h": ones(d),
+                         "norm_e": ones(d), "final_norm": ones(d),
+                         "block": block(segs[-1].kinds[-1],
+                                        segs[-1].is_moe)}
     return params

@@ -16,7 +16,7 @@ import torch
 
 from conftest import get_tiny_model
 from repro.models import attention as jattn, lm as jlm, modules as jnn
-from repro_torch.configs import get_config, get_tiny_config
+from repro_torch.configs import get_config, get_tiny_config, list_archs
 from repro_torch.models import attention, lm, modules as nn
 from repro_torch.weights import from_reference, init_params
 
@@ -50,8 +50,10 @@ def test_configs_match_reference_field_for_field():
         for mine, theirs in ((get_config(name), jget(name)),
                              (get_tiny_config(name), jtiny(name))):
             assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("gemma2-27b")
+    from repro.configs import list_archs as jlist
+    assert list_archs() == jlist()
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 def test_bridge_round_trip(model):
@@ -119,8 +121,9 @@ def test_rmsnorm_rope_ffn_match_reference(model):
     _close(jnn.ffn_apply(p_ffn, cfg, jnp.asarray(x)),
            nn.ffn_apply(tparams["segments"][0][0][0]["ffn"], tcfg,
                         torch.tensor(x)), ACT_TOL)
-    with pytest.raises(NotImplementedError):
-        nn.rope_angles(torch.tensor(pos), 16, 1e6, sections=(2, 3, 3))
+    pos3 = rng.integers(0, 500, (3, 2, 5)).astype(np.int32)   # M-RoPE
+    _close(jnn.rope_angles(jnp.asarray(pos3), 16, 1e6, (2, 3, 3)),
+           nn.rope_angles(torch.tensor(pos3), 16, 1e6, (2, 3, 3)), 1e-3)
 
 
 @pytest.mark.parametrize("impl", ["ref", "blocked", "pallas"])

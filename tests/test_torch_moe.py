@@ -33,7 +33,7 @@ from repro.serving import PagedEngine as JEngine
 from repro_torch import steps
 from repro_torch.configs import get_config, get_tiny_config
 from repro_torch.launch import serve
-from repro_torch.models import blocks, lm, moe
+from repro_torch.models import lm, moe
 from repro_torch.serving.engine import PagedEngine
 from repro_torch.weights import from_reference, init_params
 
@@ -165,17 +165,6 @@ def test_moe_apply_matches_reference_on_the_block_params(impl):
     ot, auxt = moe.apply(p_t, tcfg.replace(impl=impl), torch.tensor(x))
     assert _err(oj, ot) < MOE_TOL["float32"]
     assert _err(auxj, auxt) < 1e-6
-
-
-def test_shared_experts_raise_until_their_slice():
-    cfg = get_tiny_config(ARCH)
-    shared = cfg.replace(moe=dataclasses.replace(cfg.moe, n_shared=1))
-    with pytest.raises(NotImplementedError, match="shared experts"):
-        init_params(shared, device="cpu")
-    p = init_params(cfg, device="cpu")["segments"][0][0][0]
-    x = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="shared experts"):
-        blocks._ffn_part(p, shared, x)
 
 
 # --- parameters --------------------------------------------------------------

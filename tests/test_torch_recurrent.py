@@ -24,7 +24,7 @@ from repro.configs import get_config as jget, get_tiny_config as jtiny
 from repro.models import attention as jattn, lm as jlm, rglru as jrglru
 from repro.models import rwkv6 as jrwkv6
 from repro_torch import steps
-from repro_torch.configs import get_config, get_tiny_config
+from repro_torch.configs import get_config, get_tiny_config, list_archs
 from repro_torch.kernels import ref as kref
 from repro_torch.launch import serve
 from repro_torch.models import attention, lm, rglru, rwkv6
@@ -90,8 +90,10 @@ def test_recurrent_configs_match_reference_field_for_field(arch):
     for mine, theirs in ((get_config(arch), jget(arch)),
                          (get_tiny_config(arch), jtiny(arch))):
         assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("gemma2-27b")
+    from repro.configs import list_archs as jlist
+    assert list_archs() == jlist()
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
