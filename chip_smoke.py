@@ -22,7 +22,13 @@ them; DeepSeek at one dense and one MoE layer, gemma2 at two local and
 two global layers, qwen3-14b and minitron-8b at four layers through the
 paged engine, qwen2-vl-7b and hubert-xlarge on the served weights).  It
 also reports whether a 1-token prefill chunk writes the KV of a longer
-suffix pass bit for bit.
+suffix pass bit for bit.  Its last phase (5, "paper") runs the paper's
+own modules on the card: the §X-B memory server (a 4 GiB store, one
+controller against four stripes on a 1x4 mesh), the §X-A neuron
+simulation at N = 32,768 with one-step parity against the CPU, the
+§X-B prefix-sharing example at qwen3-1.7b's widths, the §V-A lattice
+all-reduce on a 2x4 mesh and qwen3-1.7b's blocks as a 4-stage pipeline,
+each against its plain version, then the paper's tables.
 
     python3 chip_smoke.py
 
@@ -3415,6 +3421,557 @@ def moe_layer_parity(ops, cfg, params):
     return res, line
 
 
+# ---------------------------------------------------------------------------
+# phase 5 — the paper's own modules and case studies on the card
+# ---------------------------------------------------------------------------
+# sizes of an H100: a 4 GiB store (2**30 fp32 words) written and read in
+# batches of 2**22 addresses, half of each batch drawn from a pool of
+# 2**19 (duplicates on purpose); the §X-A network at N = 32,768 (its
+# dense fp32 table 4 GiB) for 1,000 steps of 1 ms; the lattice
+# all-reduce on a 2x4 (pod, data) mesh, 2**26 words a position; the
+# stage pipeline: qwen3-1.7b's 28 blocks as 4 stages of 7, 8
+# microbatches of (1, 512)
+STORE_RUN = dict(size=1 << 30, batch=1 << 22, batches=4, stripes=4)
+NEURON_RUN = dict(neurons=32_768, steps=1000, parity=(0, 1, 10, 100, 999),
+                  physiological=8192)
+NEURON_ULPS = 4              # fp32 units of the update's largest term
+# The reference's network does not scale its weights with N: each spike
+# adds 0.02 mV on average to every neuron, so above about 10,000 neurons
+# the recurrent drive outgrows the noise and the network saturates (the
+# reference itself, on the CPU over 400 steps: 7.75 Hz at N = 8,192, 354
+# Hz at 12,288).  N = 32,768 is held to at most one spike a step; the
+# same model at N = 8,192 to a cortical firing rate.
+NEURON_BAND_HZ = (1.0, 100.0)
+SHARED_RUN = dict(requests=3, prompt_len=512, shared=456, motif=4, gen=32)
+LATTICE_RUN = dict(mesh=(2, 4), words=1 << 26)
+# normal values: each position's sum within 16 fp32 units of the sum of
+# the magnitudes (the two summation orders' error bound for 8 terms)
+LATTICE_UNITS = 16
+PIPE_RUN = dict(stages=4, micro=8, seq=512)
+# pipeline against one full-batch forward: cuBLAS picks its GEMMs by the
+# row count, so bf16 activations differ after 28 layers; max |diff|
+# within this share of max |full|
+PIPE_FULL_TOL = 2.0 ** -4
+
+
+def _examples():
+    path = str(ROOT / "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+
+
+def paper_store():
+    """The §X-B comparison on the card: one SingleController and one
+    StripedStore on a 1x4 mesh (4 stripes of 1 GiB on the one card),
+    each written STORE_RUN's batches and read them back, timed."""
+    from repro_torch.core.memory_server import (SingleController,
+                                                StripedStore,
+                                                stripe_slab_index)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import use_sharding
+    run = STORE_RUN
+    size, B, n = run["size"], run["batch"], run["stripes"]
+    rows = size // n
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    batches = []
+    for _ in range(run["batches"]):
+        pool = torch.randint(0, size, (B // 8,), generator=g, device=DEVICE)
+        addr = torch.cat([
+            torch.randint(0, size, (B - B // 2,), generator=g,
+                          device=DEVICE),
+            pool[torch.randint(0, B // 8, (B // 2,), generator=g,
+                               device=DEVICE)]])
+        # values in [1, 2): an untouched word (0) never passes for one
+        batches.append((addr, torch.rand(B, generator=g, device=DEVICE)
+                        + 1.0))
+    # the plain reference: a stable sort keeps each address's writes in
+    # order, so the last of each run of equal addresses is its last write
+    A = torch.cat([a for a, _ in batches])
+    V = torch.cat([v for _, v in batches])
+    order = torch.argsort(A, stable=True)
+    As = A[order]
+    last = torch.ones_like(As, dtype=torch.bool)
+    last[:-1] = As[1:] != As[:-1]
+    want_addr, want_val = As[last], V[order[last]]
+    dup = A.numel() - want_addr.numel()
+    del A, V, order, As, last
+    mesh = make_test_mesh(1, n, devices=DEVICE)
+    stores = {"single": SingleController(size, device=DEVICE)}
+    with use_sharding(mesh):
+        stores["striped"] = StripedStore(size)
+    striped = stores["striped"]
+    placed = [(s.data_ptr(), s.device) for s in striped.stripes]
+    rates, reads = {}, {}
+    for name, st in stores.items():
+        st.write(*batches[0])              # warm (rewritten below)
+        st.read(batches[0][0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a, v in batches:
+            st.write(a, v)
+        torch.cuda.synchronize()
+        t_w = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reads[name] = [st.read(a) for a, _ in batches]
+        torch.cuda.synchronize()
+        t_r = time.perf_counter() - t0
+        total = run["batches"] * B
+        rates[name] = dict(writes_m_per_s=total / t_w / 1e6,
+                           reads_m_per_s=total / t_r / 1e6,
+                           write_s=t_w, read_s=t_r)
+    single = stores["single"]
+    for a, b in zip(reads["single"], reads["striped"]):
+        if not torch.equal(a, b):
+            fail("store: the single controller and the striped store "
+                 "read different words")
+    for name, st in stores.items():
+        if not torch.equal(st.read(want_addr), want_val):
+            fail(f"store {name}: a written address does not read its last "
+                 f"written value")
+    # bit for bit everywhere: stripe j holds the words j, j + n, ...
+    for j, stripe in enumerate(striped.stripes):
+        if not torch.equal(single.slab.view(rows, n)[:, j], stripe):
+            fail(f"store: stripe {j} differs from the single controller's "
+                 f"words")
+    nonzero = [int(torch.count_nonzero(single.slab)),
+               sum(int(torch.count_nonzero(s)) for s in striped.stripes)]
+    if nonzero != [want_addr.numel()] * 2:
+        fail(f"store: {nonzero} words are set, {want_addr.numel()} were "
+             f"written: an untouched address does not read 0")
+    # (a tensor made on "cuda" lives on "cuda:0")
+    devs = [torch.empty(0, device=d).device for d in mesh.axis_devices("model")]
+    if [(s.data_ptr(), s.device) for s in striped.stripes] != placed \
+            or [s.device for s in striped.stripes] != list(devs) \
+            or any(s.numel() != rows for s in striped.stripes):
+        fail("store: a write moved a stripe off its position")
+    slab_row = stripe_slab_index(want_addr, n, size)
+    for j, stripe in enumerate(striped.stripes):
+        mine = (want_addr % n) == j
+        if not torch.equal(stripe[slab_row[mine] - j * rows],
+                           want_val[mine]):
+            fail(f"store: stripe {j} does not hold the rows "
+                 f"stripe_slab_index gives it")
+    stats = dict(size_words=size, batch=B, batches=run["batches"],
+                 stripes=n, duplicates=dup, distinct=want_addr.numel(),
+                 **{f"{k} {m}": v for k, r in rates.items()
+                    for m, v in r.items()})
+    line = (f"memory server, {size} fp32 words ({size * 4 / 2 ** 30:g} GiB), "
+            f"{run['batches']} "
+            f"batches of {B} addresses ({dup} duplicated writes, last "
+            f"wins): single controller {rates['single']['writes_m_per_s']:.1f}"
+            f" M writes/s, {rates['single']['reads_m_per_s']:.1f} M reads/s;"
+            f" striped on a 1x{n} mesh ({n} stripes of "
+            f"{rows * 4 / 2 ** 30:g} GiB on the one card) {rates['striped']['writes_m_per_s']:.1f} M writes/s, "
+            f"{rates['striped']['reads_m_per_s']:.1f} M reads/s; stores "
+            f"equal bit for bit, last writes read back, untouched words 0, "
+            f"stripes in place")
+    del stores, single, striped, reads, batches
+    torch.cuda.empty_cache()
+    return stats, line
+
+
+def paper_neurons():
+    """§X-A at N = 32,768 for 1,000 steps, through the example's
+    ``simulate``; the CUDA step against the plain step on the CPU from
+    the same state and noise at NEURON_RUN's steps."""
+    _examples()
+    import torch_neuron_sim as sim
+    run = NEURON_RUN
+    N, steps = run["neurons"], run["steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim.simulate(N, steps, seed=SEED, device=DEVICE,
+                       keep=run["parity"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = res["total_spikes"]
+    Wv = res["Wv"].cpu()
+    params = [p.cpu() for p in res["params"]]
+    _, _, c, d = params
+    worst = 0.0
+    for t in run["parity"]:
+        (v, u), noise = res["kept"][t]
+        (gv, gu), gfired = sim.step((v, u), noise, res["Wv"], res["params"])
+        v, u, noise = v.cpu(), u.cpu(), noise.cpu()
+        (pv, pu), pfired = sim.step((v, u), noise, Wv, params)
+        if not torch.equal(gfired.cpu(), pfired) or not torch.equal(
+                gv.cpu() >= 30.0, pv >= 30.0):
+            fail(f"neurons step {t}: the CUDA step fires other neurons than "
+                 f"the plain step")
+        vr = torch.where(pfired, c, v)
+        ur = torch.where(pfired, u + d, u)
+        I = 5.0 * noise + Wv @ pfired.float()
+        scale = torch.stack([0.04 * vr * vr, (5.0 * vr).abs(),
+                             torch.full_like(vr, 140.0), ur.abs(),
+                             I.abs()]).amax(0).double()
+        unit = torch.finfo(torch.float32).eps * scale
+        for got, want in ((gv, pv), (gu, pu)):
+            units = float(((got.cpu().double() - want.double()).abs()
+                           / unit).max())
+            worst = max(worst, units)
+            if not units <= NEURON_ULPS:
+                fail(f"neurons step {t}: CUDA and plain states differ by "
+                     f"{units:.2f} fp32 units (tol {NEURON_ULPS})")
+    rate = res["rate_hz"]
+    if not 0.0 < rate <= 1000.0:
+        fail(f"neurons: {rate:.2f} Hz a neuron, not within one spike a "
+             f"1 ms step")
+    del res, Wv
+    torch.cuda.empty_cache()
+    n_phys = run["physiological"]
+    t0 = time.perf_counter()
+    phys = sim.simulate(n_phys, steps, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    wall_phys = time.perf_counter() - t0
+    lo, hi = NEURON_BAND_HZ
+    if not lo <= phys["rate_hz"] <= hi:
+        fail(f"neurons at N={n_phys}: {phys['rate_hz']:.2f} Hz a neuron, "
+             f"outside {lo}-{hi} Hz")
+    stats = dict(neurons=N, steps=steps, total_spikes=total, rate_hz=rate,
+                 wall_s=wall, parity_steps=list(run["parity"]),
+                 worst_units=worst, table_gb=N * N * 4 / 1e9,
+                 physiological=dict(neurons=n_phys,
+                                    total_spikes=phys["total_spikes"],
+                                    rate_hz=phys["rate_hz"],
+                                    wall_s=wall_phys))
+    line = (f"neuron simulation (§X-A), N={N} (dense fp32 table "
+            f"{N * N * 4 / 2 ** 30:g} GiB), {steps} steps of 1 ms: "
+            f"{total} spikes, {rate:.2f} Hz a neuron ("
+            f"{'saturated: the reference' if rate > hi else 'the reference'}"
+            f"'s unscaled weights), {wall:.3f} s wall with the "
+            f"draws; one-step parity with the CPU at steps "
+            f"{list(run['parity'])}: same spikes, states within "
+            f"{worst:.2f} fp32 units (tol {NEURON_ULPS}); N={n_phys}: "
+            f"{phys['total_spikes']} spikes, {phys['rate_hz']:.2f} Hz (band "
+            f"{lo}-{hi}), {wall_phys:.3f} s")
+    del phys
+    return stats, line
+
+
+def paper_shared(ops, cfg, params):
+    """§X-B part 2 at full width: the example's ``serve_shared`` with the
+    prefix cache off, then on, over three requests that share a 456-token
+    system prompt (motif tails).  Tokens equal on and off, or bf16
+    near-ties; the launch counts show both attention kernels ran."""
+    _examples()
+    import torch_shared_memory as shm
+    run = SHARED_RUN
+    plen, gen = run["prompt_len"], run["gen"]
+    prompts = feature_prompts(cfg.vocab_size, SEED + 21, 1,
+                              run["requests"], plen, run["shared"],
+                              run["motif"])
+    ps = PAGED_RUN["page_size"]
+    n_pages = run["requests"] * (-(-(plen + gen) // ps)) + 8
+    ops.reset_launches()
+    (eng_off, off), (eng_on, on) = shm.serve_shared(
+        cfg, params, prompts, gen, page_size=ps, n_pages=n_pages,
+        device=DEVICE)
+    torch.cuda.synchronize()
+    launches = _launches(ops)
+    for what, toks in (("off", off), ("on", on)):
+        if len(toks) != run["requests"] or any(
+                len(t) != gen or not all(0 <= x < cfg.vocab_size for x in t)
+                for t in toks.values()):
+            fail(f"shared memory part 2, cache {what}: not every request "
+                 f"finished with valid tokens")
+    req = lambda toks: {f"req{k[1:]}": v for k, v in toks.items()}  # noqa
+    ties = _bf16_ties(cfg, params, prompts, req(off), req(on),
+                      "shared memory part 2")
+    if not launches["paged_decode_attention"] or not \
+            launches["flash_attention"]:
+        fail(f"shared memory part 2: launches {launches}")
+    m_on, m_off = eng_on.metrics(), eng_off.metrics()
+    if not m_on["prefix_hits"]:
+        fail("shared memory part 2: the prefix cache never hit")
+    keys = ("prefill_tokens", "prefix_hit_rate", "cow_copies",
+            "shared_pages", "bytes_deduped")
+    stats = dict(on={k: m_on[k] for k in keys},
+                 off_prefill_tokens=m_off["prefill_tokens"],
+                 tokens_equal=on == off, ties=ties, launches=launches)
+    line = (f"shared memory part 2 (§X-B), {cfg.name} paged at full width, "
+            f"{run['requests']} requests of {plen} tokens sharing a "
+            f"{run['shared']}-token system prompt, {gen} tokens each: "
+            f"tokens {'identical' if on == off else 'equal but for bf16 '}"
+            f"{'' if on == off else f'near-ties {ties}'} with the prefix "
+            f"cache on and off; prefill tokens {m_on['prefill_tokens']} (off "
+            f"{m_off['prefill_tokens']}), hit rate "
+            f"{m_on['prefix_hit_rate']:.3f}, {m_on['cow_copies']} COW "
+            f"copies, {m_on['shared_pages']} shared pages, "
+            f"{m_on['bytes_deduped']} bytes deduplicated; launches "
+            f"{launches}")
+    del eng_on, eng_off
+    torch.cuda.empty_cache()
+    return stats, launches, line
+
+
+def _lattice_run(shape, parts, stats):
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.lattice import lattice_all_reduce
+    from repro_torch.parallel.sharding import use_sharding
+    with use_sharding(make_mesh(shape, ("pod", "data"), DEVICE)):
+        return lattice_all_reduce(parts, ("data",), "pod", stats=stats)
+
+
+def paper_lattice():
+    """The §V-A all-reduce on a 2x4 (pod, data) mesh of 8 positions on
+    the one card, 2**26 fp32 words a position: small integers equal to
+    the plain sum over the positions bit for bit, normal values within
+    LATTICE_UNITS fp32 units of the sum of magnitudes; its ms and the
+    bytes of each phase; then the same on one pod (1x4), for §II-A's
+    P2 and P4."""
+    from repro_torch.parallel.lattice import dcn_bytes_saved
+    pods, fast = LATTICE_RUN["mesh"]
+    n_pos, words = pods * fast, LATTICE_RUN["words"]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    ints = [torch.randint(-1024, 1024, (words,), generator=g,
+                          device=DEVICE).float() for _ in range(n_pos)]
+    plain = ints[0].clone()
+    for p in ints[1:]:
+        plain += p
+    stats = {}
+    outs = _lattice_run((pods, fast), ints, stats)
+    for i, o in enumerate(outs):
+        if not torch.equal(o, plain):
+            fail(f"lattice all-reduce: position {i} differs from the plain "
+                 f"sum of small integers")
+    del outs, ints, plain
+    normal = [torch.randn(words, generator=g, device=DEVICE)
+              for _ in range(n_pos)]
+    plain, mag = normal[0].clone(), normal[0].abs()
+    for p in normal[1:]:
+        plain += p
+        mag += p.abs()
+    outs = _lattice_run((pods, fast), normal, {})
+    eps = torch.finfo(torch.float32).eps
+    worst = max(float(((o - plain).abs() / (eps * mag)).max()) for o in outs)
+    if not worst <= LATTICE_UNITS:
+        fail(f"lattice all-reduce: normal values {worst:.2f} fp32 units of "
+             f"the magnitudes from the plain sum (tol {LATTICE_UNITS})")
+    del outs, plain, mag
+    ms = _synced_ms(lambda: _lattice_run((pods, fast), normal, {}), 3)
+    flat_ms = _synced_ms(lambda: torch.stack(normal).sum(0), 3)
+    one_pod = {}
+    ms_one = _synced_ms(lambda: _lattice_run((1, fast), normal[:fast],
+                                             one_pod), 3)
+    nbytes = words * 4
+    model = dcn_bytes_saved(nbytes, fast, pods)
+    if stats["all_reduce"] != model["lattice_dcn_bytes"]:
+        fail(f"lattice all-reduce: {stats['all_reduce']} bytes over the pod "
+             f"axis, the model says {model['lattice_dcn_bytes']}")
+    del normal
+    torch.cuda.empty_cache()
+    res = dict(mesh=[pods, fast], words=words, ms=ms, flat_sum_ms=flat_ms,
+               one_pod_ms=ms_one, bytes=stats, one_pod_bytes=one_pod,
+               dcn_model=model, worst_units=worst)
+    line = (f"lattice all-reduce (§V-A), {pods}x{fast} (pod, data) mesh, 8 "
+            f"positions on the one card, {words} fp32 words a position: "
+            f"{ms:.3f} ms (one pod, 1x{fast}: {ms_one:.3f} ms; a flat "
+            f"torch.stack(...).sum over the 8: {flat_ms:.3f} ms); bytes a "
+            f"position receives: reduce-scatter {stats['reduce_scatter']}, "
+            f"all-reduce over pods {stats['all_reduce']} (the flat "
+            f"all-reduce's {model['flat_dcn_bytes']:.0f}, "
+            f"{model['saving_factor']:.0f}x), all-gather "
+            f"{stats['all_gather']}; integers equal to the plain sum bit for "
+            f"bit, normal values within {worst:.2f} fp32 units (tol "
+            f"{LATTICE_UNITS})")
+    return res, line
+
+
+def paper_pipeline(ops, cfg, params):
+    """qwen3-1.7b's 28 blocks as 4 stages of 7 on a ("stage",) mesh of 4
+    positions on the one card (a stream each), 8 microbatches of (1,
+    512): equal bit for bit to the same stages run in order over the
+    same microbatches, within PIPE_FULL_TOL of one full-batch forward;
+    its ms, the bubble measured on the positions' streams and
+    ``bubble_fraction``.  Returns (stats, launches, line)."""
+    from repro_torch.core.paradigms import streaming_pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import blocks, lm
+    from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply
+    from repro_torch.parallel.sharding import use_sharding
+    run = PIPE_RUN
+    n_st, n_mb, S = run["stages"], run["micro"], run["seq"]
+    layers = [(kind, p) for kind, p, _, _ in lm._layers(cfg, params, None)]
+    per = len(layers) // n_st
+    stage_params = [layers[s * per:(s + 1) * per] for s in range(n_st)]
+
+    def stage_fn(layers, x):
+        angles = lm._angles(cfg, lm.default_positions(
+            cfg, x.shape[0], x.shape[1], x.device))
+        pending = None
+        for kind, p in layers:
+            x, pending, _ = blocks.apply(p, cfg, kind, x, pending,
+                                         angles=angles)
+        return x + pending          # the complete activation, handed on
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 51)
+    tokens = torch.randint(2, cfg.vocab_size, (n_mb, S), generator=g,
+                           device=DEVICE)
+    mesh = make_mesh((n_st,), ("stage",), DEVICE)
+    with torch.no_grad():
+        x = lm.embed_tokens(params, cfg, tokens)
+        ops.reset_launches()
+        with use_sharding(mesh):
+            pipe = pipeline_apply(stage_fn, stage_params, x, n_micro=n_mb)
+        torch.cuda.synchronize()
+        launches = _launches(ops)
+        fns = [lambda h, sp=sp: stage_fn(sp, h) for sp in stage_params]
+        seq = streaming_pipeline(fns, x, microbatches=n_mb)
+        full = streaming_pipeline(fns, x)
+        if not torch.equal(pipe, seq):
+            fail("pipeline: not bit-identical to the same stages run in "
+                 "order over the same microbatches")
+        # the stages at the full batch are the model's own forward: a
+        # stage that dropped its pending branch would differ here
+        fx, fpending, _ = lm.forward(params, cfg, tokens)
+        if not torch.equal(full, fx + fpending):
+            fail("pipeline: the stages at the full batch differ from "
+                 "lm.forward")
+        del fx, fpending
+        if not bool(torch.isfinite(pipe).all()):
+            fail("pipeline: non-finite activations")
+        scale = float(full.float().abs().max())
+        err = float((pipe.float() - full.float()).abs().max())
+        if not err <= PIPE_FULL_TOL * scale:
+            fail(f"pipeline: {err} from the full-batch forward (tol "
+                 f"{PIPE_FULL_TOL} x {scale})")
+        mean_rel = float((pipe.float() - full.float()).abs().mean()
+                         / full.float().abs().mean())
+        # per layer of a microbatch: flash and the q/k norms once, ln1 and
+        # ln2 fused with the residual add, but a stage's first ln1 (no
+        # branch pending) a plain rmsnorm
+        calls = n_st * n_mb
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_attention=calls * per, qk_rmsnorm=calls * per,
+                    rmsnorm=calls, add_rmsnorm=calls * (2 * per - 1))
+        if launches != want:
+            fail(f"pipeline: launches {launches} != expected {want}")
+        # the bubble, on the positions' own streams: each stage call's
+        # device time between events recorded on the stream it runs on
+        log = []
+
+        def timed(layers, x):
+            s = torch.cuda.current_stream()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record(s)
+            y = stage_fn(layers, x)
+            b.record(s)
+            log.append((s.cuda_stream, a, b))
+            return y
+
+        times = []
+        for _ in range(3):
+            log.clear()
+            torch.cuda.synchronize()
+            origin = torch.cuda.Event(enable_timing=True)
+            origin.record()
+            t0 = time.time()
+            with use_sharding(mesh):
+                pipeline_apply(timed, stage_params, x, n_micro=n_mb)
+            torch.cuda.synchronize()
+            times.append((time.time() - t0) * 1e3)
+        spans = [(st, origin.elapsed_time(a), origin.elapsed_time(b))
+                 for st, a, b in log]
+        span = max(e for _, _, e in spans) - min(s for _, s, _ in spans)
+        busy = {}
+        for st, s, e in spans:
+            busy[st] = busy.get(st, 0.0) + (e - s)
+        bubble = 1.0 - sum(busy.values()) / (len(busy) * span)
+        seq_ms = _synced_ms(lambda: streaming_pipeline(
+            fns, x, microbatches=n_mb), 2)
+        full_ms = _synced_ms(lambda: streaming_pipeline(fns, x), 2)
+    stats = dict(stages=n_st, layers_per_stage=per, micro=n_mb, seq=S,
+                 ms=times, span_ms=span, busy_ms=sorted(busy.values()),
+                 measured_bubble=bubble,
+                 bubble_fraction=bubble_fraction(n_st, n_mb),
+                 in_order_ms=seq_ms, full_batch_ms=full_ms,
+                 max_err_full=err, scale=scale, mean_rel_full=mean_rel,
+                 launches=launches)
+    line = (f"stage pipeline, {cfg.name}'s {len(layers)} blocks as {n_st} "
+            f"stages of {per} on a (stage,) mesh of {n_st} positions on the "
+            f"one card (a stream each), {n_mb} microbatches of (1, {S}), "
+            f"bf16 activations, impl=pallas: {np.median(times):.3f} ms "
+            f"(runs {', '.join(f'{t:.3f}' for t in times)}; the same stages "
+            f"in order {seq_ms:.3f} ms, one full batch {full_ms:.3f} ms); "
+            f"measured bubble {bubble:.3f} over a {span:.3f} ms span (busy "
+            f"{', '.join(f'{b:.3f}' for b in sorted(busy.values()))} ms a "
+            f"position), bubble_fraction({n_st}, {n_mb}) "
+            f"{bubble_fraction(n_st, n_mb):.4f}; bit-identical to the "
+            f"stages in order; full batch max |diff| {err:.4g} of max "
+            f"{scale:.4g} (tol {PIPE_FULL_TOL} x max), mean {mean_rel:.3g}; "
+            f"launches {launches}")
+    return stats, launches, line
+
+
+def paper_tables(lattice):
+    """The paper's tables as the reference's modules compute them, from
+    the port's host copies: not the card's numbers.  §II-A's checks take
+    the lattice run's bytes a position (1 pod against 2)."""
+    _examples()
+    import torch_neuron_sim as sim
+    from repro_torch.core import overlays, principles, ratio
+    from repro_torch.core.memory_server import memory_per_task
+    t3 = ratio.swallow_ec()
+    lines = [
+        f"Tab. III (ratio.swallow_ec; the paper's Swallow, not the card): "
+        f"e/c {t3.ec}, E/C {t3.EC}, perf bound {t3.perf_bound()}, bound "
+        f"{t3.bound}; " + "; ".join(
+            f"{k} e/c {v['ec']} E/C {v['EC']}"
+            for k, v in ratio.SWALLOW_TABLE_III.items() if k != "Swallow"),
+        "Fig. 3 (memory_per_task, 64 kB nodes; the paper's model): " + ", ".join(
+            f"{p} procs / {t} tasks {memory_per_task(p, t):g} kB"
+            for p, t in ((480, 1), (480, 16), (480, 480), (960, 480))),
+        "Fig. 4 (overlay_map; the paper's XS1 store): " + "; ".join(
+            f"linked {e['linked']} -> overlay {e['overlay']} at "
+            f"{e['runtime']}" for e in overlays.overlay_map()["entries"])
+        + f"; {overlays.overlay_map()['n_overlays']} overlays, "
+        f"{overlays.overlay_map()['resident_kwords']} kwords resident",
+        "Fig. 11 (scaling_curve, 64 kB cores; the paper's model): " + ", ".join(
+            f"{npc}/core -> {total:.0f} neurons"
+            for npc, total in sim.scaling_curve())
+        + f"; at N=100k {sim.max_neurons_per_core(100_000)} a core"]
+    one, two = lattice["one_pod_bytes"], lattice["bytes"]
+    arg = lattice["words"] * 4
+    checks = principles.check_scale_free(
+        {"memory": {"argument_size_in_bytes": arg},
+         "collectives": {"total_wire_bytes_per_device": sum(one.values())}},
+        {"memory": {"argument_size_in_bytes": arg},
+         "collectives": {"total_wire_bytes_per_device": sum(two.values())}})
+    lines.append("§II-A (principles.check_scale_free on the lattice "
+                 "all-reduce's bytes a position, 1 pod -> 2 pods): " + "; ".join(
+                     f"{c.name}: {c.holds} ({c.evidence})" for c in checks))
+    if not all(c.holds for c in checks):
+        fail("§II-A: a scale-free property does not hold for the lattice "
+             "all-reduce")
+    return lines
+
+
+def paper_phase(ops):
+    """Phase 5: the paper's modules and case studies on the card.
+    Returns (records, {path: launches}, lines)."""
+    t0 = time.time()
+    recs, launches, lines = {}, {}, []
+    recs["store"], line = paper_store()
+    lines.append(line)
+    recs["neurons"], line = paper_neurons()
+    lines.append(line)
+    cfg, params = full_width_params("qwen3-1.7b")
+    recs["shared"], launches["paper: shared memory part 2"], line = \
+        paper_shared(ops, cfg, params)
+    lines.append(line)
+    recs["pipeline"], launches["paper: stage pipeline"], line = \
+        paper_pipeline(ops, cfg, params)
+    lines.append(line)
+    del params
+    torch.cuda.empty_cache()
+    recs["lattice"], line = paper_lattice()
+    lines.append(line)
+    lines += paper_tables(recs["lattice"])
+    recs["seconds"] = time.time() - t0
+    lines.append(f"phase 5 took {recs['seconds']:.1f} s")
+    return recs, launches, lines
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -3589,6 +4146,11 @@ def main():
         del params
         torch.cuda.empty_cache()
 
+    paper, paper_launches, paper_lines = paper_phase(ops)
+    path_launches.update(paper_launches)
+    for line in paper_lines:
+        print(f"[paper] {line}")
+
     for name, rec in recs.items():
         rec["launches"] = sum(l[w] for l in path_launches.values()
                               for w, k in ops.KERNEL_OF.items() if k == name)
@@ -3606,7 +4168,8 @@ def main():
              seconds=time.time() - t0,
              kernels=[recs[fn.__name__] for fn in ops.KERNELS],
              flash_local=flash_local,
-             path_launches=path_launches, serve=serve_stats, parity=parity),
+             path_launches=path_launches, serve=serve_stats, parity=parity,
+             paper=paper),
         indent=2))
     print(f"[done] {time.time() - t0:.1f} s after the build started")
     print(json.dumps(kernels))

@@ -1,7 +1,7 @@
 """Guards of the port's independence from JAX and from the reference.
 
-* no file of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-  ``jax`` or ``repro``;
+* no file of ``src/repro_torch/``, no ``examples/torch_*.py`` and not
+  ``chip_smoke.py`` imports ``jax`` or ``repro``;
 * importing the engine leaves ``jax`` out of ``sys.modules``;
 * without CUDA, entry points raise instead of running on the CPU, and
   ``chip_smoke.py`` exits non-zero with a clear message.
@@ -17,7 +17,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -63,6 +63,18 @@ def test_engine_without_device_raises_on_a_host_without_cuda():
         PagedEngine(cfg, params)
     with pytest.raises(ValueError, match="params live on cpu"):
         PagedEngine(cfg, params, device="meta")
+
+
+def test_store_and_neuron_sim_without_device_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid")
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_neuron_sim
+    from repro_torch.core.memory_server import SingleController, StripedStore
+    for make in (lambda: StripedStore(64), lambda: SingleController(64),
+                 lambda: torch_neuron_sim.simulate(16, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_chip_smoke_fails_clearly_without_cuda(tmp_path):
