@@ -28,13 +28,27 @@ controller against four stripes on a 1x4 mesh), the §X-A neuron
 simulation at N = 32,768 with one-step parity against the CPU, the
 §X-B prefix-sharing example at qwen3-1.7b's widths, the §V-A lattice
 all-reduce on a 2x4 mesh and qwen3-1.7b's blocks as a 4-stage pipeline,
-each against its plain version, then the paper's tables.
+each against its plain version, then the paper's tables.  Phase 6
+("train") runs the training path: three ``make_train_step`` steps of
+qwen3-1.7b at full width cut to 2 layers on the card against the same
+steps on the CPU (fp32 moments, and int8 ones at a vocabulary cut to
+16,384), the served model's loss under
+impl="pallas" against impl="blocked" with the kernels' launches (and a
+train step under impl="pallas", which must raise: the kernels have no
+backward), and ``train_loop.run`` at full width (28 layers, B=4,
+S=2048, 8 steps) with a checkpoint at step 4, the restart from it
+(steps 4 to 7 must repeat), and again with int8 moments (its final
+checkpoint must restore bit for bit), reporting step time, tokens/s,
+peak memory, a profiled step and the checkpoint times.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only-train     # the build and phase 6 alone
 
 Needs one CUDA card with 80 GB (the kernels target Hopper, sm_90a;
 gemma2-27b's 46 layers hold 54.5 GB of bf16 parameters, DeepSeek's five
-53.3 GB) and the CUDA toolkit; imports nothing of JAX.  Every phase
+53.3 GB), the CUDA toolkit, and about 45 GB of disk for phase 6's
+checkpoints (a temporary directory, removed at the end); imports
+nothing of JAX.  Every phase
 prints one line of results; any failure exits non-zero.  The last line
 of standard output is
 
@@ -3800,8 +3814,8 @@ def paper_pipeline(ops, cfg, params):
             cfg, x.shape[0], x.shape[1], x.device))
         pending = None
         for kind, p in layers:
-            x, pending, _ = blocks.apply(p, cfg, kind, x, pending,
-                                         angles=angles)
+            x, pending, _, _ = blocks.apply(p, cfg, kind, x, pending,
+                                            angles=angles)
         return x + pending          # the complete activation, handed on
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 51)
@@ -3972,6 +3986,500 @@ def paper_phase(ops):
     return recs, launches, lines
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training path
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "qwen3-1.7b"
+# the train step on the card against the plain CPU step: 2 layers (one
+# scanned segment of 2 cycles) at full width, fp32 activations, a
+# constant lr, weight decay 0.1; the int8 run at a vocabulary cut to
+# int8_vocab (the layers' leaves keep their shapes and int8 layouts; the
+# CPU's full-vocabulary int8 step took 40 s).  The random model's logits
+# reach about 1,000 (its loss starts at 1,720): at the trainer's 3e-4
+# three steps take the loss to 779, and steps 2 and 3 carry step 1's
+# rounding differences on, so that a device's GEMM order alone flips int8
+# codes (scripts/train_parity_witness.py holds the card against itself
+# with another GEMM library, and against one-unit perturbed weights;
+# PERF.md section 6).  At 1e-5 what the comparison sees is the devices'
+# arithmetic
+STEP_PARITY = dict(n_layers=2, batch=2, seq=256, steps=3, lr=1e-5,
+                   int8_vocab=16384)
+# tolerances of the parity (fp32 GEMMs, TF32 off, summed in another
+# order on each device): the metrics within 1e-4 of their value; each
+# fp32 moment leaf within 1e-3 of its largest entry (a moment is linear
+# in the gradients, or in their squares).  A parameter moves by lr
+# m/(sqrt(v) + eps), which is +-lr wherever the gradient is as small as
+# its rounding error: there the two devices may part by up to 2 lr a
+# step.  So each leaf may hold at most 1e-3 of its elements more than
+# 1e-6 of its largest entry apart (a wrong decay or int8 layout moves
+# every element of a leaf; a NaN fails).  int8 moments: the quantizer
+# gives equal bits for equal inputs (checked alone), but a moment one
+# rounding error apart can round to the next code, and each step carries
+# the flipped code on; so after 3 steps codes within 3 on at most 1e-3
+# of them, and each block's scale (its largest entry, which a flipped
+# code may have set) within 3/127 of itself
+STEP_TOL = dict(metric=1e-4, moment=1e-3, param_near=1e-6, param_share=1e-3,
+                codes=1e-3)
+LOSS_RUN = dict(batch=4, seq=1024)
+# relative: 28x the gap read on an H100 (3.55e-7; the pallas and blocked
+# losses are deterministic, every run read the same), far below the
+# change that bf16 activations make against fp32 ones (also printed)
+LOSS_TOL = 1e-5
+# the trainer: all 28 layers, fp32 parameters, bf16 activations, remat
+TRAIN_RUN = dict(batch=4, seq=2048, steps=8, warmup=2, ckpt_every=4,
+                 peak_lr=3e-4)
+
+
+def _train_batches(cfg, batch, seq, n):
+    from repro_torch.data import pipeline as data
+    src = data.SyntheticLM(data.DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=seq, global_batch=batch,
+                                           seed=SEED))
+    return [src.batch(s) for s in range(n)]
+
+
+def _on(batch, device):
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _ckpt_items(tree):
+    from repro_torch.runtime import checkpoint as ckpt_lib
+    return list(ckpt_lib._items(tree))
+
+
+def _leaf_err(a, b):
+    """max |a - b| over a leaf (on the host), relative to max |a|."""
+    a, b = a.float().cpu(), b.float().cpu()
+    d = (a - b).abs()
+    if not bool(torch.isfinite(d).all()):
+        return float("inf")
+    return float(d.max()) / max(float(a.abs().max()), 1e-30)
+
+
+def _moment_errs(mc, mg):
+    """(worst relative error: of a leaf's largest entry for fp32
+    moments, of each block's own scale for int8 ones; worst share of
+    int8 codes off; worst code distance) between two moment lists (CPU,
+    card)."""
+    from repro_torch.optim import quant
+    rel = share = dist = 0.0
+    for a, b in zip(mc, mg):
+        if isinstance(a, quant.QTensor):
+            d = (a.q.int().cpu() - b.q.int().cpu()).abs()
+            share = max(share, float((d > 0).float().mean()))
+            dist = max(dist, float(d.max()))
+            sa = a.scale.cpu()
+            e = (sa - b.scale.cpu()).abs() / sa.clamp(min=1e-30)
+            rel = max(rel, float(e.max()) if bool(torch.isfinite(e).all())
+                      else float("inf"))
+        else:
+            rel = max(rel, _leaf_err(a, b))
+    return rel, share, dist
+
+
+def _param_errs(pc, pg, paths):
+    """The worst leaf's share of elements more than STEP_TOL's
+    param_near of the leaf's max apart (1 on a NaN), and the worst max
+    |a - b|, each with its leaf's path."""
+    share = (0.0, None)
+    worst = (0.0, None)
+    for path, a, b in zip(paths, pc, pg):
+        a, b = a.float().cpu(), b.float().cpu()
+        d = (a - b).abs()
+        if not bool(torch.isfinite(d).all()):
+            return (1.0, path), (float("inf"), path)
+        off = float((d > STEP_TOL["param_near"]
+                     * float(a.abs().max())).float().mean())
+        share = max(share, (off, path), key=lambda x: x[0])
+        worst = max(worst, (float(d.max()), path), key=lambda x: x[0])
+    return share, worst
+
+
+def parity_cfg_for(state_dtype):
+    """The parity's config: 2 layers, fp32 activations, the int8 run at
+    a cut vocabulary."""
+    from repro_torch.configs import get_config
+    P = STEP_PARITY
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=P["n_layers"],
+                                         activation_dtype="float32")
+    if state_dtype == "int8":
+        cfg = cfg.replace(vocab_size=P["int8_vocab"])
+    assert cfg.impl == "blocked"
+    return cfg
+
+
+def parity_run(cfg, state_dtype, lr, params):
+    """``STEP_PARITY['steps']`` steps of ``make_train_step`` from
+    ``params`` (the device is theirs) on the synthetic batches.  Returns
+    (reference-shaped parameter leaves, optimizer state, per-step
+    metrics, seconds)."""
+    from repro_torch import steps, weights
+    from repro_torch.optim import adam
+    P = STEP_PARITY
+    dev = weights.tree_leaves(params)[0].device
+    c = adam.AdamConfig(state_dtype=state_dtype, weight_decay=0.1)
+    step = steps.make_train_step(cfg, c, lambda s: lr)
+    o = adam.init(weights.to_reference(params, cfg), c)
+    hist = []
+    t0 = time.time()
+    for b in _train_batches(cfg, P["batch"], P["seq"], P["steps"]):
+        params, o, m = step(params, o, _on(b, dev))
+        hist.append({k: float(v) for k, v in m.items()})
+    return (weights.tree_leaves(weights.to_reference(params, cfg)), o, hist,
+            time.time() - t0)
+
+
+def parity_gaps(cfg, a, b):
+    """What ``train_step_parity`` reads between two ``parity_run``
+    results ``a`` (the plain side) and ``b``."""
+    from repro_torch import weights
+    (pa, oa, ha, _), (pb, ob, hb, _) = a, b
+    paths = ["/".join(k) for k, _ in _ckpt_items(weights.to_reference(
+        weights.init_params(cfg, device="meta"), cfg))]
+    metric = max(abs(g[k] - h[k]) / max(abs(h[k]), 1e-30)
+                 for h, g in zip(ha, hb) for k in ("loss", "grad_norm"))
+    (share, share_at), (worst, worst_at) = _param_errs(pa, pb, paths)
+    m_rel, m_share, m_dist = _moment_errs(oa.m, ob.m)
+    v_rel, v_share, v_dist = _moment_errs(oa.v, ob.v)
+    return dict(metric_rel_err=metric, param_share_off=share,
+                param_share_leaf=share_at, param_max_abs=worst,
+                param_max_leaf=worst_at, m_rel_err=m_rel, v_rel_err=v_rel,
+                code_share_off=max(m_share, v_share),
+                code_max_dist=max(m_dist, v_dist))
+
+
+def train_step_parity(state_dtype, problems):
+    """Three ``make_train_step`` steps of qwen3-1.7b at full width (the
+    int8 run at a cut vocabulary), cut to 2 layers, on the card and on the
+    CPU from the same weights and batches.  Returns (record, line)."""
+    from repro_torch import weights
+    from repro_torch.optim import adam, quant
+    P = STEP_PARITY
+    cfg = parity_cfg_for(state_dtype)
+    cpu = weights.init_params(cfg, torch.Generator().manual_seed(SEED),
+                              "cpu")
+    on_cpu = parity_run(cfg, state_dtype, P["lr"], cpu)
+    on_card = parity_run(cfg, state_dtype, P["lr"], weights._tree(
+        lambda t: t.to(DEVICE), cpu))
+    g = parity_gaps(cfg, on_cpu, on_card)
+    rec = dict(state_dtype=state_dtype, vocab=cfg.vocab_size, lr=P["lr"],
+               losses_cpu=[h["loss"] for h in on_cpu[2]],
+               losses_card=[h["loss"] for h in on_card[2]],
+               grad_norms_card=[h["grad_norm"] for h in on_card[2]],
+               cpu_s=on_cpu[3], card_s=on_card[3], tol=STEP_TOL, **g)
+    what = f"train step parity ({state_dtype} moments)"
+    metric, share = g["metric_rel_err"], g["param_share_off"]
+    m_rel, v_rel = g["m_rel_err"], g["v_rel_err"]
+    if not metric <= STEP_TOL["metric"]:
+        problems.append(f"{what}: loss / grad norm differ by {metric:.3g}")
+    if not share <= STEP_TOL["param_share"]:
+        problems.append(f"{what}: {share:.3g} of {g['param_share_leaf']} "
+                        f"more than {STEP_TOL['param_near']} of its max "
+                        f"apart")
+    if state_dtype == "int8":
+        if not (g["code_max_dist"] <= P["steps"]
+                and g["code_share_off"] <= STEP_TOL["codes"]
+                and max(m_rel, v_rel) <= P["steps"] / 127):
+            problems.append(f"{what}: int8 codes {g['code_max_dist']} "
+                            f"apart on {g['code_share_off']:.3g} of them, "
+                            f"scales {max(m_rel, v_rel):.3g}")
+        # the quantizer alone, on the same fp32 moments on both devices
+        oc = on_cpu[1]
+        same = all(
+            torch.equal(a.q, b.q.cpu()) and torch.equal(a.scale,
+                                                        b.scale.cpu())
+            for x in (adam._decode(m) for m in oc.m + oc.v)
+            for enc in (quant.quantize, quant.quantize_aligned)
+            if enc is quant.quantize or quant.aligned_ok(x.shape)
+            for a, b in [(enc(x, sqrt_encode=True), enc(x.to(DEVICE),
+                                                         sqrt_encode=True))])
+        rec["quantizer_bits_equal"] = same
+        if not same:
+            problems.append(f"{what}: the quantizer's codes or scales of "
+                            "one input differ between the devices")
+    elif not max(m_rel, v_rel) <= STEP_TOL["moment"]:
+        problems.append(f"{what}: moments differ by "
+                        f"{max(m_rel, v_rel):.3g}")
+    line = (f"{what}: {TRAIN_ARCH} at 2 layers, vocabulary "
+            f"{cfg.vocab_size}, B={P['batch']}, S={P['seq']}, 3 steps at lr "
+            f"{P['lr']}, card against CPU: loss and grad norm within "
+            f"{metric:.3g} (tol {STEP_TOL['metric']}); parameters: at most "
+            f"{share:.3g} of a leaf ({g['param_share_leaf']}) more than "
+            f"{STEP_TOL['param_near']} of its max apart (tol "
+            f"{STEP_TOL['param_share']}), the largest gap "
+            f"{g['param_max_abs']:.3g} ({g['param_max_leaf']}); "
+            + (f"int8 codes {g['code_max_dist']:.0f} apart (tol "
+               f"{P['steps']}) on {g['code_share_off']:.3g} of them (tol "
+               f"{STEP_TOL['codes']}), block scales m {m_rel:.3g}, v "
+               f"{v_rel:.3g} of themselves (tol {P['steps']}/127); the "
+               f"quantizer on one input: equal bits "
+               f"{rec['quantizer_bits_equal']}" if state_dtype == "int8"
+               else f"moments m {m_rel:.3g}, v {v_rel:.3g} of a leaf's max "
+               f"(tol {STEP_TOL['moment']})")
+            + f"; losses {', '.join(f'{l:.5f}' for l in rec['losses_card'])}"
+            f"; card {on_card[3]:.2f} s, CPU {on_cpu[3]:.2f} s")
+    return rec, line
+
+
+def pallas_loss(ops, problems):
+    """The served model's loss under impl="pallas" against "blocked" at
+    full width, under no_grad, with each kernel's launches; then a train
+    step under impl="pallas" must raise.  Returns (record, launches,
+    line)."""
+    from repro_torch import steps, weights
+    from repro_torch.models import lm
+    from repro_torch.optim import adam
+    cfg, params = full_width_params(TRAIN_ARCH)
+    L = cfg.n_layers
+    batch = _on(_train_batches(cfg, LOSS_RUN["batch"], LOSS_RUN["seq"],
+                               1)[0], DEVICE)
+    with torch.no_grad():
+        for fn in ops.WRAPPERS:
+            fn.launches = 0
+        loss_p, _ = lm.loss_fn(params, cfg, batch)
+        torch.cuda.synchronize()
+        launches = _launches(ops)
+        loss_b, _ = lm.loss_fn(params, cfg.replace(impl="blocked"), batch)
+        # the scale of a bf16 rounding of every activation, for the tol
+        loss_f, _ = lm.loss_fn(params, cfg.replace(
+            impl="blocked", activation_dtype="float32"), batch)
+    want = dict({fn.__name__: 0 for fn in ops.WRAPPERS},
+                flash_attention=L, qk_rmsnorm=L, add_rmsnorm=2 * L - 1,
+                rmsnorm=2)
+    if launches != want:
+        problems.append(f"pallas loss: launches {launches}, expected "
+                        f"{want}")
+    rel = abs(float(loss_p) - float(loss_b)) / abs(float(loss_b))
+    rel_f = abs(float(loss_f) - float(loss_b)) / abs(float(loss_b))
+    if not rel <= LOSS_TOL:
+        problems.append(f"pallas loss {float(loss_p)} against blocked "
+             f"{float(loss_b)}: {rel:.3g} apart (tol {LOSS_TOL})")
+    small = cut_params(cfg, params, cfg.replace(n_layers=2))
+    del params
+    c = adam.AdamConfig()
+    step = steps.make_train_step(cfg.replace(n_layers=2), c)
+    refusal = "none"
+    try:
+        step(small, adam.init(weights.to_reference(
+            small, cfg.replace(n_layers=2)), c), batch)
+        problems.append("a train step under impl='pallas' did not raise")
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        refusal = str(e)
+    del small
+    torch.cuda.empty_cache()
+    rec = dict(loss_pallas=float(loss_p), loss_blocked=float(loss_b),
+               rel_err=rel, tol=LOSS_TOL, loss_fp32=float(loss_f),
+               fp32_rel=rel_f, launches=launches, refusal=refusal)
+    return rec, launches, (
+        f"loss of {TRAIN_ARCH} (28 layers, bf16, B={LOSS_RUN['batch']}, "
+        f"S={LOSS_RUN['seq']}) under impl=pallas {float(loss_p):.5f}, "
+        f"blocked {float(loss_b):.5f}: {rel:.3g} apart (tol {LOSS_TOL}; "
+        f"fp32 activations {float(loss_f):.5f}, {rel_f:.3g} from bf16); "
+        f"flash_attention {launches['flash_attention']}, rmsnorm "
+        f"{launches['rmsnorm']}, add_rmsnorm {launches['add_rmsnorm']}, "
+        f"qk_rmsnorm {launches['qk_rmsnorm']} launches; a pallas train "
+        f"step raises: {refusal[:60]}...")
+
+
+class _Clock:
+    """Wraps a function of a module and records the seconds of each
+    call (the checkpoint's snapshot, disk write and restore)."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.fn = mod, name, getattr(mod, name)
+        self.s = []
+
+        def timed(*a, **kw):
+            t0 = time.time()
+            out = self.fn(*a, **kw)
+            self.s.append(time.time() - t0)
+            return out
+        setattr(mod, name, timed)
+
+    def undo(self):
+        setattr(self.mod, self.name, self.fn)
+
+
+def _train(cfg, ckpt_dir, state_dtype, ckpt_every):
+    """train_loop.run at TRAIN_RUN with its output captured.  Returns
+    (result, peak GB, the printed log)."""
+    import contextlib
+    import io
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.runtime import train_loop
+    R = TRAIN_RUN
+    job = train_loop.TrainJobConfig(
+        steps=R["steps"], log_every=1, ckpt_every=ckpt_every,
+        ckpt_dir=ckpt_dir, peak_lr=R["peak_lr"], warmup=R["warmup"],
+        seed=SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        out = train_loop.run(cfg.replace(opt_state_dtype=state_dtype),
+                             ShapeConfig("train", R["seq"], R["batch"],
+                                         "train"),
+                             job=job, device=DEVICE)
+    return out, _peak_gb(), log.getvalue()
+
+
+def _run_record(out, peak):
+    hist = out["history"]
+    times = [h["sec_per_step"] for h in hist if 2 <= h["step"] <= 7]
+    step_s = float(np.median(times))
+    losses = [h["loss"] for h in hist]
+    return dict(losses=losses, steps=[h["step"] for h in hist],
+                step_s=step_s, step_times=times,
+                tokens_per_s=TRAIN_RUN["batch"] * TRAIN_RUN["seq"] / step_s,
+                peak_gb=peak)
+
+
+def _profile_train_step(cfg, out, state_dtype):
+    """One more train step of a run's final state, under torch.profiler
+    (the step consumes the state)."""
+    from repro_torch import steps
+    c = steps.adam_config_for(cfg.replace(opt_state_dtype=state_dtype))
+    step = steps.make_train_step(cfg, c, lambda s: TRAIN_RUN["peak_lr"])
+    batch = _on(_train_batches(cfg, TRAIN_RUN["batch"], TRAIN_RUN["seq"],
+                               1)[0], DEVICE)
+    params, opt = out.pop("params"), out.pop("opt_state")
+
+    def one():
+        step(params, opt, batch)
+        return 1
+    return _profile(one)
+
+
+def train_runs(problems):
+    """The trainer at full width: fp32 moments with a checkpoint at step
+    4, the restart from it, then int8 moments.  Returns (record, lines)."""
+    import shutil
+    import tempfile
+    from repro_torch import steps, weights
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import checkpoint as ckpt_lib
+    cfg = get_config(TRAIN_ARCH)
+    assert (cfg.impl, cfg.remat, cfg.param_dtype, cfg.activation_dtype) \
+        == ("blocked", True, "float32", "bfloat16")
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_")
+    clocks = {n: _Clock(ckpt_lib, n) for n in ("_snapshot", "_write",
+                                               "restore")}
+    recs, lines = {}, []
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        lines.append(f"checkpoints in {tmp}: {free_gb:.1f} GB free")
+        first, peak, _ = _train(cfg, tmp, "float32",
+                                     TRAIN_RUN["ckpt_every"])
+        recs["fp32"] = _run_record(first, peak)
+        final = [t.detach().clone() for t in weights.tree_leaves(
+            weights.to_reference(first["params"], cfg))]
+        recs["fp32"]["profile"] = _profile_train_step(cfg, first, "float32")
+        del first
+        shutil.rmtree(f"{tmp}/step_{TRAIN_RUN['steps']:08d}")
+        # the restart: the latest checkpoint is now step 4's
+        again, peak, _ = _train(cfg, tmp, "float32",
+                                     TRAIN_RUN["ckpt_every"])
+        rec = _run_record(again, peak)
+        if rec["steps"] != list(range(TRAIN_RUN["ckpt_every"],
+                                      TRAIN_RUN["steps"])):
+            problems.append(f"the restart ran steps {rec['steps']}")
+        first_losses = recs["fp32"]["losses"][TRAIN_RUN["ckpt_every"]:]
+        loss_diff = max(abs(a - b) for a, b in zip(rec["losses"],
+                                                   first_losses))
+        param_diff = max(float((a - b).abs().max()) for a, b in zip(
+            final, weights.tree_leaves(weights.to_reference(
+                again["params"], cfg))))
+        rec.update(loss_diff=loss_diff, param_diff=param_diff)
+        recs["fp32 restart"] = rec
+        if not (loss_diff <= 1e-6 * abs(first_losses[0])
+                and param_diff <= 1e-6):
+            problems.append(f"the restart from step 4 differs: losses by "
+                            f"{loss_diff}, "
+                 f"parameters by {param_diff}")
+        del again, final
+        shutil.rmtree(tmp)
+        tmp = tempfile.mkdtemp(prefix="train_ckpt_")
+        # one checkpoint, the final one, for the round trip
+        third, peak, _ = _train(cfg, tmp, "int8", TRAIN_RUN["steps"])
+        recs["int8"] = _run_record(third, peak)
+        c = steps.adam_config_for(cfg.replace(opt_state_dtype="int8"))
+        p_shape = steps.abstract_params(cfg)
+        _, back = ckpt_lib.restore(tmp, {
+            "params": p_shape,
+            "opt": steps.abstract_opt_state(cfg, c, p_shape)},
+            device=DEVICE)
+        got = ckpt_lib._items({"params": weights.to_reference(
+            third["params"], cfg), "opt": third["opt_state"]})
+        for (path, a), (_, b) in zip(got, ckpt_lib._items(back)):
+            if not torch.equal(a, b):
+                problems.append(f"int8 checkpoint round trip: "
+                                f"{'/'.join(path)} differs")
+                break
+        del back, got
+        recs["int8"]["profile"] = _profile_train_step(cfg, third, "int8")
+        del third
+        torch.cuda.empty_cache()
+    finally:
+        for c_ in clocks.values():
+            c_.undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    recs["checkpoint_s"] = {n: c_.s for n, c_ in clocks.items()}
+    for name in ("fp32", "int8"):
+        r = recs[name]
+        if not all(np.isfinite(r["losses"])):
+            problems.append(f"{name} trainer: a loss is not finite: "
+                            f"{r['losses']}")
+        if not r["losses"][7] < r["losses"][1]:
+            problems.append(f"{name} trainer: step 7's loss "
+                            f"{r['losses'][7]} is not "
+                 f"below step 1's {r['losses'][1]}")
+        pr = r["profile"]
+        lines.append(
+            f"{TRAIN_ARCH} trainer, {name} moments (28 layers, fp32 params, "
+            f"bf16 activations, remat, B={TRAIN_RUN['batch']}, "
+            f"S={TRAIN_RUN['seq']}): step {r['step_s'] * 1e3:.1f} ms "
+            f"(median of steps 2-7), {r['tokens_per_s']:.0f} tokens/s, "
+            f"peak {r['peak_gb']:.2f} GB; losses "
+            + ", ".join(f"{l:.4f}" for l in r["losses"])
+            + f"; a profiled step {pr['wall_ms']:.1f} ms, busy "
+            f"{pr['busy_share']:.3f}, {pr['launches_per_step']:.0f} "
+            f"launches, top {pr['top']}")
+    r = recs["fp32 restart"]
+    ck = recs["checkpoint_s"]
+    lines.append(
+        f"restart from the step-4 checkpoint: steps 4-7 losses within "
+        f"{r['loss_diff']:.3g}, final parameters within {r['param_diff']:.3g}"
+        f" of the uninterrupted run; checkpoint snapshots "
+        + ", ".join(f"{x:.2f}" for x in ck["_snapshot"]) + " s, disk writes "
+        + ", ".join(f"{x:.2f}" for x in ck["_write"]) + " s, restores "
+        + ", ".join(f"{x:.2f}" for x in ck["restore"]) + " s")
+    return recs, lines
+
+
+def train_phase(ops):
+    """Phase 6: the training path.  Returns (records, {path: launches},
+    lines)."""
+    t0 = time.time()
+    recs, launches, lines, problems = {}, {}, [], []
+    for sd in ("float32", "int8"):
+        recs[f"step parity {sd}"], line = train_step_parity(sd, problems)
+        lines.append(line)
+    recs["pallas loss"], launches["train: loss under impl=pallas"], line = \
+        pallas_loss(ops, problems)
+    lines.append(line)
+    recs["trainer"], run_lines = train_runs(problems)
+    lines += run_lines
+    recs["seconds"] = time.time() - t0
+    lines.append(f"phase 6 took {recs['seconds']:.1f} s")
+    if problems:            # every gate of the phase is read before this
+        for line in lines:
+            print(f"[train] {line}")
+        fail("phase 6: " + "; ".join(problems))
+    return recs, launches, lines
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -4011,6 +4519,14 @@ def main():
           + ", ".join(f"{dt} {rwkv6_smem(build, dt == 'bf16')} B"
                       for dt in ("bf16", "fp32")))
 
+    if sys.argv[1:] == ["--only-train"]:      # phase 6 alone, no verdict
+        train, launches, train_lines = train_phase(ops)
+        for line in train_lines:
+            print(f"[train] {line}")
+        OUT.mkdir(exist_ok=True)
+        (OUT / "chip_smoke_train.json").write_text(json.dumps(
+            dict(gpu=info, train=train, launches=launches), indent=2))
+        return
     recs, lines = {}, []
     for check in (check_paged, check_flash, check_rwkv6, check_rglru,
                   check_moe_gemm, check_decode, check_rmsnorm):
@@ -4151,6 +4667,11 @@ def main():
     for line in paper_lines:
         print(f"[paper] {line}")
 
+    train, train_launches, train_lines = train_phase(ops)
+    path_launches.update(train_launches)
+    for line in train_lines:
+        print(f"[train] {line}")
+
     for name, rec in recs.items():
         rec["launches"] = sum(l[w] for l in path_launches.values()
                               for w, k in ops.KERNEL_OF.items() if k == name)
@@ -4169,7 +4690,7 @@ def main():
              kernels=[recs[fn.__name__] for fn in ops.KERNELS],
              flash_local=flash_local,
              path_launches=path_launches, serve=serve_stats, parity=parity,
-             paper=paper),
+             paper=paper, train=train),
         indent=2))
     print(f"[done] {time.time() - t0:.1f} s after the build started")
     print(json.dumps(kernels))

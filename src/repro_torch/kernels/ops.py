@@ -68,7 +68,18 @@ def _check(name, device, tensors, float_names, int_names=(), fp32_names=(),
     """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
     tensor on ``device``; ``float_names`` operands share one dtype of
     fp32/bf16, ``free_names`` operands are each fp32 or bf16 on their own,
-    ``fp32_names`` operands are fp32, and index operands are int32."""
+    ``fp32_names`` operands are fp32, and index operands are int32.  First
+    of all, refuse an operand that requires grad while grad mode is on:
+    the kernel writes into a fresh tensor with no autograd graph, so its
+    output would cut the gradient without a word."""
+    if torch.is_grad_enabled():
+        for key, t in tensors.items():
+            if t.requires_grad:
+                raise RuntimeError(
+                    f"{name}: {key} requires grad, and the port's kernels, "
+                    "like the reference's Pallas calls, have no backward; "
+                    "train with impl='blocked' (or run under "
+                    "torch.no_grad())")
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
     build.check_device(device)

@@ -39,14 +39,14 @@ def _add_norm(p, cfg, name, x, pending):
 
 
 def _ffn_part(p, cfg, x):
-    """Dense FFN, or MoE plus the shared experts.  The MoE load-balance
-    loss is dropped: the serving paths drop it in the reference too."""
+    """Dense FFN, or MoE plus the shared experts.  Returns (out, the MoE
+    load-balance loss, None for a dense FFN)."""
     if "moe" in p:
-        out = moe_mod.apply(p["moe"], cfg, x)[0]
+        out, aux = moe_mod.apply(p["moe"], cfg, x)
         if "shared" in p:
             out = out + nn.ffn_apply(p["shared"], shared_cfg(cfg), x)
-        return out
-    return nn.ffn_apply(p["ffn"], cfg, x)
+        return out, aux
+    return nn.ffn_apply(p["ffn"], cfg, x), None
 
 
 def _rwkv(p, cfg, x, h, cache):
@@ -61,20 +61,22 @@ def _rwkv(p, cfg, x, h, cache):
 
 def _ffn_half(p, cfg, x, out):
     """Residual of the mixer's output ``out``, second norm, FFN.  Returns
-    (x, the FFN branch still to add)."""
+    (x, the FFN branch still to add, the MoE load-balance loss)."""
     x, h2 = _add_norm(p, cfg, "ln2", x, _post(p, cfg, "ln1_post", out))
-    return x, _post(p, cfg, "ln2_post", _ffn_part(p, cfg, h2))
+    out2, aux = _ffn_part(p, cfg, h2)
+    return x, _post(p, cfg, "ln2_post", out2), aux
 
 
 # Every layer takes the residual stream ``x`` and the previous layer's
 # last branch output ``pending`` (None before the first layer) and
-# returns (x, its own last branch output, its cache): the add of a branch
-# is fused with the norm that follows it, in the next layer or the final
-# norm (``lm.py``).
+# returns (x, its own last branch output, its cache), the full-sequence
+# path also its MoE load-balance loss (the decode paths drop it, as the
+# reference's do): the add of a branch is fused with the norm that
+# follows it, in the next layer or the final norm (``lm.py``).
 def apply(p, cfg, kind: str, x, pending, *, angles):
-    """Full-sequence (prefill) path.  Returns (x, pending, the layer's raw
-    cache contribution: (k, v) before max-len padding, or the recurrent
-    cache)."""
+    """Full-sequence path (train / prefill).  Returns (x, pending, the
+    layer's raw cache contribution: (k, v) before max-len padding, or the
+    recurrent cache; the MoE load-balance loss, None without MoE)."""
     x, h = _add_norm(p, cfg, "ln1", x, pending)
     if kind in (ATTN, LOCAL):
         out, cache = attention.apply(p["attn"], cfg, h, kind=kind,
@@ -85,10 +87,11 @@ def apply(p, cfg, kind: str, x, pending, *, angles):
         out, cache = rglru_mod.apply(p["rglru"], cfg, h)
     elif kind == RWKV6:
         cache0 = rwkv6_mod.cache_init(cfg, x.shape[0], x.dtype, x.device)
-        return _rwkv(p, cfg, x, h, cache0)
+        return (*_rwkv(p, cfg, x, h, cache0), None)
     else:
         raise ValueError(kind)
-    return (*_ffn_half(p, cfg, x, out), cache)
+    x, out2, aux = _ffn_half(p, cfg, x, out)
+    return x, out2, cache, aux
 
 
 def apply_decode(p, cfg, kind: str, x, pending, cache, pos, *, angles):
@@ -108,7 +111,8 @@ def apply_decode(p, cfg, kind: str, x, pending, cache, pos, *, angles):
         return _rwkv(p, cfg, x, h, cache)
     else:
         raise ValueError(kind)
-    return (*_ffn_half(p, cfg, x, out), cache)
+    x, out2, _ = _ffn_half(p, cfg, x, out)
+    return x, out2, cache
 
 
 def apply_decode_paged(p, cfg, kind: str, x, pending, pool, block_tables,
@@ -122,7 +126,8 @@ def apply_decode_paged(p, cfg, kind: str, x, pending, pool, block_tables,
     out, pool = attention.apply_decode_paged(p["attn"], cfg, h, pool,
                                              block_tables, pos,
                                              angles=angles)
-    return (*_ffn_half(p, cfg, x, out), pool)
+    x, out2, _ = _ffn_half(p, cfg, x, out)
+    return x, out2, pool
 
 
 def apply_prefill_paged(p, cfg, kind: str, x, pending, pool, block_row,
@@ -139,7 +144,8 @@ def apply_prefill_paged(p, cfg, kind: str, x, pending, pool, block_row,
     out, pool = attention.apply_prefill_paged(p["attn"], cfg, h, pool,
                                               block_row, start, n_valid,
                                               angles=angles)
-    return (*_ffn_half(p, cfg, x, out), pool)
+    x, out2, _ = _ffn_half(p, cfg, x, out)
+    return x, out2, pool
 
 
 def paged_cache_init(cfg, kind: str, n_pages: int, page_size: int, dtype,

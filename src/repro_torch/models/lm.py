@@ -1,4 +1,4 @@
-"""Unified LM: forward / prefill / decode over layer segments.
+"""Unified LM: forward / loss / prefill / decode over layer segments.
 
 Reference: ``repro/models/lm.py``.  Layers are grouped into the same
 homogeneous *segments* (``make_segments``).  The reference stacks a
@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import List, NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, modules as nn
@@ -135,27 +136,65 @@ def head_logits(params, cfg, h):
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill)
+# forward (train / prefill)
 # ---------------------------------------------------------------------------
-def forward(params, cfg: ModelConfig, tokens, positions=None):
-    """Prefill forward (the training path is not ported yet).  tokens:
-    (B,S) int ids or (B,S,D) embeddings (stub frontends); positions
-    (B,S), or (3,B,S) under M-RoPE, default ``default_positions``.
-    Returns (x, pending, raw caches): the residual stream
-    before the last layer's branch output ``pending`` is added (h_final =
-    x + pending, pre-final-norm; ``last_logits`` adds it fused with the
-    final norm), and the per-layer nesting of (k, v) or recurrent caches,
-    converted by ``caches_from_prefill``."""
+def forward(params, cfg: ModelConfig, tokens, positions=None, *,
+            mode: str = "prefill"):
+    """tokens: (B,S) int ids or (B,S,D) embeddings (stub frontends);
+    positions (B,S), or (3,B,S) under M-RoPE, default
+    ``default_positions``.
+
+    ``mode="prefill"`` returns (x, pending, raw caches): the residual
+    stream before the last layer's branch output ``pending`` is added
+    (h_final = x + pending, pre-final-norm; ``last_logits`` adds it fused
+    with the final norm), and the per-layer nesting of (k, v) or
+    recurrent caches, converted by ``caches_from_prefill``.
+
+    ``mode="train"`` returns (h_final, the summed MoE load-balance loss)
+    and keeps no caches.  Under ``cfg.remat`` each cycle of a scanned
+    segment runs under ``torch.utils.checkpoint`` (the reference
+    checkpoints its scan body, in train mode only): backward recomputes
+    the cycle from its inputs instead of keeping its activations."""
+    assert mode in ("train", "prefill"), mode
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[:2]
     if positions is None:
         positions = default_positions(cfg, B, S, device=x.device)
     angles = _angles(cfg, positions)
+    if mode == "train":
+        return _forward_train(params, cfg, x, angles)
     raw, pending = {}, None
     for kind, p, _, key in _layers(cfg, params, None):
-        x, pending, raw[key] = blocks.apply(p, cfg, kind, x, pending,
-                                            angles=angles)
+        x, pending, raw[key], _ = blocks.apply(p, cfg, kind, x, pending,
+                                               angles=angles)
     return x, pending, _nest(cfg, lambda kind, key: raw[key])
+
+
+def _cycle_train(cyc_p, cfg, kinds, x, pending, angles):
+    """One cycle of a segment in train mode: (x, pending, its aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, kind in zip(cyc_p, kinds):
+        x, pending, _, a = blocks.apply(p, cfg, kind, x, pending,
+                                        angles=angles)
+        if a is not None:
+            aux = aux + a
+    return x, pending, aux
+
+
+def _forward_train(params, cfg, x, angles):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    pending = None
+    for seg, seg_p in zip(make_segments(cfg), params["segments"]):
+        for cyc_p in seg_p:
+            if seg.scanned and cfg.remat:
+                x, pending, a = checkpoint(_cycle_train, cyc_p, cfg,
+                                           seg.kinds, x, pending, angles,
+                                           use_reentrant=False)
+            else:
+                x, pending, a = _cycle_train(cyc_p, cfg, seg.kinds, x,
+                                             pending, angles)
+            aux = aux + a
+    return x + pending, aux
 
 
 def final_norm(params, cfg, x, pending):
@@ -168,6 +207,112 @@ def last_logits(params, cfg, x, pending):
     """Next-token logits (B,1,V) of the last position of a prefill."""
     return head_logits(params, cfg, final_norm(params, cfg, x[:, -1:],
                                                pending[:, -1:]))
+
+
+# ---------------------------------------------------------------------------
+# loss (chunked cross-entropy over the sequence)
+# ---------------------------------------------------------------------------
+LOSS_CHUNK = 512  # sequence chunk of the cross-entropy
+
+
+def _head_weight(params, cfg):
+    """(D, V) head matrix (the transposed embedding when tied)."""
+    if cfg.tie_embeddings and cfg.embed_inputs:
+        return params["embed"]["embed_table"].T
+    return params["head"]["head_w"]
+
+
+def _local_ce(logits, labels_c, mask_c, v_offset, v_local, softcap):
+    """CE of fp32 logits (B,Sc,v_local) whose vocabulary starts at
+    ``v_offset``.  Returns (the masked NLL's sum, the mask's sum).  The
+    max is held constant for the gradient (the reference's
+    ``stop_gradient``): d(lse)/d(logits) is the softmax either way."""
+    if softcap is not None:
+        logits = nn.softcap(logits, softcap)
+    m = logits.max(-1).values.detach()
+    s = torch.exp(logits - m[..., None]).sum(-1)
+    lse = m + torch.log(s)
+    loc = labels_c.long() - v_offset
+    in_range = (loc >= 0) & (loc < v_local)
+    loc = torch.clamp(loc, 0, v_local - 1)
+    correct = logits.gather(-1, loc[..., None])[..., 0]
+    correct = torch.where(in_range, correct, 0.0)
+    nll = (lse - correct) * mask_c
+    return nll.sum(), mask_c.sum()
+
+
+def _chunk_ce(w, cfg, h_c, labels_c, mask_c):
+    """One sequence chunk of CE against the (D, V) head ``w``: fp32
+    logits of the promoted operands, softcap applied here."""
+    logits = h_c.float() @ w.float()
+    return _local_ce(logits, labels_c, mask_c, 0, cfg.vocab_size,
+                     cfg.logit_softcap)
+
+
+def cross_entropy(params, cfg, h, labels, mask):
+    """Chunked CE: the chunk is ``LOSS_CHUNK`` positions, shrunk until it
+    divides S, and each chunk runs under ``torch.utils.checkpoint`` (the
+    reference's checkpointed scan body), so that neither the forward nor
+    the backward holds (B, S, V) fp32 logits at once."""
+    B, S, D = h.shape
+    w = _head_weight(params, cfg)
+    c = min(LOSS_CHUNK, S)
+    while S % c:
+        c -= 1
+    n = S // c
+    if n == 1:
+        tot, cnt = _chunk_ce(w, cfg, h, labels, mask)
+        return tot / torch.clamp(cnt, min=1.0)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        sl = slice(i * c, (i + 1) * c)
+        t, k = checkpoint(_chunk_ce, w, cfg, h[:, sl], labels[:, sl],
+                          mask[:, sl], use_reentrant=False)
+        tot, cnt = tot + t, cnt + k
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """batch: tokens (B,S) ids or (B,S,D) embeddings, labels (B,S), mask
+    (B,S) fp32, optional positions.  Returns (loss, metrics): ``ce``,
+    ``moe_aux``, ``loss`` and, with DeepSeek's MTP head, ``mtp_ce``."""
+    tokens = batch["tokens"]
+    h, aux = forward(params, cfg, tokens, batch.get("positions"),
+                     mode="train")
+    hn = nn.rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps,
+                    cfg.impl)
+    ce = cross_entropy(params, cfg, hn, batch["labels"], batch["mask"])
+    loss = ce
+    metrics = {"ce": ce, "moe_aux": aux}
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_coef * aux
+    if cfg.mtp_depth and "mtp" in params:
+        mtp_ce = _mtp_loss(params, cfg, h, batch["labels"], batch["mask"])
+        loss = loss + 0.3 * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _mtp_loss(params, cfg, h, labels, mask):
+    """DeepSeek multi-token prediction: one extra block predicts t+2."""
+    p = params["mtp"]
+    B, S = labels.shape
+    e_next = embed_tokens(params, cfg, labels)        # token t+1's embedding
+    hn = nn.rmsnorm(h, p["norm_h"]["scale"], cfg.norm_eps, cfg.impl)
+    en = nn.rmsnorm(e_next, p["norm_e"]["scale"], cfg.norm_eps, cfg.impl)
+    h_in = nn.matmul(torch.cat([hn, en], -1), p["mtp_proj"])
+    angles = _angles(cfg, default_positions(cfg, B, S, device=h.device))
+    x, pending, _, _ = blocks.apply(p["block"], cfg,
+                                    make_segments(cfg)[-1].kinds[-1],
+                                    h_in, None, angles=angles)
+    h_mtp = nn.add_rmsnorm(x, pending, p["final_norm"]["scale"],
+                           cfg.norm_eps, cfg.impl)[1]
+    # targets: token t+2 = labels shifted left by one
+    labels2 = torch.cat([labels[:, 1:], labels[:, -1:]], 1)
+    mask2 = torch.cat([mask[:, 1:], torch.zeros_like(mask[:, -1:])], 1)
+    return cross_entropy(params, cfg, h_mtp, labels2, mask2)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Step builders: prefill / serve steps, dense and paged, and the paged
-engine's suffix prefill, chunk prefill, verify window, fused speculative
-draft+verify and copy-on-write page copy.
+"""Step builders: the train step, prefill / serve steps, dense and
+paged, and the paged engine's suffix prefill, chunk prefill, verify
+window, fused speculative draft+verify and copy-on-write page copy, and
+shape-only parameter and optimizer state.
 
 Reference: ``repro/steps.py``.  The reference returns functions for
 ``jax.jit`` with the pools donated; PyTorch runs eagerly, so these are
@@ -11,8 +12,65 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import weights
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, lm
+from repro_torch.optim import adam as adam_lib
+
+
+def make_train_step(cfg: ModelConfig, adam_cfg: adam_lib.AdamConfig,
+                    schedule=None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``params`` is the port's nesting; the gradient is taken with respect
+    to the reference's tree (``weights.to_reference``), whose stacked
+    leaves the optimizer updates, and the new parameters come back as
+    views of the new stacked leaves (``weights.unstack``).  ``lr =
+    schedule(opt_state.step)`` is read before the step is counted, as in
+    the reference.  The old optimizer state is consumed by the update
+    (``adam.update``): the caller must not read it again."""
+    schedule = schedule or (lambda s: 3e-4)
+
+    def train_step(params, opt_state, batch):
+        tree = weights.to_reference(params, cfg)
+        leaves = [l.detach().requires_grad_() for l in
+                  weights.tree_leaves(tree)]
+        with torch.enable_grad():
+            loss, metrics = lm.loss_fn(
+                weights.unstack(weights.tree_unflatten(tree, leaves), cfg),
+                cfg, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(l) if g is None else g
+                 for l, g in zip(leaves, grads)]
+        leaves = [l.detach() for l in leaves]
+        lr = schedule(opt_state.step)
+        new, opt_state2, om = adam_lib.update(
+            weights.tree_unflatten(tree, grads), opt_state,
+            weights.tree_unflatten(tree, leaves), lr=lr, cfg=adam_cfg)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(om)
+        metrics["lr"] = lr
+        return weights.unstack(new, cfg), opt_state2, metrics
+
+    return train_step
+
+
+def adam_config_for(cfg: ModelConfig) -> adam_lib.AdamConfig:
+    return adam_lib.AdamConfig(state_dtype=cfg.opt_state_dtype)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The reference-shaped parameter tree on the ``meta`` device: shapes
+    and dtypes, no storage."""
+    return weights.to_reference(weights.init_params(cfg, device="meta"),
+                                cfg)
+
+
+def abstract_opt_state(cfg: ModelConfig, adam_cfg: adam_lib.AdamConfig,
+                       params_shape):
+    """The optimizer state of ``params_shape`` (``abstract_params``) on
+    the ``meta`` device."""
+    return adam_lib.init(params_shape, adam_cfg)
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):

@@ -69,6 +69,99 @@ def from_reference(np_params, cfg, device=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the reference's tree: the layout of the optimizer and the checkpoints
+# ---------------------------------------------------------------------------
+def tree_leaves(tree) -> list:
+    """The leaves of a nesting of dicts, lists and tuples in
+    ``jax.tree.leaves`` order: dict keys sorted."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for t in tree for l in tree_leaves(t)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """``template``'s nesting with its leaves replaced, in
+    ``tree_leaves`` order, by ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            new = {k: build(t[k]) for k in sorted(t)}
+            return {k: new[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+    out = build(template)
+    assert next(it, None) is None, "more leaves than the template holds"
+    return out
+
+
+def _stack(ts):
+    """The cycles' tensors of one leaf stacked on a new leading axis; no
+    copy when they are already the unbound rows of one contiguous stack
+    (as ``unstack`` leaves them)."""
+    base = ts[0]._base
+    if base is not None and base.is_contiguous() \
+            and tuple(base.shape) == (len(ts),) + tuple(ts[0].shape) \
+            and all(t._base is base and t.data_ptr() == base[c].data_ptr()
+                    for c, t in enumerate(ts)):
+        return base
+    return torch.stack(ts)
+
+
+def _zip_tree(fn, trees):
+    """``fn`` of the cycles' leaves at each position of one nesting."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _zip_tree(fn, [t[k] for t in trees]) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(_zip_tree(fn, [t[i] for t in trees])
+                        for i in range(len(t0)))
+    return fn(trees)
+
+
+def to_reference(params, cfg):
+    """The reference's parameter tree of the port's ``params``: each
+    scanned segment a list of blocks whose leaves are stacked on a
+    leading ``n_cycles`` axis, each unscanned one the list of its blocks."""
+    segs = []
+    for seg, seg_p in zip(lm.make_segments(cfg), params["segments"]):
+        if seg.scanned:
+            segs.append([_zip_tree(_stack, [cyc[j] for cyc in seg_p])
+                         for j in range(len(seg.kinds))])
+        else:
+            segs.append(list(seg_p[0]))
+    out = {k: v for k, v in params.items() if k != "segments"}
+    out["segments"] = segs
+    return out
+
+
+def unstack(tree, cfg):
+    """The port's nesting of a reference-shaped torch tree: each scanned
+    leaf split into its cycles' rows (views, ``Tensor.unbind``: autograd
+    gives the stacked leaf one stacked gradient)."""
+    rows = {}
+
+    def row(a, c):
+        if id(a) not in rows:
+            rows[id(a)] = a.unbind(0)
+        return rows[id(a)][c]
+
+    segs = []
+    for seg, seg_t in zip(lm.make_segments(cfg), tree["segments"]):
+        if seg.scanned:
+            segs.append([[_tree(lambda a, c=c: row(a, c), blk)
+                          for blk in seg_t] for c in range(seg.n_cycles)])
+        else:
+            segs.append([list(seg_t)])
+    out = {k: v for k, v in tree.items() if k != "segments"}
+    out["segments"] = segs
+    return out
+
+
 def init_params(cfg, generator: Optional[torch.Generator] = None,
                 device=None):
     """Random parameters drawn from the reference's distributions
@@ -77,7 +170,7 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     ``blocks.init``, ``lm.init_params``).  The bits differ from the
     reference's: torch and JAX generators differ."""
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":   # meta: shapes only
         generator = torch.Generator(device=device).manual_seed(0)
     dtype = nn.dt(cfg.param_dtype)
 

@@ -3,7 +3,8 @@
 * no file of ``src/repro_torch/``, no ``examples/torch_*.py`` and not
   ``chip_smoke.py`` imports ``jax`` or ``repro``;
 * importing the engine leaves ``jax`` out of ``sys.modules``;
-* without CUDA, entry points raise instead of running on the CPU, and
+* without CUDA, entry points raise instead of running on the CPU (the
+  trainer, the train CLI and the training examples included), and
   ``chip_smoke.py`` exits non-zero with a clear message.
 """
 import ast
@@ -45,7 +46,7 @@ def _run(code_or_args, **kw):
 
 def test_importing_the_engine_leaves_jax_out():
     r = _run(["-c", "import sys, repro_torch.serving.engine, "
-              "repro_torch.launch.serve; "
+              "repro_torch.launch.serve, repro_torch.runtime.train_loop; "
               "print('jax' in sys.modules, 'repro' in sys.modules)"])
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == ["False", "False"]
@@ -73,6 +74,25 @@ def test_store_and_neuron_sim_without_device_raise_without_cuda():
     from repro_torch.core.memory_server import SingleController, StripedStore
     for make in (lambda: StripedStore(64), lambda: SingleController(64),
                  lambda: torch_neuron_sim.simulate(16, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_trainer_cli_and_examples_without_device_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid")
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_quickstart
+    import torch_train_lm
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+    from repro_torch.runtime import train_loop
+    cfg = get_tiny_config("qwen3-14b")
+    for make in (lambda: train_loop.run(cfg, ShapeConfig("t", 8, 1, "train")),
+                 lambda: train.main(["--tiny", "--steps", "1"]),
+                 lambda: torch_quickstart.main([]),
+                 lambda: torch_train_lm.main(["--tiny", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 

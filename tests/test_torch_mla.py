@@ -217,8 +217,8 @@ def test_shared_expert_moe_block_matches_reference(impl, dtype):
     x = np.random.default_rng(52).standard_normal(
         (2, 9, cfg.d_model)).astype(np.float32)
     oj, _ = jblocks._ffn_part(pj, cfg, jnp.asarray(x, JDT[dtype]))
-    ot = blocks._ffn_part(pt, tcfg.replace(impl=impl),
-                          torch.tensor(x).to(TDT[dtype]))
+    ot, _ = blocks._ffn_part(pt, tcfg.replace(impl=impl),
+                             torch.tensor(x).to(TDT[dtype]))
     assert _err(oj, ot) < TOL[dtype]
     # the shared expert adds its own FFN: without it the outputs part
     routed = moe.apply(pt["moe"], tcfg.replace(impl=impl),
@@ -243,7 +243,8 @@ def test_block_apply_and_decode_match_reference(dtype):
         pj, pt = params["segments"][si][0], tparams["segments"][si][0][0]
         xj, lat_j, _ = jblocks.apply(pj, cfg, "mla", xj, angles=aj,
                                      mode="prefill")
-        xt, pend, lat_t = blocks.apply(pt, tcfg, "mla", xt, pend, angles=at)
+        xt, pend, lat_t, _ = blocks.apply(pt, tcfg, "mla", xt, pend,
+                                          angles=at)
         assert _err(xj, xt + pend) < 4 * TOL[dtype], si
         caches_j.append(jblocks.cache_from_prefill(cfg, "mla", lat_j, T))
         caches_t.append(blocks.cache_from_prefill(tcfg, "mla", lat_t, T))
@@ -364,8 +365,8 @@ def test_mtp_block_matches_reference_block():
     aj, at = _angles(cfg, tcfg, 1, 6)
     oj, _, _ = jblocks.apply(params["mtp"]["block"], cfg, "mla",
                              jnp.asarray(x), angles=aj, mode="prefill")
-    xt, pend, _ = blocks.apply(tparams["mtp"]["block"], tcfg, "mla",
-                               torch.tensor(x), None, angles=at)
+    xt, pend, _, _ = blocks.apply(tparams["mtp"]["block"], tcfg, "mla",
+                                  torch.tensor(x), None, angles=at)
     assert _err(oj, xt + pend) < 4 * TOL["float32"]
     assert tuple(tparams["mtp"]["mtp_proj"].shape) == (2 * cfg.d_model,
                                                       cfg.d_model)
