@@ -10,7 +10,7 @@ three nodes, untraced and with the flight recorder on), rwkv6-1.6b and
 recurrentgemma-2b at full width through the dense engine,
 grok-1-314b at full width with its depth cut to four layers through both
 engines, DeepSeek-V3 (five layers: three dense, two MoE) and gemma2-27b
-(every layer) at full width through the dense engine, qwen3-14b and
+(24 of its 46 layers) at full width through the dense engine, qwen3-14b and
 minitron-8b at full width through the paged engine, qwen2-vl-7b (four
 layers) through ``lm.prefill`` and ``lm.decode_step`` with embeddings at
 3-D M-RoPE positions, and hubert-xlarge through ``lm.forward``, and
@@ -36,18 +36,28 @@ steps on the CPU (fp32 moments, and int8 ones at a vocabulary cut to
 impl="pallas" against impl="blocked" with the kernels' launches (and a
 train step under impl="pallas", which must raise: the kernels have no
 backward), and ``train_loop.run`` at full width (28 layers, B=4,
-S=2048, 8 steps) with a checkpoint at step 4, the restart from it
-(steps 4 to 7 must repeat), and again with int8 moments (its final
+S=2048, 6 steps) with a checkpoint at step 3, the restart from it
+(steps 3 to 5 must repeat), and again with int8 moments (its final
 checkpoint must restore bit for bit), reporting step time, tokens/s,
-peak memory, a profiled step and the checkpoint times.
+peak memory, a profiled step and the checkpoint times.  Phase 7
+("mesh") trains on device meshes whose positions all share the one
+card: the mesh trainer at 2 layers on a 2x2 and a 1x2 mesh against the
+one-device trainer (fp32 and int8 moments), ``train_loop.run`` at full
+width on a 2x2 mesh (6 steps, a checkpoint at step 3) with its step
+time, peak memory, a profiled step and each position's bytes on the
+wire beside ``core/costs.comm_events``, the step-3 checkpoint restored
+onto a 1x4 and a 4x1 mesh bit for bit and one more step on the 1x4
+mesh, ``compressed_all_reduce`` over a 4x1 mesh's data axis against its
+plain version, and the train CLI on a mesh in a process of its own.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only-train     # the build and phase 6 alone
+    python3 chip_smoke.py --only-mesh      # the build and phase 7 alone
 
 Needs one CUDA card with 80 GB (the kernels target Hopper, sm_90a;
-gemma2-27b's 46 layers hold 54.5 GB of bf16 parameters, DeepSeek's five
-53.3 GB), the CUDA toolkit, and about 45 GB of disk for phase 6's
-checkpoints (a temporary directory, removed at the end); imports
+DeepSeek's five layers hold 53.3 GB of bf16 parameters), the CUDA
+toolkit, and about 45 GB of disk for phase 6's and 7's checkpoints
+(temporary directories, removed at the end); imports
 nothing of JAX.  Every phase
 prints one line of results; any failure exits non-zero.  The last line
 of standard output is
@@ -56,8 +66,9 @@ of standard output is
 
 preceded by the kernels' JSON line and the card's name and power limit.
 The full record of the run is also written to chiprun_out/chip_smoke.json,
-the traced chaos run's Chrome trace to chiprun_out/chaos_trace.json and
-the striped serve CLI's output to chiprun_out/serve_cli_striped.txt.
+the traced chaos run's Chrome trace to chiprun_out/chaos_trace.json,
+the striped serve CLI's output to chiprun_out/serve_cli_striped.txt and
+the mesh train CLI's to chiprun_out/mesh_train_cli.txt.
 """
 import ctypes
 import dataclasses
@@ -1410,9 +1421,12 @@ GROK_DEPTH = 4     # 4 x 9.84 GB of layers + 3.2 GB of embedding and head
 # the depth cuts of phase 3 (every width as published): grok-1's
 # GROK_DEPTH layers, DeepSeek-V3's 3 dense layers and 2 MoE layers (3 x
 # 1.16 + 2 x 23.0 GB of layers, 3.7 GB of embedding and head) without the
-# MTP module (a training loss, about 23 GB), qwen2-vl-7b's first 4 layers
+# MTP module (a training loss, about 23 GB), gemma2-27b's first 24 of 46
+# layers (its serve at every layer took 45 s on an H100: the cut gives
+# phase 7 part of its time), qwen2-vl-7b's first 4 layers
 CUTS = {"grok-1-314b": dict(n_layers=GROK_DEPTH),
         "deepseek-v3-671b": dict(n_layers=5, mtp_depth=0),
+        "gemma2-27b": dict(n_layers=24),
         "qwen2-vl-7b": dict(n_layers=4)}
 # qwen2-vl-7b's run: one prefill of (batch, prompt) embeddings, then decode
 # steps; hubert-xlarge's: one forward of (batch, frames) embeddings
@@ -2563,15 +2577,17 @@ def serve_encoder(ops, cfg, params):
     return stats, launches, line
 
 
-def _profile(fn):
+def _profile(fn, cpu=True):
     """Run ``fn`` under torch.profiler; ``fn`` returns the number of
     model steps it ran.  Returns the wall time, the device busy share
     (kernel time over wall time), device launches per step and the
-    kernels that take most of the device time (ms per step)."""
+    kernels that take most of the device time (ms per step).  With
+    ``cpu=False`` the host's ops are not traced (only the device's
+    kernels are read either way)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         k = max(fn(), 1)
         torch.cuda.synchronize()
@@ -4025,8 +4041,11 @@ LOSS_RUN = dict(batch=4, seq=1024)
 # losses are deterministic, every run read the same), far below the
 # change that bf16 activations make against fp32 ones (also printed)
 LOSS_TOL = 1e-5
-# the trainer: all 28 layers, fp32 parameters, bf16 activations, remat
-TRAIN_RUN = dict(batch=4, seq=2048, steps=8, warmup=2, ckpt_every=4,
+# the trainer: all 28 layers, fp32 parameters, bf16 activations, remat;
+# 6 steps with a checkpoint at step 3 (8 and 4 until phase 7 came: the
+# cut, and the step-6 checkpoints that nothing reads not being written,
+# give phase 7 its time)
+TRAIN_RUN = dict(batch=4, seq=2048, steps=6, warmup=2, ckpt_every=3,
                  peak_lr=3e-4)
 
 
@@ -4302,9 +4321,10 @@ class _Clock:
         setattr(self.mod, self.name, self.fn)
 
 
-def _train(cfg, ckpt_dir, state_dtype, ckpt_every):
-    """train_loop.run at TRAIN_RUN with its output captured.  Returns
-    (result, peak GB, the printed log)."""
+def _train(cfg, ckpt_dir, state_dtype, ckpt_every, skip_final=False):
+    """train_loop.run at TRAIN_RUN with its output captured (with
+    ``skip_final`` the final step's checkpoint, which nothing reads, is
+    not written).  Returns (result, peak GB, the printed log)."""
     import contextlib
     import io
     from repro_torch.configs.base import ShapeConfig
@@ -4317,17 +4337,23 @@ def _train(cfg, ckpt_dir, state_dtype, ckpt_every):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        out = train_loop.run(cfg.replace(opt_state_dtype=state_dtype),
-                             ShapeConfig("train", R["seq"], R["batch"],
-                                         "train"),
-                             job=job, device=DEVICE)
+    from repro_torch.runtime import checkpoint as ckpt_lib
+    skip = _SkipSave(ckpt_lib, skip={R["steps"]} if skip_final else ())
+    try:
+        with contextlib.redirect_stdout(log):
+            out = train_loop.run(cfg.replace(opt_state_dtype=state_dtype),
+                                 ShapeConfig("train", R["seq"], R["batch"],
+                                             "train"),
+                                 job=job, device=DEVICE)
+    finally:
+        skip.undo()
     return out, _peak_gb(), log.getvalue()
 
 
 def _run_record(out, peak):
     hist = out["history"]
-    times = [h["sec_per_step"] for h in hist if 2 <= h["step"] <= 7]
+    times = [h["sec_per_step"] for h in hist
+             if 2 <= h["step"] <= TRAIN_RUN["steps"] - 1]
     step_s = float(np.median(times))
     losses = [h["loss"] for h in hist]
     return dict(losses=losses, steps=[h["step"] for h in hist],
@@ -4371,16 +4397,15 @@ def train_runs(problems):
         free_gb = shutil.disk_usage(tmp).free / 1e9
         lines.append(f"checkpoints in {tmp}: {free_gb:.1f} GB free")
         first, peak, _ = _train(cfg, tmp, "float32",
-                                     TRAIN_RUN["ckpt_every"])
+                                TRAIN_RUN["ckpt_every"], skip_final=True)
         recs["fp32"] = _run_record(first, peak)
         final = [t.detach().clone() for t in weights.tree_leaves(
             weights.to_reference(first["params"], cfg))]
         recs["fp32"]["profile"] = _profile_train_step(cfg, first, "float32")
         del first
-        shutil.rmtree(f"{tmp}/step_{TRAIN_RUN['steps']:08d}")
-        # the restart: the latest checkpoint is now step 4's
+        # the restart: the latest checkpoint is step 3's
         again, peak, _ = _train(cfg, tmp, "float32",
-                                     TRAIN_RUN["ckpt_every"])
+                                TRAIN_RUN["ckpt_every"], skip_final=True)
         rec = _run_record(again, peak)
         if rec["steps"] != list(range(TRAIN_RUN["ckpt_every"],
                                       TRAIN_RUN["steps"])):
@@ -4395,7 +4420,7 @@ def train_runs(problems):
         recs["fp32 restart"] = rec
         if not (loss_diff <= 1e-6 * abs(first_losses[0])
                 and param_diff <= 1e-6):
-            problems.append(f"the restart from step 4 differs: losses by "
+            problems.append(f"the restart from step 3 differs: losses by "
                             f"{loss_diff}, "
                  f"parameters by {param_diff}")
         del again, final
@@ -4431,16 +4456,17 @@ def train_runs(problems):
         if not all(np.isfinite(r["losses"])):
             problems.append(f"{name} trainer: a loss is not finite: "
                             f"{r['losses']}")
-        if not r["losses"][7] < r["losses"][1]:
-            problems.append(f"{name} trainer: step 7's loss "
-                            f"{r['losses'][7]} is not "
+        if not r["losses"][-1] < r["losses"][1]:
+            problems.append(f"{name} trainer: the last step's loss "
+                            f"{r['losses'][-1]} is not "
                  f"below step 1's {r['losses'][1]}")
         pr = r["profile"]
         lines.append(
             f"{TRAIN_ARCH} trainer, {name} moments (28 layers, fp32 params, "
             f"bf16 activations, remat, B={TRAIN_RUN['batch']}, "
             f"S={TRAIN_RUN['seq']}): step {r['step_s'] * 1e3:.1f} ms "
-            f"(median of steps 2-7), {r['tokens_per_s']:.0f} tokens/s, "
+            f"(median of steps 2-{TRAIN_RUN['steps'] - 1}), "
+            f"{r['tokens_per_s']:.0f} tokens/s, "
             f"peak {r['peak_gb']:.2f} GB; losses "
             + ", ".join(f"{l:.4f}" for l in r["losses"])
             + f"; a profiled step {pr['wall_ms']:.1f} ms, busy "
@@ -4449,7 +4475,7 @@ def train_runs(problems):
     r = recs["fp32 restart"]
     ck = recs["checkpoint_s"]
     lines.append(
-        f"restart from the step-4 checkpoint: steps 4-7 losses within "
+        f"restart from the step-3 checkpoint: steps 3-5 losses within "
         f"{r['loss_diff']:.3g}, final parameters within {r['param_diff']:.3g}"
         f" of the uninterrupted run; checkpoint snapshots "
         + ", ".join(f"{x:.2f}" for x in ck["_snapshot"]) + " s, disk writes "
@@ -4478,6 +4504,538 @@ def train_phase(ops):
             print(f"[train] {line}")
         fail("phase 6: " + "; ".join(problems))
     return recs, launches, lines
+
+
+
+# ---------------------------------------------------------------------------
+# phase 7 — training on a device mesh (every position on the one card)
+# ---------------------------------------------------------------------------
+# the mesh trainer against the one-device trainer, both on the card: 2
+# layers at full width, fp32 activations, B=4, S=256, 3 steps at lr 1e-5,
+# fp32 and int8 moments, with phase 6's gates (STEP_TOL)
+MESH_PARITY = dict(n_layers=2, batch=4, seq=256, steps=3, lr=1e-5,
+                   meshes=((2, 2), (1, 2)))
+# the trainer at full width on a 2x2 mesh: 28 layers, fp32 parameters and
+# moments, bf16 activations, remat; a checkpoint at step 3 (the step-6
+# one is not written: nothing reads it)
+MESH_RUN = dict(data=2, model=2, batch=4, seq=2048, steps=6, ckpt_every=3,
+                warmup=2, peak_lr=3e-4)
+ELASTIC_MESHES = ((1, 4), (4, 1))
+# the step after the 1x4 restore against the 2x2 run's step 3: the same
+# parameters and batch, bf16 TP sums over 4 positions instead of 2 (read
+# 2.8e-5 relative on an H100); the control, the restored state on step
+# 4's batch, must land beyond it, or the gate could not tell a wrong batch
+ELASTIC_LOSS_TOL = 3e-4
+COMPRESS_RUN = dict(words=1 << 26, data=4, rounds=8, tol=0.02)
+# the tiny config's 16-wide attention blocks make long sequences slow:
+# at the CLI's default 8 x 512 the two runs took 63.9 and 55.1 s on an
+# H100
+MESH_CLI = (["--tiny", "--devices", "4", "--data", "2", "--model", "2",
+             "--steps", "3", "--seq", "64", "--batch", "4"],
+            ["--tiny", "--devices", "4", "--layout", "auto", "--steps", "3",
+             "--seq", "64", "--batch", "4"])
+
+
+class _SkipSave:
+    """Makes ``AsyncCheckpointer.save`` skip the given steps (a final
+    checkpoint that nothing in the phase reads) and keeps the host
+    snapshot that the save of step ``keep`` takes (to check a restore
+    against without reading the file again)."""
+
+    def __init__(self, ckpt_lib, skip=(), keep=None):
+        self.cls, self.fn = ckpt_lib.AsyncCheckpointer, \
+            ckpt_lib.AsyncCheckpointer.save
+        self.kept = None
+        outer = self
+
+        def save(self_, step, state, extra_meta=None):
+            if step in skip:
+                return
+            if step != keep:
+                return outer.fn(self_, step, state, extra_meta)
+            snap = ckpt_lib._snapshot
+
+            def keeping(st):
+                out = snap(st)
+                outer.kept = out[0]
+                return out
+            ckpt_lib._snapshot = keeping
+            try:
+                outer.fn(self_, step, state, extra_meta)
+            finally:
+                ckpt_lib._snapshot = snap
+        self.cls.save = save
+
+    def undo(self):
+        self.cls.save = self.fn
+
+
+def _mesh_parity_cfg():
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH).replace(
+        n_layers=MESH_PARITY["n_layers"], activation_dtype="float32")
+
+
+def _mesh_parity_run(cfg, state_dtype, mesh):
+    """MESH_PARITY's steps on ``mesh`` (None: one device, the card) from
+    the seeded weights.  Returns (logical parameter leaves on the host,
+    logical moments (m, v) on the host, per-step metrics)."""
+    from repro_torch import steps, weights
+    from repro_torch.optim import adam, quant
+    from repro_torch.parallel.sharding import gather, use_sharding
+    P = MESH_PARITY
+    c = adam.AdamConfig(state_dtype=state_dtype, weight_decay=0.1)
+    step = steps.make_train_step(cfg, c, lambda s: P["lr"])
+    params = weights.init_params(cfg, torch.Generator(DEVICE).manual_seed(
+        SEED), DEVICE)
+    hist = []
+    batches = _train_batches(cfg, P["batch"], P["seq"], P["steps"])
+    with use_sharding(mesh):
+        if mesh is None:
+            o = adam.init(weights.to_reference(params, cfg), c)
+        else:
+            params = weights.shard_tree(weights.to_reference(params, cfg),
+                                        mesh)
+            o = adam.init(params, c)
+        for b in batches:
+            params, o, m = step(params, o, _on(b, DEVICE))
+            hist.append({k: float(v) for k, v in m.items()})
+
+    def host(t):
+        if isinstance(t, quant.QTensor):
+            return t._replace(q=host(t.q), scale=host(t.scale))
+        return (t if isinstance(t, torch.Tensor) else gather(t)).cpu()
+    leaves = weights.tree_leaves(params if mesh is not None
+                                 else weights.to_reference(params, cfg))
+    return ([host(t) for t in leaves], ([host(t) for t in o.m],
+                                        [host(t) for t in o.v]), hist)
+
+
+def mesh_parity(problems):
+    """The mesh trainer at 2 layers on a 2x2 and a 1x2 mesh against the
+    one-device trainer on the card, fp32 and int8 moments, phase 6's
+    gates.  Returns (record, lines)."""
+    from repro_torch import weights
+    from repro_torch.launch.mesh import make_test_mesh
+    P = MESH_PARITY
+    cfg = _mesh_parity_cfg()
+    paths = ["/".join(k) for k, _ in _ckpt_items(weights.to_reference(
+        weights.init_params(cfg, device="meta"), cfg))]
+    recs, lines = {}, []
+    for sd in ("float32", "int8"):
+        t0 = time.time()
+        one = _mesh_parity_run(cfg, sd, None)
+        for d, m in P["meshes"]:
+            got = _mesh_parity_run(cfg, sd, make_test_mesh(d, m))
+            metric = max(abs(g[k] - h[k]) / max(abs(h[k]), 1e-30)
+                         for h, g in zip(one[2], got[2])
+                         for k in ("loss", "grad_norm"))
+            (share, share_at), (worst, worst_at) = _param_errs(
+                one[0], got[0], paths)
+            m_rel, m_share, m_dist = _moment_errs(one[1][0], got[1][0])
+            v_rel, v_share, v_dist = _moment_errs(one[1][1], got[1][1])
+            what = f"mesh parity {d}x{m} ({sd} moments)"
+            rec = dict(metric_rel_err=metric, param_share_off=share,
+                       param_share_leaf=share_at, param_max_abs=worst,
+                       m_rel_err=m_rel, v_rel_err=v_rel,
+                       code_share_off=max(m_share, v_share),
+                       code_max_dist=max(m_dist, v_dist),
+                       losses=[h["loss"] for h in got[2]],
+                       losses_one=[h["loss"] for h in one[2]])
+            recs[f"{d}x{m} {sd}"] = rec
+            if not metric <= STEP_TOL["metric"]:
+                problems.append(f"{what}: loss / grad norm {metric:.3g}")
+            if not share <= STEP_TOL["param_share"]:
+                problems.append(f"{what}: {share:.3g} of {share_at} more "
+                                f"than {STEP_TOL['param_near']} apart")
+            if sd == "int8":
+                if not (rec["code_max_dist"] <= P["steps"]
+                        and rec["code_share_off"] <= STEP_TOL["codes"]
+                        and max(m_rel, v_rel) <= P["steps"] / 127):
+                    problems.append(
+                        f"{what}: int8 codes {rec['code_max_dist']} apart "
+                        f"on {rec['code_share_off']:.3g}, scales "
+                        f"{max(m_rel, v_rel):.3g}")
+            elif not max(m_rel, v_rel) <= STEP_TOL["moment"]:
+                problems.append(f"{what}: moments {max(m_rel, v_rel):.3g}")
+            lines.append(
+                f"{what}: {TRAIN_ARCH} at 2 layers, fp32, B={P['batch']}, "
+                f"S={P['seq']}, 3 steps at lr {P['lr']}, against one device "
+                f"on the card: loss and grad norm within {metric:.3g} (tol "
+                f"{STEP_TOL['metric']}); parameters: at most {share:.3g} of "
+                f"a leaf ({share_at}) more than {STEP_TOL['param_near']} of "
+                f"its max apart, the largest gap {worst:.3g}; "
+                + (f"int8 codes {rec['code_max_dist']:.0f} apart on "
+                   f"{rec['code_share_off']:.3g} of them, block scales "
+                   f"{max(m_rel, v_rel):.3g}" if sd == "int8" else
+                   f"moments {max(m_rel, v_rel):.3g} of a leaf's max")
+                + f"; losses {', '.join(f'{l:.5f}' for l in rec['losses'])}")
+        recs[f"{sd} seconds"] = time.time() - t0
+        del one
+        torch.cuda.empty_cache()
+    return recs, lines
+
+
+def _mesh_wire(cfg, wire, n_pos):
+    """Each position's bytes a step by collective, beside what
+    ``core/costs.comm_events`` accounts for the layout."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import costs
+    R = MESH_RUN
+    per = {k: v / n_pos for k, v in sorted(wire.items())}
+    tp = sum(v for k, v in per.items() if not k.startswith(
+        ("zero", "grad norm", "int8")))
+    events = {e.name: e.wire_bytes_per_device() for e in costs.comm_events(
+        cfg, ShapeConfig("train", R["seq"], R["batch"], "train"),
+        costs.Layout(data=R["data"], model=R["model"]))}
+    return dict(per_position=per, tp_measured=tp,
+                grad_measured=per.get("zero grad reduce_scatter", 0.0),
+                param_measured=per.get("zero param all_gather", 0.0),
+                comm_events=events)
+
+
+def mesh_trainer(ops, problems, tmp):
+    """``train_loop.run`` at full width on a 2x2 mesh (MESH_RUN) with a
+    step-3 checkpoint, then one profiled step.  Returns (record, the
+    kernels' launches over the run, the step-3 snapshot, line)."""
+    import contextlib
+    import io
+    from repro_torch import steps
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import use_sharding
+    from repro_torch.runtime import checkpoint as ckpt_lib, train_loop
+    R = MESH_RUN
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_test_mesh(R["data"], R["model"])
+    job = train_loop.TrainJobConfig(
+        steps=R["steps"], log_every=1, ckpt_every=R["ckpt_every"],
+        ckpt_dir=tmp, peak_lr=R["peak_lr"], warmup=R["warmup"], seed=SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    skip = _SkipSave(ckpt_lib, skip={R["steps"]}, keep=R["ckpt_every"])
+    for fn in ops.WRAPPERS:
+        fn.launches = 0
+    log = io.StringIO()
+    clocks = {n: _Clock(ckpt_lib, n) for n in ("_snapshot", "_write")}
+    t1 = time.time()
+    try:
+        with contextlib.redirect_stdout(log):
+            out = train_loop.run(cfg, ShapeConfig("train", R["seq"],
+                                                  R["batch"], "train"),
+                                 mesh=mesh, job=job)
+    finally:
+        skip.undo()
+        for c_ in clocks.values():
+            c_.undo()
+    run_s = time.time() - t1
+    torch.cuda.synchronize()
+    launches = _launches(ops)
+    peak = _peak_gb()
+    hist = out["history"]
+    times = [h["sec_per_step"] for h in hist if 2 <= h["step"] <= 5]
+    step_s = float(np.median(times))
+    rec = dict(losses=[h["loss"] for h in hist], step_times=times,
+               step_s=step_s, tokens_per_s=R["batch"] * R["seq"] / step_s,
+               peak_gb=peak, positions=len(mesh.devices),
+               distinct_devices=mesh.distinct_devices, run_s=run_s,
+               checkpoint_s={n: c_.s for n, c_ in clocks.items()})
+    # one more step under the profiler, its bytes on the wire counted
+    c = steps.adam_config_for(cfg)
+    step = steps.make_train_step(cfg, c, lambda s: R["peak_lr"])
+    batch = _on(_train_batches(cfg, R["batch"], R["seq"], 1)[0], DEVICE)
+    params, opt = out.pop("params"), out.pop("opt_state")
+    col.WIRE.clear()
+
+    def one():
+        with use_sharding(mesh):
+            step(params, opt, batch)
+        return 1
+    # the host's ops untraced: at 146k launches a step their events took
+    # the profiler about a minute to sum on an H100 run
+    t1 = time.time()
+    rec["profile"] = _profile(one, cpu=False)
+    rec["profile_s"] = time.time() - t1
+    rec["wire"] = _mesh_wire(cfg, dict(col.WIRE), len(mesh.devices))
+    del params, opt, out, batch
+    torch.cuda.empty_cache()
+    losses = rec["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[1]:
+        problems.append(f"mesh trainer: losses {losses}")
+    w = rec["wire"]
+    ev = w["comm_events"]
+    ratios = dict(
+        tp=w["tp_measured"] / ev.get("tp_sublayer_allreduce", float("nan")),
+        grad=w["grad_measured"] / ev.get("grad_reduce_scatter",
+                                         float("nan")),
+        param=w["param_measured"] / ev.get("param_all_gather", float("nan")))
+    rec["wire_ratios"] = ratios
+    pr = rec["profile"]
+    line = (f"{TRAIN_ARCH} mesh trainer, 2x2 mesh on one card (28 layers, "
+            f"fp32 params and moments, bf16 activations, remat, "
+            f"B={R['batch']}, S={R['seq']}): step {step_s * 1e3:.1f} ms "
+            f"(median of steps 2-5), {rec['tokens_per_s']:.0f} tokens/s, "
+            f"peak {peak:.2f} GB; losses "
+            + ", ".join(f"{l:.4f}" for l in losses)
+            + f"; a profiled step {pr['wall_ms']:.1f} ms, busy "
+            f"{pr['busy_share']:.3f}, {pr['launches_per_step']:.0f} "
+            f"launches, top {pr['top']}; wire bytes a position a step: "
+            f"TP {w['tp_measured'] / 1e9:.3f} GB (comm_events "
+            f"{ev.get('tp_sublayer_allreduce', 0) / 1e9:.3f}, x"
+            f"{ratios['tp']:.3f}; by site "
+            + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in
+                        w["per_position"].items() if not k.startswith(
+                            ("zero", "grad norm", "int8")))
+            + "), grad reduce-scatter "
+            f"{w['grad_measured'] / 1e9:.3f} GB (x{ratios['grad']:.3f}), "
+            f"param all-gather {w['param_measured'] / 1e9:.3f} GB "
+            f"(x{ratios['param']:.3f}); kernel launches {launches}; the run "
+            f"{run_s:.1f} s (step-3 snapshot "
+            f"{rec['checkpoint_s']['_snapshot'][0]:.2f} s, write "
+            f"{rec['checkpoint_s']['_write'][0]:.2f} s), the profiled step "
+            f"{rec['profile_s']:.1f} s")
+    return rec, launches, skip.kept, line
+
+
+def elastic_restores(problems, tmp, kept, step3_loss):
+    """The step-3 checkpoint restored onto a 1x4 and a 4x1 mesh: every
+    position's block equal to the saved array's, bit for bit; one more
+    step on the 1x4 mesh with ``rebatch``'s batch.  Returns (record,
+    line)."""
+    from repro_torch import steps
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import adam
+    from repro_torch.parallel.sharding import region, use_sharding
+    from repro_torch.runtime import checkpoint as ckpt_lib, elastic
+    R = MESH_RUN
+    cfg = get_config(TRAIN_ARCH)
+    c = steps.adam_config_for(cfg)
+    rec = {}
+    for d, m in ELASTIC_MESHES:
+        mesh = make_test_mesh(d, m)
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        step, params, opt = elastic.restore_elastic(tmp, cfg, c, mesh)
+        torch.cuda.synchronize()
+        restore_s = time.time() - t0
+        # each distinct block against the saved array's (copied to the
+        # card), each replica against the first position holding it
+        bad, blocks = [], 0
+        for path, leaf in ckpt_lib._items({"params": params, "opt": opt}):
+            want = torch.from_numpy(kept["/".join(path)])
+            if leaf.ndim == 0:
+                ok = torch.equal(leaf.cpu(), want)
+            else:
+                ok, first = True, {}
+                for p, t in enumerate(leaf.shards):
+                    blocks += 1
+                    reg = region(leaf.shape, leaf.spec, mesh, p)
+                    key = tuple((r.start, r.stop) for r in reg)
+                    if key in first:
+                        ok = ok and torch.equal(t, first[key])
+                    else:
+                        first[key] = t
+                        ok = ok and torch.equal(t, want[reg].to(t.device))
+            if not ok:
+                bad.append("/".join(path))
+        r = dict(step=step, restore_s=restore_s, blocks=blocks, bad=bad)
+        if step != R["ckpt_every"] or bad:
+            problems.append(f"elastic restore onto {d}x{m}: step {step}, "
+                            f"{len(bad)} leaves differ ({bad[:3]})")
+        if (d, m) == ELASTIC_MESHES[0]:
+            per, accum = elastic.rebatch(R["batch"], R["data"], d)
+            sched = lambda s: adam.warmup_cosine(
+                s, peak_lr=R["peak_lr"], warmup=R["warmup"],
+                total=R["steps"])
+            stepf = steps.make_train_step(cfg, c, sched)
+            batches = _train_batches(cfg, per, R["seq"], step + 2)
+            with use_sharding(mesh):
+                ctl, _ = steps.mesh_loss_and_grads(
+                    cfg, params, _on(batches[step + 1], DEVICE))
+                ctl = float(ctl["loss"])
+                t0 = time.time()
+                _, _, met = stepf(params, opt, _on(batches[step], DEVICE))
+            torch.cuda.synchronize()
+            rel = lambda x: abs(x - step3_loss) / abs(step3_loss)
+            r.update(rebatch=(per, accum), loss=float(met["loss"]),
+                     step_s=time.time() - t0, loss_2x2=step3_loss,
+                     control_loss=ctl, gap=rel(float(met["loss"])),
+                     control_gap=rel(ctl))
+            if not r["gap"] <= ELASTIC_LOSS_TOL:
+                problems.append(f"the step after the 1x4 restore: loss "
+                                f"{r['loss']} against the 2x2 run's "
+                                f"{step3_loss} ({r['gap']:.2e} relative)")
+            if not r["control_gap"] > ELASTIC_LOSS_TOL:
+                problems.append(f"the restored state on step {step + 1}'s "
+                                f"batch: loss {ctl}, {r['control_gap']:.2e} "
+                                f"from step 3's, within the gate")
+        rec[f"{d}x{m}"] = r
+        del params, opt
+    a = rec["1x4"]
+    line = (f"elastic restore of the 2x2 run's step-3 checkpoint: onto 1x4 "
+            f"in {a['restore_s']:.2f} s, 4x1 in {rec['4x1']['restore_s']:.2f}"
+            f" s; {a['blocks']} and {rec['4x1']['blocks']} blocks, leaves "
+            f"differing {len(a['bad'])} and {len(rec['4x1']['bad'])}; rebatch "
+            f"{a['rebatch']}; step 3 on 1x4 loss {a['loss']:.5f} "
+            f"({a['step_s']:.2f} s) against the 2x2 run's {step3_loss:.5f} "
+            f"({a['gap']:.2e} relative, gate {ELASTIC_LOSS_TOL:g}); the "
+            f"control on step 4's batch {a['control_loss']:.5f} "
+            f"({a['control_gap']:.2e})")
+    return rec, line
+
+
+def _compressed_plain(xs, es, n):
+    """The compressed all-reduce of one group in one place: quantize each
+    position's value, the mean of the dequantized chunks in group order,
+    requantize, dequantize."""
+    from repro_torch.optim import compress
+    size = xs[0].numel()
+    hats, errs = [], []
+    for x, e in zip(xs, es):
+        g = x.reshape(-1) + e.reshape(-1)
+        q, s = compress._q8(g)
+        hats.append(compress._dq8(q, s))
+        errs.append(g - hats[-1])
+    mean = hats[0]
+    for h in hats[1:]:
+        mean = mean + h
+    mean = mean / n
+    chunks = [compress._dq8(*compress._q8(c)) for c in mean.chunk(n)]
+    return torch.cat(chunks)[:size], errs
+
+
+def mesh_compress(problems):
+    """``compressed_all_reduce`` over the data axis of a 4x1 mesh, a
+    64 M-element fp32 gradient a position: against its plain version,
+    8 error-feedback rounds, its bytes against ``wire_bytes``, its time
+    beside the fp32 all-reduce's (``lattice_all_reduce`` over the same
+    axis).  Returns (record, line)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import compress
+    from repro_torch.parallel.lattice import lattice_all_reduce
+    from repro_torch.parallel.sharding import use_sharding
+    C = COMPRESS_RUN
+    n, N = C["data"], C["words"]
+    mesh = make_test_mesh(n, 1)
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    xs = [torch.randn(N, generator=gen, device=DEVICE) for _ in range(n)]
+    zeros = [torch.zeros(N, device=DEVICE) for _ in range(n)]
+    with use_sharding(mesh):
+        stats = {}
+        out, errs = compress.compressed_all_reduce(xs, zeros, "data",
+                                                   stats=stats)
+        plain, perr = _compressed_plain(xs, zeros, n)
+        err = max(max_err(o, plain) for o in out)
+        err_e = max(max_err(a, b) for a, b in zip(errs, perr))
+        mean = sum(xs) / n
+        acc = torch.zeros(N, device=DEVICE)
+        e = zeros
+        for _ in range(C["rounds"]):
+            red, e = compress.compressed_all_reduce(xs, e, "data")
+            acc += red[0]
+        rel = float((acc / C["rounds"] - mean).abs().max()
+                    / mean.abs().max())
+        del acc, e, red
+        ms = time_ms(lambda: compress.compressed_all_reduce(
+            xs, zeros, "data"), iters=5)
+        lat = {}
+        ms_fp32 = time_ms(lambda: lattice_all_reduce(
+            xs, fast_axes=("data",), slow_axis="pod", stats=lat), iters=5)
+    moved = sum(stats.values())
+    want = compress.wire_bytes(N, n, "int8_ef")
+    rec = dict(words=N, positions=n, max_abs_err=err, err_residual=err_e,
+               ef_rel=rel, bytes=moved, wire_bytes=want, ms=ms,
+               fp32_ms=ms_fp32, fp32_bytes=sum(lat.values()))
+    if not (err <= 0 and err_e <= 0):
+        problems.append(f"compressed all-reduce against plain: {err}, "
+                        f"residual {err_e}")
+    if not rel < C["tol"]:
+        problems.append(f"compressed all-reduce error feedback: {rel}")
+    if moved != want:
+        problems.append(f"compressed all-reduce moved {moved} B, "
+                        f"wire_bytes {want}")
+    del xs, zeros, out, errs, plain, perr
+    torch.cuda.empty_cache()
+    return rec, (
+        f"compressed all-reduce over a 4x1 mesh's data axis, 64 M fp32 a "
+        f"position: against plain {err:.3g} (residual {err_e:.3g}), 8 "
+        f"error-feedback rounds' mean {rel:.3g} of the true mean's max (tol "
+        f"{C['tol']}); {moved} B a position = wire_bytes {want:.0f} "
+        f"(fp32 all-reduce {rec['fp32_bytes']} B); {ms:.3f} ms, the fp32 "
+        f"all-reduce {ms_fp32:.3f} ms (four positions on one card: the "
+        f"transfers are device-local)")
+
+
+def mesh_cli(problems):
+    """The train CLI on a mesh in a process of its own, each of
+    MESH_CLI's flag sets; output in chiprun_out/mesh_train_cli.txt."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    text, rec = [], []
+    for argv in MESH_CLI:
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"]
+                           + argv, capture_output=True, text=True,
+                           timeout=600, cwd=ROOT, env=env)
+        text.append(f"$ train {' '.join(argv)}\n{r.stdout}{r.stderr}")
+        final = [x for x in r.stdout.splitlines() if x.startswith("final:")]
+        mesh = [x for x in r.stdout.splitlines() if x.startswith("mesh ")]
+        rec.append(dict(argv=argv, rc=r.returncode, s=time.time() - t0,
+                        mesh=mesh[0] if mesh else None))
+        if r.returncode or not final or not mesh:
+            problems.append(f"train CLI {' '.join(argv)}: exit "
+                            f"{r.returncode}; {r.stderr[-800:]}")
+    OUT.mkdir(exist_ok=True)
+    (OUT / "mesh_train_cli.txt").write_text("\n".join(text))
+    return rec, "train CLI in its own process: " + "; ".join(
+        f"{' '.join(x['argv'])}: exit {x['rc']} in {x['s']:.1f} s "
+        f"({x['mesh']})" for x in rec)
+
+
+def mesh_phase(ops):
+    """Phase 7: training on a device mesh, every position on the one
+    card.  Returns (records, {path: launches}, lines)."""
+    import shutil
+    import tempfile
+    t0 = time.time()
+    recs, lines, problems = {}, [], []
+    clock = {}
+
+    def timed(name, fn, *args):
+        t1 = time.time()
+        out = fn(*args)
+        clock[name] = time.time() - t1
+        return out
+    recs["parity"], ls = timed("parity", mesh_parity, problems)
+    lines += ls
+    tmp = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    try:
+        recs["trainer"], launches, kept, line = timed(
+            "trainer", mesh_trainer, ops, problems, tmp)
+        lines.append(line)
+        step3 = recs["trainer"]["losses"][MESH_RUN["ckpt_every"]]
+        recs["elastic"], line = timed("elastic", elastic_restores, problems,
+                                      tmp, kept, step3)
+        lines.append(line)
+        del kept
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    recs["compress"], line = timed("compress", mesh_compress, problems)
+    lines.append(line)
+    recs["cli"], line = timed("cli", mesh_cli, problems)
+    lines.append(line)
+    recs["seconds"] = time.time() - t0
+    recs["section_s"] = clock
+    lines.append(f"phase 7 took {recs['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in clock.items()) + ")")
+    if problems:
+        for line in lines:
+            print(f"[mesh] {line}")
+        fail("phase 7: " + "; ".join(problems))
+    return recs, {"mesh train: qwen3-1.7b 2x2": launches}, lines
 
 
 def main():
@@ -4526,6 +5084,16 @@ def main():
         OUT.mkdir(exist_ok=True)
         (OUT / "chip_smoke_train.json").write_text(json.dumps(
             dict(gpu=info, train=train, launches=launches), indent=2))
+        return
+    if sys.argv[1:] == ["--only-mesh"]:       # phase 7 alone, no verdict
+        mesh, launches, mesh_lines = mesh_phase(ops)
+        for line in mesh_lines:
+            print(f"[mesh] {line}")
+        OUT.mkdir(exist_ok=True)
+        (OUT / "chip_smoke_mesh.json").write_text(json.dumps(
+            dict(gpu=info, mesh=mesh, launches=launches), indent=2,
+            default=str))
+        print(gpu_info())
         return
     recs, lines = {}, []
     for check in (check_paged, check_flash, check_rwkv6, check_rglru,
@@ -4629,7 +5197,7 @@ def main():
     print(f"[parity] {line}")
     del params
     torch.cuda.empty_cache()
-    # DeepSeek-V3 (5 layers) and gemma2-27b (every layer) at their
+    # DeepSeek-V3 (5 layers) and gemma2-27b (24 layers) at their
     # published widths through the dense engine; each parity run then
     # takes its layers from the served weights, and the rest are freed
     for arch in ("deepseek-v3-671b", "gemma2-27b"):
@@ -4672,6 +5240,11 @@ def main():
     for line in train_lines:
         print(f"[train] {line}")
 
+    mesh, mesh_launches, mesh_lines = mesh_phase(ops)
+    path_launches.update(mesh_launches)
+    for line in mesh_lines:
+        print(f"[mesh] {line}")
+
     for name, rec in recs.items():
         rec["launches"] = sum(l[w] for l in path_launches.values()
                               for w, k in ops.KERNEL_OF.items() if k == name)
@@ -4690,8 +5263,8 @@ def main():
              kernels=[recs[fn.__name__] for fn in ops.KERNELS],
              flash_local=flash_local,
              path_launches=path_launches, serve=serve_stats, parity=parity,
-             paper=paper, train=train),
-        indent=2))
+             paper=paper, train=train, mesh=mesh),
+        indent=2, default=str))
     print(f"[done] {time.time() - t0:.1f} s after the build started")
     print(json.dumps(kernels))
     print(gpu_info())

@@ -1,4 +1,4 @@
-"""CLI trainer of the port, on one device.
+"""CLI trainer of the port.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --seq 2048 --batch 4 --steps 200 --ckpt-dir /tmp/ck
@@ -6,11 +6,18 @@
 Reference: ``repro/launch/train.py``.  ``--tiny`` runs the reduced smoke
 config of any arch.  Runs on the GPU (``--device cpu`` for the CPU) and
 raises without CUDA unless given the CPU.  The data is the reference's
-synthetic Zipf stream from the job's seed.  Training on a mesh is not
-ported (ROADMAP Queue A item 10): ``--devices`` > 1, ``--data`` or
-``--model`` > 1 and ``--layout auto`` exit with code 2, and so does
-``--impl pallas``: the kernels, like the reference's Pallas calls, have
-no backward.
+synthetic Zipf stream from the job's seed.
+
+``--data D --model M`` trains on a D x M mesh of positions (one torch
+device a position, round-robin over the visible cards, or all on the
+CPU with ``--device cpu``; one card may hold every position), ``--devices
+N`` says how many positions there are (default D x M), and ``--layout
+auto`` lets the cost engine pick (data, model) for N positions, printing
+the reference's ``[cost-engine]`` lines (they price a TPU v5e-class
+chip, not the card).  MoE configs on any mesh, and MLA, RG-LRU and
+RWKV-6 layers on a model axis > 1, exit with code 2 (ROADMAP Queue A
+item 16), and so does ``--impl pallas``: the kernels, like the
+reference's Pallas calls, have no backward.
 """
 from __future__ import annotations
 
@@ -35,10 +42,13 @@ def build_parser():
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu for the CPU)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="mesh positions (not ported: only 0 or 1)")
-    ap.add_argument("--layout", default="manual", choices=["manual", "auto"])
+                    help="mesh positions (default --data x --model), "
+                         "round-robin over the visible cards or on the CPU")
+    ap.add_argument("--layout", default="manual", choices=["manual", "auto"],
+                    help="auto: let the cost engine pick (data, model)")
     ap.add_argument("--link-mode", default="circuit",
-                    choices=["circuit", "packet"])
+                    choices=["circuit", "packet"],
+                    help="interconnect model used by --layout auto")
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
     return ap
@@ -49,19 +59,42 @@ def _usage_error(msg):
     raise SystemExit(2)
 
 
+def _mesh(args, cfg, shape):
+    """(mesh or None, the cost engine's chosen estimate or None)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import (autotune_layout,
+                                               make_layout_mesh)
+    devices = "cpu" if args.device == "cpu" else None
+    if args.layout == "auto":
+        n = args.devices or 1
+        best, ranked = autotune_layout(cfg, shape, n_chips=n,
+                                       mode=args.link_mode)
+        print(f"[cost-engine] {len(ranked)} candidate layouts for "
+              f"{best.layout.n_chips} mesh positions ({args.link_mode} "
+              "mode; the reference's TPU v5e-class prices):")
+        for est in ranked:
+            tag = " <= chosen" if est is ranked[0] else ""
+            print(f"[cost-engine]   {est.describe()}{tag}")
+        print(f"[cost-engine] predicted step time "
+              f"{best.step_time_s * 1e3:.3f} ms "
+              f"({best.tokens_per_s:.0f} tok/s)")
+        return make_layout_mesh(best.layout, devices), best
+    n = args.data * args.model
+    if args.devices and args.devices < n:
+        _usage_error(f"--data {args.data} x --model {args.model} needs {n} "
+                     f"mesh positions, --devices gives {args.devices}")
+    return (make_test_mesh(args.data, args.model, devices=devices)
+            if n > 1 else None), None
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.devices > 1 or args.data * args.model > 1 \
-            or args.layout == "auto":
-        _usage_error("--devices > 1, --data / --model > 1 and --layout auto "
-                     "train on a device mesh, which is not ported to the "
-                     "PyTorch trainer yet (see ROADMAP.md Queue A item 10); "
-                     "it trains on one device")
     if args.impl == "pallas":
         _usage_error("--impl pallas: the kernels have no backward (neither "
                      "have the reference's Pallas calls); train with "
                      "--impl blocked")
 
+    from repro_torch import steps
     from repro_torch.configs import get_config, get_tiny_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.runtime import train_loop
@@ -70,12 +103,28 @@ def main(argv=None):
     if args.impl is not None:
         cfg = cfg.replace(impl=args.impl)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    mesh, predicted = _mesh(args, cfg, shape)
+    try:
+        steps.check_mesh(cfg, mesh)
+    except NotImplementedError as e:
+        _usage_error(str(e))
+    if mesh is not None:
+        print(f"mesh {dict(mesh.shape)}: {len(mesh.devices)} positions on "
+              f"{mesh.distinct_devices} distinct device(s)")
     job = train_loop.TrainJobConfig(
         steps=args.steps, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, peak_lr=args.lr,
         metrics_path=args.metrics)
-    out = train_loop.run(cfg, shape, job=job, device=args.device)
+    out = train_loop.run(cfg, shape, mesh=mesh, job=job, device=args.device)
     print("final:", {k: v for k, v in out["final_metrics"].items()})
+    if predicted is not None:
+        measured = out["final_metrics"].get("sec_per_step")
+        if measured:
+            print(f"[cost-engine] predicted {predicted.step_time_s:.4f}s "
+                  f"vs measured {measured:.4f}s per step (ratio "
+                  f"{measured / predicted.step_time_s:.2f}x; the engine "
+                  f"models TPU v5e-class chips, not this host)")
+    return out
 
 
 if __name__ == "__main__":

@@ -70,6 +70,31 @@ def expand_kv(k, n_heads: int):
         B, T, n_heads, hd).contiguous()
 
 
+def _qkv_tp(p, cfg, x, angles):
+    """``_qkv`` on a model group, as the reference places it: one fused
+    ``column_parallel`` of wq, wk and wv on the seq-sharded ``x``, q
+    split on heads (H/tp a position), k and v all-gathered to every kv
+    head on every position, so that any kv-head count works; ``angles``
+    a PerPos of the full sequence's."""
+    from repro_torch.parallel import collectives as col
+    qf, kf, vf = col.column_parallel(x, [p["wq"], p["wk"], p["wv"]])
+    hd, kv = cfg.head_dim, cfg.n_kv_heads
+    if kf[0].shape[-1] != kv * hd:    # column blocks: gather every head
+        kf = col.all_gather(kf, -1, "kv")
+        vf = col.all_gather(vf, -1, "kv")
+    q = col.local(lambda t: _split_heads(t, t.shape[-1] // hd, hd), qf)
+    k = col.local(lambda t: _split_heads(t, kv, hd), kf)
+    v = col.local(lambda t: _split_heads(t, kv, hd), vf)
+    if cfg.qk_norm:
+        q, k = col.local(lambda a, b, sq, sk: nn.qk_rmsnorm(
+            a, b, sq, sk, cfg.norm_eps, cfg.impl), q, k, p["q_norm"],
+            p["k_norm"])
+    if cfg.rope and angles is not None:
+        q = col.local(nn.apply_rope, q, angles)
+        k = col.local(nn.apply_rope, k, angles)
+    return q, k, v
+
+
 def _qkv(p, cfg, x, angles):
     """Project + head-split + qk-norm + rope.  Returns q (B,S,H,hd) and
     k/v (B,S,Kv,hd).  On one device the reference's fused
@@ -582,8 +607,42 @@ def apply_decode_paged(p, cfg, x, pool: PagedAttnCache, block_tables,
 # ---------------------------------------------------------------------------
 # full layer entry points
 # ---------------------------------------------------------------------------
+def _apply_tp(p, cfg, x, *, kind: str, angles):
+    """The train forward on a model group: ``_qkv_tp``, each position's
+    heads through the blocked (or ref) core against the kv heads they
+    read, then ``row_parallel`` of wo back to the seq-sharded stream."""
+    from repro_torch.parallel import collectives as col
+    q, k, v = _qkv_tp(p, cfg, x, angles)
+    window = cfg.sliding_window if kind == "local" else None
+    kw = dict(causal=cfg.causal, window=window, scale=_scale(cfg),
+              softcap=cfg.attn_softcap)
+
+    def core(m, q_m, k_m, v_m):
+        hl = q_m.shape[2]
+        heads = slice(m * hl, (m + 1) * hl)
+        kh = expand_kv(k_m, cfg.n_heads)[:, :, heads]
+        vh = expand_kv(v_m, cfg.n_heads)[:, :, heads]
+        if cfg.impl == "ref":
+            o = attend_ref(q_m, kh, vh, **kw)
+        elif cfg.impl == "blocked":
+            o = attend_blocked(q_m, kh, vh, block_q=cfg.attn_block_q,
+                               block_kv=cfg.attn_block_kv, **kw)
+        else:
+            raise NotImplementedError(
+                f"impl={cfg.impl!r} on a model group: the kernels have no "
+                "backward; train with impl='blocked'")
+        return o.reshape(*o.shape[:2], hl * cfg.head_dim)
+    o = col.local(core, q, k, v, index=True)
+    return col.row_parallel(o, p["wo"]), None
+
+
 def apply(p, cfg, x, *, kind: str, angles):
-    """Prefill path, routed by ``cfg.impl``. Returns (out, (k, v))."""
+    """Prefill path, routed by ``cfg.impl``. Returns (out, (k, v)).  On
+    a model group (``x`` the seq-sharded Shards of a mesh's train
+    forward) ``_apply_tp``, which keeps no cache."""
+    from repro_torch.parallel import collectives as col
+    if isinstance(x, col.Shards):
+        return _apply_tp(p, cfg, x, kind=kind, angles=angles)
     impl = cfg.impl
     window = cfg.sliding_window if kind == "local" else None
     q, k, v = _qkv(p, cfg, x, angles)

@@ -7,6 +7,14 @@ experts beside the routed ones), and rwkv6, the complete RWKV-6 layer
 (its channel-mix takes the place of the FFN and its second norm sits
 inside the branch).  gemma2-style post-norms via ``cfg.post_norm``: a
 branch is normed before it joins the residual stream.
+
+On a model group (the train forward on a mesh with a "model" axis, GQA
+attention and a dense FFN) ``x`` and ``pending`` are the residual
+stream's sequence blocks (:class:`~repro_torch.parallel.collectives.
+Shards`) and each norm runs in that sequence-sharded domain, as the
+reference's ``_seq_sp`` places it: the all-gather to the full sequence
+happens after the norm, inside the mixer's and the FFN's
+``column_parallel``.
 """
 from __future__ import annotations
 
@@ -14,6 +22,8 @@ from repro_torch.configs.base import ATTN, LOCAL, MLA, RGLRU, RWKV6
 from repro_torch.models import attention, mla as mla_mod, modules as nn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod, rwkv6 as rwkv6_mod
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import logical_constraint
 
 
 def shared_cfg(cfg):
@@ -22,10 +32,25 @@ def shared_cfg(cfg):
     return cfg.replace(d_ff=cfg.moe.d_ff_expert * cfg.moe.n_shared)
 
 
+def _seq_sp(y):
+    """A row-parallel branch output lands in the sequence-sharded
+    residual layout (the reference's ``_seq_sp``)."""
+    if isinstance(y, col.Shards):
+        return logical_constraint(y, "batch", "seq_sp", None)
+    return y
+
+
+def _norm(scale, cfg, x):
+    if isinstance(x, col.Shards):
+        return col.local(lambda t, s: nn.rmsnorm(t, s, cfg.norm_eps,
+                                                 cfg.impl), x, scale)
+    return nn.rmsnorm(x, scale, cfg.norm_eps, cfg.impl)
+
+
 def _post(p, cfg, name, y):
     if cfg.post_norm:
-        y = nn.rmsnorm(y, p[name]["scale"], cfg.norm_eps, cfg.impl)
-    return y
+        y = _norm(p[name]["scale"], cfg, y)
+    return _seq_sp(y)
 
 
 def _add_norm(p, cfg, name, x, pending):
@@ -33,7 +58,10 @@ def _add_norm(p, cfg, name, x, pending):
     norm after it (one kernel launch under impl="pallas"); with nothing
     pending (the first layer), the norm of x alone."""
     if pending is None:
-        return x, nn.rmsnorm(x, p[name]["scale"], cfg.norm_eps, cfg.impl)
+        return x, _norm(p[name]["scale"], cfg, x)
+    if isinstance(x, col.Shards):
+        return col.local(lambda a, b, s: nn.add_rmsnorm(
+            a, b, s, cfg.norm_eps, cfg.impl), x, pending, p[name]["scale"])
     return nn.add_rmsnorm(x, pending, p[name]["scale"], cfg.norm_eps,
                           cfg.impl)
 

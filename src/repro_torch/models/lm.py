@@ -13,6 +13,15 @@ and runs the cycles as a Python loop over device tensors.  As in the
 reference, ``decode_step`` returns the new cache nesting: attention caches
 are written in place and returned, the recurrent states (RG-LRU, RWKV-6)
 are new tensors, so the caller must use the caches it gets back.
+
+The train forward and the loss also run on one model group of a mesh
+(``group=``, the mesh's train step, ``steps.make_train_step``): the
+parameters are then one nesting whose leaves hold each position's block
+(``weights.group_view``), the residual stream is sequence-sharded
+(:class:`~repro_torch.parallel.collectives.Shards`, the reference's
+``logical_constraint(x, "batch", "seq_sp", None)``) and the
+cross-entropy is vocabulary-parallel: each position's logits cover its
+vocabulary block and only (B, chunk)-sized sums cross positions.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, modules as nn
+from repro_torch.parallel import collectives as col
 
 
 class SegmentSpec(NamedTuple):
@@ -139,7 +149,7 @@ def head_logits(params, cfg, h):
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 def forward(params, cfg: ModelConfig, tokens, positions=None, *,
-            mode: str = "prefill"):
+            mode: str = "prefill", group=None):
     """tokens: (B,S) int ids or (B,S,D) embeddings (stub frontends);
     positions (B,S), or (3,B,S) under M-RoPE, default
     ``default_positions``.
@@ -154,8 +164,16 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, *,
     and keeps no caches.  Under ``cfg.remat`` each cycle of a scanned
     segment runs under ``torch.utils.checkpoint`` (the reference
     checkpoints its scan body, in train mode only): backward recomputes
-    the cycle from its inputs instead of keeping its activations."""
+    the cycle from its inputs instead of keeping its activations.
+
+    With ``group`` (train mode only) the forward runs on that model
+    group: ``params`` is ``weights.group_view`` of its positions' blocks,
+    ``tokens`` and ``positions`` the group's batch rows on its root
+    device, and h_final the sequence-sharded Shards."""
     assert mode in ("train", "prefill"), mode
+    if group is not None:
+        assert mode == "train", "a model group runs the train forward only"
+        return _forward_train_tp(params, cfg, tokens, positions, group)
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[:2]
     if positions is None:
@@ -172,7 +190,8 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, *,
 
 def _cycle_train(cyc_p, cfg, kinds, x, pending, angles):
     """One cycle of a segment in train mode: (x, pending, its aux)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    dev = x[0].device if isinstance(x, col.Shards) else x.device
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for p, kind in zip(cyc_p, kinds):
         x, pending, _, a = blocks.apply(p, cfg, kind, x, pending,
                                         angles=angles)
@@ -182,7 +201,8 @@ def _cycle_train(cyc_p, cfg, kinds, x, pending, angles):
 
 
 def _forward_train(params, cfg, x, angles):
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    dev = x[0].device if isinstance(x, col.Shards) else x.device
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     pending = None
     for seg, seg_p in zip(make_segments(cfg), params["segments"]):
         for cyc_p in seg_p:
@@ -194,7 +214,52 @@ def _forward_train(params, cfg, x, angles):
                 x, pending, a = _cycle_train(cyc_p, cfg, seg.kinds, x,
                                              pending, angles)
             aux = aux + a
+    if isinstance(x, col.Shards):
+        return col.local(torch.add, x, pending), aux
     return x + pending, aux
+
+
+def _embed_tp(params, cfg, tokens, group):
+    """The group's embeddings as the sequence-sharded residual stream.
+    A vocabulary-split table: each position looks up the tokens in its
+    block (zero elsewhere) and a reduce-scatter over the sequence sums
+    them (exact: one term is not zero); a whole table (a vocabulary the
+    group does not divide) or embedding inputs: each position its own
+    sequence block."""
+    n = group.size
+    act = nn.dt(cfg.activation_dtype)
+    scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
+
+    def finish(x):
+        return x * torch.tensor(scale, dtype=x.dtype) if scale else x
+    if not cfg.embed_inputs:
+        return col.Shards([finish(tokens.chunk(n, 1)[m].to(d, act))
+                           for m, d in enumerate(group.devices)], group, 1)
+    table = params["embed"]["embed_table"]
+    if table[0].shape[0] == cfg.vocab_size:
+        return col.Shards([finish(table[m][tokens.chunk(n, 1)[m].to(
+            d).long()].to(act)) for m, d in enumerate(group.devices)],
+            group, 1)
+    parts = []
+    for m, d in enumerate(group.devices):
+        v_local = table[m].shape[0]
+        loc = tokens.to(d).long() - m * v_local
+        ok = (loc >= 0) & (loc < v_local)
+        e = table[m][torch.clamp(loc, 0, v_local - 1)].to(act)
+        parts.append(torch.where(ok[..., None], e, torch.zeros((), dtype=act,
+                                                               device=d)))
+    return col.Shards([finish(x) for x in col.reduce_scatter(
+        parts, group, 1, "embed")], group, 1)
+
+
+def _forward_train_tp(params, cfg, tokens, positions, group):
+    x = _embed_tp(params, cfg, tokens, group)
+    B, S = tokens.shape[:2]
+    if positions is None:
+        positions = default_positions(cfg, B, S, device=group.root)
+    angles = col.PerPos(_angles(cfg, positions.to(d))
+                        for d in group.devices) if cfg.rope else None
+    return _forward_train(params, cfg, x, angles)
 
 
 def final_norm(params, cfg, x, pending):
@@ -249,28 +314,102 @@ def _chunk_ce(w, cfg, h_c, labels_c, mask_c):
                      cfg.logit_softcap)
 
 
-def cross_entropy(params, cfg, h, labels, mask):
-    """Chunked CE: the chunk is ``LOSS_CHUNK`` positions, shrunk until it
-    divides S, and each chunk runs under ``torch.utils.checkpoint`` (the
-    reference's checkpointed scan body), so that neither the forward nor
-    the backward holds (B, S, V) fp32 logits at once."""
-    B, S, D = h.shape
-    w = _head_weight(params, cfg)
+def _chunk_ce_tp(w, cfg, h_c, labels_c, mask_c):
+    """One sequence chunk of vocabulary-parallel CE on a model group:
+    ``h_c`` the full chunk on every position (Shards), ``w`` the
+    positions' (D, V/tp) head blocks.  The max, the sum of exps and the
+    correct logit cross positions as (B, Sc) tensors, to the group's
+    root, where the chunk's (nll sum, mask sum) is formed; the
+    reference's ``_chunk_ce`` shard_map body.  A vocabulary the group does
+    not divide leaves the head whole on every position: the root alone
+    computes the chunk (the reference's fallback)."""
+    g = h_c.group
+    labels_c, mask_c = labels_c.to(g.root), mask_c.to(g.root)
+    if w[0].shape[1] == cfg.vocab_size:
+        return _chunk_ce(w[0], cfg, h_c[0], labels_c, mask_c)
+    v_local = w[0].shape[1]
+    logits = col.local(lambda h, wm: nn.softcap(h.float() @ wm.float(),
+                                                cfg.logit_softcap), h_c, w)
+    m_root = col.all_reduce_to_root([l.max(-1).values.detach()
+                                     for l in logits], g, "ce", op="max")
+    m = col.broadcast(m_root, g, "ce")
+    s = col.all_reduce_to_root([torch.exp(l - m[q][..., None]).sum(-1)
+                                for q, l in enumerate(logits)], g, "ce")
+    lse = m_root + torch.log(s)
+
+    def correct(q, l):
+        loc = labels_c.to(l.device).long() - q * v_local
+        ok = (loc >= 0) & (loc < v_local)
+        c = l.gather(-1, torch.clamp(loc, 0, v_local - 1)[..., None])[..., 0]
+        return torch.where(ok, c, 0.0)
+    corr = col.all_reduce_to_root([correct(q, l) for q, l in
+                                   enumerate(logits)], g, "ce")
+    nll = (lse - corr) * mask_c
+    return nll.sum(), mask_c.sum()
+
+
+def ce_sums(params, cfg, h, labels, mask):
+    """The chunked CE's (masked NLL sum, mask sum): the chunk is
+    ``LOSS_CHUNK`` positions, shrunk until it divides S, and each chunk
+    runs under ``torch.utils.checkpoint`` (the reference's checkpointed
+    scan body), so that neither the forward nor the backward holds (B, S,
+    V) fp32 logits at once.  On a model group ``h`` is the
+    sequence-sharded Shards: it is gathered to the full sequence on every
+    position (the reference's ``h`` replicated over "model") and each
+    chunk is vocabulary-parallel (``_chunk_ce_tp``)."""
+    tp = isinstance(h, col.Shards)
+    if tp:
+        h = col.gather_seq(h)
+        w = col.PerPos(t.T if cfg.tie_embeddings and cfg.embed_inputs
+                       else t for t in _head_weight_blocks(params, cfg))
+        chunk_ce, dev = _chunk_ce_tp, h.group.root
+        B, S, D = h[0].shape
+    else:
+        w = _head_weight(params, cfg)
+        chunk_ce, dev = _chunk_ce, h.device
+        B, S, D = h.shape
     c = min(LOSS_CHUNK, S)
     while S % c:
         c -= 1
     n = S // c
     if n == 1:
-        tot, cnt = _chunk_ce(w, cfg, h, labels, mask)
-        return tot / torch.clamp(cnt, min=1.0)
-    tot = torch.zeros((), dtype=torch.float32, device=h.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        return chunk_ce(w, cfg, h, labels, mask)
+    tot = torch.zeros((), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((), dtype=torch.float32, device=dev)
     for i in range(n):
         sl = slice(i * c, (i + 1) * c)
-        t, k = checkpoint(_chunk_ce, w, cfg, h[:, sl], labels[:, sl],
+        h_c = col.Shards([t[:, sl] for t in h], h.group, None) if tp \
+            else h[:, sl]
+        t, k = checkpoint(chunk_ce, w, cfg, h_c, labels[:, sl],
                           mask[:, sl], use_reentrant=False)
         tot, cnt = tot + t, cnt + k
+    return tot, cnt
+
+
+def _head_weight_blocks(params, cfg):
+    if cfg.tie_embeddings and cfg.embed_inputs:
+        return params["embed"]["embed_table"]
+    return params["head"]["head_w"]
+
+
+def cross_entropy(params, cfg, h, labels, mask):
+    """Chunked CE (``ce_sums``): the masked NLL's mean."""
+    tot, cnt = ce_sums(params, cfg, h, labels, mask)
     return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_sums(params, cfg: ModelConfig, batch, group=None):
+    """(masked NLL sum, mask sum) of a batch's CE: what a mesh's train
+    step adds over its data groups before it divides by the whole
+    batch's mask count (the reference's ``_chunk_ce`` sums both over the
+    batch axes).  With ``group`` the forward and the CE run on that model
+    group (``forward``).  MoE and MTP configs are not trained on a
+    mesh."""
+    assert cfg.moe is None and not cfg.mtp_depth, cfg.name
+    h, _ = forward(params, cfg, batch["tokens"], batch.get("positions"),
+                   mode="train", group=group)
+    hn = blocks._norm(params["final_norm"]["scale"], cfg, h)
+    return ce_sums(params, cfg, hn, batch["labels"], batch["mask"])
 
 
 def loss_fn(params, cfg: ModelConfig, batch):

@@ -118,7 +118,16 @@ def apply_rope(x, angles):
 # dense FFN (SwiGLU / GeGLU / plain MLP)
 # ---------------------------------------------------------------------------
 def ffn_apply(p, cfg, x):
+    from repro_torch.parallel import collectives as col
     act = activation(cfg.act)
+    if isinstance(x, col.Shards):
+        if cfg.gated_ffn:
+            gate, up = col.column_parallel(x, [p["w_gate"], p["w_up"]])
+            h = col.local(lambda g, u: act(g) * u, gate, up)
+        else:
+            (up,) = col.column_parallel(x, [p["w_up"]])
+            h = col.local(act, up)
+        return col.row_parallel(h, p["w_down"])
     if cfg.gated_ffn:
         h = act(matmul(x, p["w_gate"])) * matmul(x, p["w_up"])
     else:

@@ -63,12 +63,29 @@ def _encode_input(x, sqrt_encode):
     return torch.sqrt(torch.clamp(xf, min=0.0).double()).float()
 
 
-def quantize(x, *, sqrt_encode: bool = False) -> QTensor:
-    xb = flatten_blocks(_encode_input(x, sqrt_encode))
+def codes(x, scale) -> torch.Tensor:
+    """The int8 codes of fp32 ``x`` against its absmax ``scale``
+    (broadcast to x's shape)."""
+    return torch.round(x / torch.clamp(scale, min=1e-12) * 127.0).to(
+        torch.int8)
+
+
+def values(q, scale) -> torch.Tensor:
+    """The fp32 values of int8 codes ``q`` against ``scale`` (broadcast
+    to q's shape)."""
+    return q.float() * (scale / 127.0)
+
+
+def quantize_rows(xb):
+    """fp32 rows of BLOCK -> (int8 codes, one absmax scale a row): the
+    flat layout's blocks."""
     scale = xb.abs().amax(1)
-    q = torch.round(xb / torch.clamp(scale[:, None], min=1e-12) * 127.0)
-    return QTensor(q.to(torch.int8), scale, tuple(x.shape), sqrt_encode,
-                   "flat")
+    return codes(xb, scale[:, None]), scale
+
+
+def quantize(x, *, sqrt_encode: bool = False) -> QTensor:
+    q, scale = quantize_rows(flatten_blocks(_encode_input(x, sqrt_encode)))
+    return QTensor(q, scale, tuple(x.shape), sqrt_encode, "flat")
 
 
 def aligned_ok(shape) -> bool:
@@ -82,20 +99,21 @@ def quantize_aligned(x, *, sqrt_encode: bool = False) -> QTensor:
     xb = _encode_input(x, sqrt_encode).reshape(*shape[:-1], nb,
                                                BLOCK_ALIGNED)
     scale = xb.abs().amax(-1)                               # (..., nb)
-    q = torch.round(xb / torch.clamp(scale[..., None], min=1e-12) * 127.0)
-    return QTensor(q.reshape(shape).to(torch.int8), scale, shape,
+    return QTensor(codes(xb, scale[..., None]).reshape(shape), scale, shape,
                    sqrt_encode, "aligned")
 
 
 def dequantize(qt: QTensor) -> torch.Tensor:
     if qt.mode == "aligned":
         nb = qt.shape[-1] // BLOCK_ALIGNED
-        xb = qt.q.reshape(*qt.shape[:-1], nb, BLOCK_ALIGNED).float() \
-            * (qt.scale[..., None] / 127.0)
+        xb = values(qt.q.reshape(*qt.shape[:-1], nb, BLOCK_ALIGNED),
+                    qt.scale[..., None])
         xf = xb.reshape(qt.shape)
     else:
-        xb = qt.q.float() * (qt.scale[:, None] / 127.0)
-        xf = unflatten_blocks(xb, qt.shape)
-    if qt.sqrt_encoded:
-        xf = torch.square(xf)
-    return xf
+        xf = unflatten_blocks(values(qt.q, qt.scale[:, None]), qt.shape)
+    return decode_output(xf, qt.sqrt_encoded)
+
+
+def decode_output(xf, sqrt_encoded: bool) -> torch.Tensor:
+    """Undo ``_encode_input``'s square root."""
+    return torch.square(xf) if sqrt_encoded else xf

@@ -1,0 +1,195 @@
+"""Explicit sequence-parallel collectives (Megatron-SP) between the
+positions of a model group.
+
+Reference: ``repro/parallel/collectives.py``.  The reference makes the
+two Megatron-SP collectives explicit program text inside ``shard_map``:
+
+  gather_seq(x)        (B, S/tp, D) -> (B, S, D)      all-gather
+                       backward: reduce-scatter
+  row_parallel(x, w)   partial dot -> (B, S/tp, N)     reduce-scatter
+                       backward: all-gather
+
+Here one controller holds one tensor per position of a model group
+(:class:`Shards`, on the positions' devices) and every transfer between
+two positions is one ``_Send``: a copy to the receiver's device whose
+backward sends the gradient back.  An all-gather is the concatenation of
+what each position receives, so autograd's transpose of it is the
+reduce-scatter of the gradient, and the reverse.  ``WIRE`` counts the
+bytes each transfer carries between two different positions (also when
+they share a card), by collective, the forward's under its own name and
+the backward's under its transpose's.  With a plain tensor (no mesh)
+each function is the reference's local fp32-accumulating matmul.
+"""
+from __future__ import annotations
+
+from collections import Counter
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+# bytes received by every position together, by collective; the caller
+# zeroes it (``WIRE.clear()``) and reads it
+WIRE: Counter = Counter()
+
+_TRANSPOSE = {"all_gather": "reduce_scatter", "reduce_scatter": "all_gather",
+              "all_reduce": "all_reduce", "broadcast": "reduce"}
+
+
+@dataclass(frozen=True)
+class Group:
+    """The positions of one model group (indices into ``mesh.devices``)
+    and their devices, along mesh axis ``axis``."""
+    positions: Tuple[int, ...]
+    devices: Tuple[torch.device, ...]
+    axis: str = "model"
+
+    @property
+    def size(self) -> int:
+        return len(self.positions)
+
+    @property
+    def root(self) -> torch.device:
+        return self.devices[0]
+
+
+class Shards(list):
+    """One tensor per position of ``group``: the blocks of one logical
+    activation split on dim ``split`` (None: every position holds all
+    of it)."""
+
+    def __init__(self, parts, group: Group, split: Optional[int]):
+        super().__init__(parts)
+        self.group = group
+        self.split = split
+
+
+class PerPos(tuple):
+    """One value per position of a group (a parameter's blocks, a
+    constant placed on each device): ``local`` indexes it by position."""
+
+
+class _Send(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, device, site, kind):
+        ctx.src, ctx.site, ctx.kind = x.device, site, kind
+        WIRE[f"{site} {kind}"] += x.numel() * x.element_size()
+        y = x.to(device)
+        return y.view_as(y) if y is x else y
+
+    @staticmethod
+    def backward(ctx, g):
+        WIRE[f"{ctx.site} {_TRANSPOSE[ctx.kind]}"] += \
+            g.numel() * g.element_size()
+        return g.to(ctx.src), None, None, None
+
+
+def send(x, device, site: str, kind: str):
+    """``x`` from one position to another's ``device``, its bytes counted
+    under ``site`` and ``kind`` (the backward's under the transpose)."""
+    return _Send.apply(x, device, site, kind)
+
+
+def local(fn, *args, index: bool = False):
+    """``fn`` on each position of a group: :class:`Shards` and
+    :class:`PerPos` arguments give their position's value, the rest are
+    passed whole; ``index=True`` passes the position's index in the group
+    first.  Returns Shards (the first Shards argument's layout), or a
+    tuple of Shards when ``fn`` returns a tuple."""
+    like = next(a for a in args if isinstance(a, Shards))
+    outs = [fn(*(((m,) if index else ())
+                 + tuple(a[m] if isinstance(a, (Shards, PerPos)) else a
+                         for a in args)))
+            for m in range(like.group.size)]
+    if isinstance(outs[0], tuple):
+        return tuple(Shards(o, like.group, like.split) for o in zip(*outs))
+    return Shards(outs, like.group, like.split)
+
+
+def all_gather(xs: Shards, dim: int, site: str) -> Shards:
+    """Every position gets the concatenation along ``dim`` of the group's
+    blocks, in group order."""
+    g = xs.group
+    out = [torch.cat([x if q == p else send(x, g.devices[p], site,
+                                            "all_gather")
+                      for q, x in enumerate(xs)], dim)
+           for p in range(g.size)]
+    return Shards(out, g, None)
+
+
+def reduce_scatter(parts: Sequence[torch.Tensor], group: Group, dim: int,
+                   site: str) -> Shards:
+    """Position p gets the sum, in group order and in the parts' dtype,
+    of every position's p-th 1/size chunk along ``dim``."""
+    n = group.size
+    out = []
+    for p in range(n):
+        acc = None
+        for q, t in enumerate(parts):
+            c = t.chunk(n, dim)[p]
+            c = c if q == p else send(c, group.devices[p], site,
+                                      "reduce_scatter")
+            acc = c if acc is None else acc + c
+        out.append(acc)
+    return Shards(out, group, dim % parts[0].ndim)
+
+
+def all_reduce_to_root(parts: Sequence[torch.Tensor], group: Group,
+                       site: str, op: str = "sum"):
+    """The sum (or max) of the group's tensors on the group's root
+    device, in group order."""
+    acc = None
+    for q, t in enumerate(parts):
+        t = t if q == 0 else send(t, group.root, site, "all_reduce")
+        acc = t if acc is None else (acc + t if op == "sum"
+                                     else torch.maximum(acc, t))
+    return acc
+
+
+def broadcast(x, group: Group, site: str) -> PerPos:
+    """The root's ``x`` on every position of the group."""
+    return PerPos(x if p == 0 else send(x, d, site, "broadcast")
+                  for p, d in enumerate(group.devices))
+
+
+def _matmul(x, w, out_dtype):
+    return (x.float() @ w.float()).to(out_dtype)
+
+
+def gather_seq(x):
+    """(B, S/tp, D) seq-sharded -> full sequence on every position of the
+    group; backward a reduce-scatter of the gradient.  No-op for a plain
+    tensor (no mesh; a decode step's 1-token sequence is never split)."""
+    if not isinstance(x, Shards) or x.split is None:
+        return x
+    return all_gather(x, x.split, "seq")
+
+
+def column_parallel(x, ws: Sequence, out_dtype=None) -> List:
+    """Fused column-parallel matmuls: one all-gather of the seq-sharded
+    input, then each position's dot against its column block of every
+    weight.  x Shards (B, S/tp, D); ``ws`` a list of PerPos (D, N_i/tp)
+    blocks.  Returns a list of Shards (B, S, N_i/tp) (split on the last
+    dim).  A plain ``x`` takes plain weights: the local matmuls."""
+    if not isinstance(x, Shards):
+        out_dtype = out_dtype or x.dtype
+        return [_matmul(x, w, out_dtype) for w in ws]
+    out_dtype = out_dtype or x[0].dtype
+    xf = gather_seq(x)
+    return [Shards([_matmul(xf[m], w[m], out_dtype)
+                    for m in range(x.group.size)], x.group, x[0].ndim - 1)
+            for w in ws]
+
+
+def row_parallel(x, w, out_dtype=None):
+    """Row-parallel matmul with an explicit reduce-scatter of its output:
+    x Shards (B, S, K/tp) (split on K), ``w`` PerPos (K/tp, N) row blocks.
+    Each position's partial product is cast to the activation dtype and
+    reduced on the wire in it, as the reference's; returns Shards (B,
+    S/tp, N) split on the sequence.  A plain ``x`` takes a plain ``w``:
+    the local matmul."""
+    if not isinstance(x, Shards):
+        return _matmul(x, w, out_dtype or x.dtype)
+    out_dtype = out_dtype or x[0].dtype
+    parts = [_matmul(x[m], w[m], out_dtype) for m in range(x.group.size)]
+    return reduce_scatter(parts, x.group, 1, "row_parallel")

@@ -1,25 +1,37 @@
-"""Logical-axis sharding rules and the layout autotuner, host-only.
+"""Logical-axis sharding rules, parameter placement and the layout
+autotuner.
 
 Reference: ``repro/parallel/sharding.py``.  A rule table maps logical
 axis names to the axes of a mesh (here the port's
 :class:`~repro_torch.launch.mesh.DeviceMesh`); ``use_sharding`` makes a
 mesh and its rules the current environment, which placement code reads
-through ``current_env``.  The rule tables and ``resolve`` are the
-reference's.  What the reference builds on them for jax
-(``NamedSharding``, ``PartitionSpec``, ``shard_map``) has no counterpart
-here: the port's one user of a mesh, the paged engine's striped pools,
-places its stripes itself (``models/attention.py``).
+through ``current_env``.  The rule tables, ``resolve``, ``PARAM_RULES``
+and ``param_specs`` are the reference's.
+
+A spec is a tuple with one entry per dim, the counterpart of a
+``PartitionSpec``: None (the dim is whole on every position), an axis
+name, or a tuple of axis names (the dim is split over them, row-major in
+the tuple's order); missing trailing entries are None.  A
+:class:`Sharded` tensor holds the reference's placement literally: one
+tensor per mesh position, on that position's device, the block of the
+logical tensor its coordinates select (positions that differ only on an
+axis the spec does not name hold equal copies).  ``shard`` cuts a
+logical tensor by a spec and ``gather`` puts it back together; a
+:class:`NamedSharding` (mesh, spec) is what ``restore`` places a leaf
+by.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import re
 from dataclasses import dataclass, field
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
 Axis = Union[str, Tuple[str, ...], None]
+Spec = Tuple[Axis, ...]
 
 # Baseline rule table (paper-faithful distributed-memory layout):
 #   batch        -> farmer-worker axis (pod x data)
@@ -78,6 +90,9 @@ class ShardingEnv:
             return None
         return present if len(present) > 1 else present[0]
 
+    def spec(self, *logical_axes: Axis) -> Spec:
+        return tuple(self.resolve(a) for a in logical_axes)
+
 
 _ENV: contextvars.ContextVar[Optional[ShardingEnv]] = contextvars.ContextVar(
     "sharding_env", default=None)
@@ -100,6 +115,265 @@ def use_sharding(mesh, rules: Optional[Mapping[str, Axis]] = None):
         yield env
     finally:
         _ENV.reset(tok)
+
+
+def logical_constraint(x, *logical_axes: Axis):
+    """The reference's ``with_sharding_constraint`` by logical axis names:
+    ``x`` laid out as ``logical_axes`` say over its model group.  A no-op
+    off a mesh and for a plain tensor.  The shards of a model group
+    (:class:`~repro_torch.parallel.collectives.Shards`) must already be
+    split on the dim whose logical axis resolves to the group's axis:
+    the train forward's collectives land them so (``row_parallel``'s
+    reduce-scatter splits on the sequence), and moving a split is not
+    ported."""
+    env = current_env()
+    from repro_torch.parallel import collectives
+    if env is None or not isinstance(x, collectives.Shards):
+        return x
+    split = None
+    for i, a in enumerate(logical_axes):
+        if x.group.axis in _axes(env.resolve(a)):
+            split = i
+    if split != x.split:
+        raise NotImplementedError(
+            f"shards split on dim {x.split}, asked for dim {split}: moving "
+            f"a split is not ported")
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Parameter placement
+# ---------------------------------------------------------------------------
+# Leaf-name -> logical axes, matched on the last path component.  When the
+# actual leaf has more dims than the spec (stacked scan params), leading
+# dims are unsharded.
+PARAM_RULES: Sequence[Tuple[str, Tuple[Axis, ...]]] = (
+    # embeddings / head: vocab striped over TP = the paper's address%n
+    (r"embed_table$", ("tp", "fsdp_dense")),
+    (r"head_w$", ("fsdp_dense", "tp")),
+    # attention
+    (r"wq$", ("fsdp_dense", "tp")),
+    (r"wk$", ("fsdp_dense", "tp")),
+    (r"wv$", ("fsdp_dense", "tp")),
+    (r"wo$", ("tp", "fsdp_dense")),
+    (r"(q_norm|k_norm)$", (None,)),
+    # MLA
+    (r"q_a$", ("fsdp_dense", None)),
+    (r"q_b$", ("fsdp_dense", "tp")),
+    (r"kv_a$", ("fsdp_dense", None)),
+    (r"kv_b$", ("fsdp_dense", "tp")),
+    (r"(q_a_norm|kv_a_norm)$", (None,)),
+    # dense FFN
+    (r"w_gate$", ("fsdp_dense", "tp")),
+    (r"w_up$", ("fsdp_dense", "tp")),
+    (r"w_down$", ("tp", "fsdp_dense")),
+    # MoE (experts striped over TP axis = expert parallelism)
+    (r"router_w$", ("fsdp", None)),
+    (r"router_b$", (None,)),
+    (r"e_gate$", ("expert", "fsdp", "expert_ff")),
+    (r"e_up$", ("expert", "fsdp", "expert_ff")),
+    (r"e_down$", ("expert", "expert_ff", "fsdp")),
+    # RG-LRU / Griffin
+    (r"conv_w$", (None, "tp")),
+    (r"conv_b$", ("tp",)),
+    (r"lru_in_(x|gate)$", ("fsdp_dense", "tp")),
+    (r"lru_out$", ("tp", "fsdp_dense")),
+    # block-diag gates are (heads, hd, hd) with heads=10 for recurrentgemma:
+    # not divisible by TP=16, and small — replicate them
+    (r"lru_(a_gate|x_gate)_w$", (None, None, None)),
+    (r"lru_(a_gate|x_gate)_b$", (None, None)),
+    (r"lru_a_param$", ("tp",)),
+    # RWKV6 time-mix
+    (r"rwkv_(wr|wk|wv|wg)$", ("fsdp_dense", "tp")),
+    (r"rwkv_wo$", ("tp", "fsdp_dense")),
+    (r"rwkv_mix_lora_a$", ("fsdp_dense", None, None)),
+    (r"rwkv_mix_lora_b$", (None, None, "fsdp_dense")),
+    (r"rwkv_decay_lora_a$", ("fsdp_dense", None)),
+    (r"rwkv_decay_lora_b$", (None, "fsdp_dense")),
+    (r"rwkv_(mix_base|decay_base|mix_x)$", (None,)),
+    (r"rwkv_u$", ("tp", None)),
+    (r"rwkv_ln_(scale|bias)$", (None,)),
+    # RWKV6 channel-mix
+    (r"rwkv_cm_wk$", ("fsdp_dense", "tp")),
+    (r"rwkv_cm_wv$", ("tp", "fsdp_dense")),
+    (r"rwkv_cm_wr$", ("fsdp_dense", None)),
+    (r"rwkv_cm_mix_(k|r)$", (None,)),
+    # norms & misc small
+    (r"scale$", (None,)),
+    (r"bias$", (None,)),
+    (r"mtp_proj$", ("fsdp_dense", "tp")),
+)
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _axis_size(env: ShardingEnv, resolved) -> int:
+    n = 1
+    for a in _axes(resolved):
+        n *= env.mesh.shape[a]
+    return n
+
+
+def _leaf_spec(path: str, shape, env: ShardingEnv) -> Spec:
+    ndim = len(shape)
+    for pat, axes in PARAM_RULES:
+        if re.search(pat, path):
+            axes = tuple(axes)
+            if len(axes) < ndim:  # stacked scan params: leading dims unsharded
+                axes = (None,) * (ndim - len(axes)) + axes
+            elif len(axes) > ndim:
+                raise ValueError(f"spec {axes} too long for {path} ndim={ndim}")
+            # drop axes that don't divide the dim (e.g. hubert vocab=504
+            # over TP=16) — the leaf is then replicated on that dim
+            resolved = [env.resolve(a) for a in axes]
+            return tuple(r if shape[i] % _axis_size(env, r) == 0 else None
+                         for i, r in enumerate(resolved))
+    return ()  # replicate by default
+
+
+def path_str(path) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def param_specs(params, env: Optional[ShardingEnv] = None):
+    """The spec of every leaf of a reference-shaped parameter tree (dicts
+    and lists of tensors, ``weights.to_reference``), by leaf-name rules;
+    all replicated without an environment."""
+    env = env or current_env()
+    if env is None:
+        return _map_with_path(lambda path, leaf: (), params)
+    return _map_with_path(
+        lambda path, leaf: _leaf_spec(path_str(path), tuple(leaf.shape), env),
+        params)
+
+
+def _coord(mesh, pos: int, axis: str) -> int:
+    return (pos // mesh._stride(axis)) % mesh.shape[axis]
+
+
+def _entry_index(mesh, pos: int, entry) -> Tuple[int, int]:
+    """(index, count) of position ``pos`` along a spec entry's axes."""
+    idx, n = 0, 1
+    for a in _axes(entry):
+        idx = idx * mesh.shape[a] + _coord(mesh, pos, a)
+        n *= mesh.shape[a]
+    return idx, n
+
+
+def region(shape, spec: Spec, mesh, pos: int) -> Tuple[slice, ...]:
+    """The block of a logical tensor of ``shape`` that position ``pos``
+    holds under ``spec``."""
+    out = []
+    for i, d in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        idx, n = _entry_index(mesh, pos, entry)
+        if d % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                             f"over {n} positions ({entry})")
+        c = d // n
+        out.append(slice(idx * c, (idx + 1) * c))
+    return tuple(out)
+
+
+def replicas(spec: Spec, mesh, pos: int) -> Tuple[int, ...]:
+    """The positions holding the same block as ``pos`` under ``spec``
+    (those that differ from it only on axes the spec does not name), in
+    mesh order."""
+    used = {a for e in spec for a in _axes(e)}
+    return tuple(q for q in range(len(mesh.devices))
+                 if all(_coord(mesh, q, a) == _coord(mesh, pos, a)
+                        for a in used))
+
+
+class Sharded:
+    """A logical tensor of ``shape`` placed on ``mesh`` by ``spec``:
+    ``shards[p]`` is position p's block, on ``mesh.devices[p]``.  With
+    ``partial`` (a gradient) each block is only that position's share of
+    the work, and the logical tensor is their sum (``sum_regions``)."""
+
+    def __init__(self, shards: Sequence[torch.Tensor], spec: Spec, shape,
+                 mesh, partial: bool = False):
+        self.shards = list(shards)
+        self.spec = tuple(spec)
+        self.shape = tuple(shape)
+        self.mesh = mesh
+        self.partial = partial
+
+    @property
+    def dtype(self):
+        return self.shards[0].dtype
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    def __repr__(self):
+        return (f"Sharded(shape={self.shape}, spec={self.spec}, "
+                f"dtype={self.dtype}, positions={len(self.shards)})")
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """Where a leaf goes: ``mesh`` and ``spec`` (the reference's
+    ``jax.sharding.NamedSharding``)."""
+    mesh: object
+    spec: Spec
+
+
+def shard(t: torch.Tensor, spec: Spec, mesh) -> Sharded:
+    """Cut the logical tensor ``t`` into every position's block, each a
+    copy on the position's device (``t`` crosses to each distinct device
+    once, and the blocks are cut there)."""
+    on = {}
+    out = []
+    for p, dev in enumerate(mesh.devices):
+        if dev not in on:
+            on[dev] = t.to(dev)
+        out.append(on[dev][region(t.shape, spec, mesh, p)].clone(
+            memory_format=torch.contiguous_format))
+    return Sharded(out, spec, t.shape, mesh)
+
+
+def gather(st: Sharded, device=None) -> torch.Tensor:
+    """The logical tensor of ``st`` on ``device`` (default: the first
+    position's), each block read from the first position holding it."""
+    if st.partial:
+        raise ValueError("a partial Sharded is a sum: use sum_regions")
+    device = st.mesh.devices[0] if device is None else torch.device(device)
+    out = torch.empty(st.shape, dtype=st.dtype, device=device)
+    seen = set()
+    for p, t in enumerate(st.shards):
+        reg = region(st.shape, st.spec, st.mesh, p)
+        key = tuple((s.start, s.stop) for s in reg)
+        if key not in seen:
+            seen.add(key)
+            out[reg] = t.to(device)
+    return out
+
+
+def sum_regions(parts: Sequence[torch.Tensor], shape, spec: Spec, mesh,
+                device, dtype=torch.float32) -> torch.Tensor:
+    """The logical tensor that is the sum, in mesh order, of every
+    position's ``parts[p]`` placed at its block under ``spec`` (a
+    gradient from each position's share of the work)."""
+    out = torch.zeros(shape, dtype=dtype, device=device)
+    for p, t in enumerate(parts):
+        out[region(shape, spec, mesh, p)] += t.to(device, dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------

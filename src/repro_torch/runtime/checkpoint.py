@@ -13,6 +13,12 @@ between the two packages.  bf16 leaves are written as their uint16 bits
 with "bfloat16" in the manifest (numpy has no bf16 without ml_dtypes);
 ``restore`` reads those and the reference's 2-byte void records alike.
 
+A state on a mesh (Sharded leaves, ``parallel/sharding.py``) is saved as
+its logical arrays, each block read from the first position holding it,
+so the checkpoint carries no mesh: ``restore(..., shardings=)`` places
+every leaf on the current mesh (the reference's elastic restore), and a
+checkpoint crosses between meshes and between the packages both ways.
+
 Atomicity: write to step_<N>.tmp, then rename.  Async: every leaf is
 copied to the host synchronously (a CPU tensor shares memory with its
 numpy view, and the next optimizer step must not rewrite a checkpoint in
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim.quant import QTensor
+from repro_torch.parallel import sharding
 
 
 def _items(tree, path=()):
@@ -52,8 +59,12 @@ def _items(tree, path=()):
 
 
 def _host(t) -> Tuple[np.ndarray, str]:
-    """A host copy of one leaf and its manifest dtype."""
-    t = t.detach().to("cpu", copy=True)
+    """A host copy of one leaf (a Sharded one's logical array) and its
+    manifest dtype."""
+    if isinstance(t, sharding.Sharded):
+        t = sharding.gather(t, "cpu")      # a new host tensor already
+    else:
+        t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     a = t.numpy()
@@ -107,10 +118,15 @@ def _to_torch(arr: np.ndarray, dtype: str, like, device) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, state_template: Any, step: Optional[int] = None,
-            device=None) -> Tuple[int, Any]:
+            device=None, shardings: Any = None) -> Tuple[int, Any]:
     """Restore into the structure of ``state_template`` (tensors of any
     device, ``meta`` included, give the shapes and dtypes; QTensors their
-    static fields) on ``device`` (default: each template leaf's own)."""
+    static fields) on ``device`` (default: each template leaf's own).
+
+    ``shardings`` (the template's nesting with a
+    :class:`~repro_torch.parallel.sharding.NamedSharding` at every leaf)
+    places each leaf on its mesh instead, as a Sharded cut from the
+    logical array: the checkpoint carries no mesh, only logical arrays."""
     path = latest(ckpt_dir) if step is None else os.path.join(
         ckpt_dir, f"step_{step:08d}")
     if path is None:
@@ -119,28 +135,37 @@ def restore(ckpt_dir: str, state_template: Any, step: Optional[int] = None,
         manifest = json.load(f)
     data = np.load(os.path.join(path, "arrays.npz"))
 
-    def load(p, tpl):
+    def load(p, tpl, where):
         key = "/".join(p)
         arr = data[key]
         assert tuple(arr.shape) == tuple(tpl.shape), (key, arr.shape,
                                                       tuple(tpl.shape))
-        return _to_torch(arr, manifest["leaves"].get(key, {}).get("dtype"),
-                         tpl, tpl.device if device is None else device)
+        dtype = manifest["leaves"].get(key, {}).get("dtype")
+        if isinstance(where, sharding.NamedSharding):
+            t = _to_torch(arr, dtype, tpl, "cpu")
+            if t.ndim == 0:       # the step counter: on the first position
+                return t.to(where.mesh.devices[0])
+            return sharding.shard(t, where.spec, where.mesh)
+        return _to_torch(arr, dtype, tpl,
+                         tpl.device if device is None else device)
 
-    def build(t, p=()):
+    def build(t, w, p=()):
         if isinstance(t, QTensor):
-            return t._replace(q=load(p + ("0",), t.q),
-                              scale=load(p + ("1",), t.scale))
+            return t._replace(q=load(p + ("0",), t.q, w and w.q),
+                              scale=load(p + ("1",), t.scale,
+                                         w and w.scale))
         if isinstance(t, dict):
-            return {k: build(v, p + (str(k),)) for k, v in t.items()}
+            return {k: build(v, w and w[k], p + (str(k),))
+                    for k, v in t.items()}
         if isinstance(t, tuple) and hasattr(t, "_fields"):
-            return type(t)(*(build(getattr(t, f), p + ("." + f,))
-                             for f in t._fields))
+            return type(t)(*(build(getattr(t, f), w and getattr(w, f),
+                                   p + ("." + f,)) for f in t._fields))
         if isinstance(t, (list, tuple)):
-            return type(t)(build(v, p + (str(i),)) for i, v in enumerate(t))
-        return load(p, t)
+            return type(t)(build(v, w and w[i], p + (str(i),))
+                           for i, v in enumerate(t))
+        return load(p, t, w)
 
-    return manifest["step"], build(state_template)
+    return manifest["step"], build(state_template, shardings)
 
 
 def latest(ckpt_dir: str) -> Optional[str]:

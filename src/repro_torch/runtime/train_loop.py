@@ -1,12 +1,15 @@
 """Fault-tolerant training loop: checkpoint/restart, health, stragglers.
 
-Reference: ``repro/runtime/train_loop.py``, on one device.  The loop is
-host-side nOS (Swallow C8): it owns placement, persistence and recovery
-so the model code never sees any of it.  Deterministic data (seed, step)
-and atomic checkpoints give exactly-once step semantics across restarts;
-an injectable failure hook lets tests exercise fail -> restore.
-Training on a mesh (the reference's ``mesh``, ``rules`` and elastic
-resharding) is ROADMAP Queue A item 10's open half.
+Reference: ``repro/runtime/train_loop.py``.  The loop is host-side nOS
+(Swallow C8): it owns placement, persistence and recovery so the model
+code never sees any of it.  Deterministic data (seed, step) and atomic
+checkpoints give exactly-once step semantics across restarts; an
+injectable failure hook lets tests exercise fail -> restore.  On a mesh
+(a :class:`~repro_torch.launch.mesh.DeviceMesh`: one controller, one
+torch device a position) the state is placed by ``param_specs`` and
+``adam.state_specs``, a restore re-places the checkpoint's logical arrays
+on the current mesh (``elastic.state_shardings``), and the step is the
+mesh's (``steps.make_train_step`` under ``use_sharding``).
 """
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ import torch
 from repro_torch import steps as steps_mod, weights
 from repro_torch.data import pipeline as data_lib
 from repro_torch.optim import adam as adam_lib
+from repro_torch.parallel.sharding import use_sharding
 from repro_torch.runtime import checkpoint as ckpt_lib
+from repro_torch.runtime import elastic as elastic_lib
 from repro_torch.runtime.health import HeartbeatMonitor, StragglerDetector
 
 
@@ -41,17 +46,18 @@ class TrainJobConfig:
 def run(cfg, shape, mesh=None, rules=None, job: TrainJobConfig = None,
         failure_hook: Optional[Callable[[int], None]] = None,
         device=None) -> Dict[str, Any]:
-    """Train ``cfg`` at ``shape`` on one device (``cuda`` unless the
-    caller names another).  Initial parameters come from
-    ``weights.init_params`` with a generator seeded ``job.seed``, or from
-    the latest checkpoint in ``job.ckpt_dir``.  Returns the reference's
-    dict: final metrics, the logged history, params (the port's nesting),
-    opt_state and the loop's wall time."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "training on a mesh is not ported yet (ROADMAP Queue A item "
-            "10, its open half); train on one device")
-    device = weights.resolve_device(device)
+    """Train ``cfg`` at ``shape`` on ``mesh`` (None: one device, ``cuda``
+    unless the caller names another; a mesh's positions carry their own
+    devices).  Initial parameters come from ``weights.init_params`` with a
+    generator seeded ``job.seed`` (on a mesh: made on its first position's
+    device, then placed), or from the latest checkpoint in
+    ``job.ckpt_dir``.  Returns the reference's dict: final metrics, the
+    logged history, params (the port's nesting; on a mesh the
+    reference-shaped tree of Sharded leaves), opt_state and the loop's
+    wall time."""
+    steps_mod.check_mesh(cfg, mesh)
+    device = mesh.devices[0] if mesh is not None \
+        else weights.resolve_device(device)
     job = job or TrainJobConfig()
     adam_cfg = steps_mod.adam_config_for(cfg)
     schedule = lambda s: adam_lib.warmup_cosine(
@@ -63,23 +69,42 @@ def run(cfg, shape, mesh=None, rules=None, job: TrainJobConfig = None,
                                    seed=job.seed)
     source = data_lib.make_source(data_cfg)
 
+    with use_sharding(mesh, rules) as env:
+        return _run(cfg, job, adam_cfg, schedule, source, env, device,
+                    failure_hook)
+
+
+def _run(cfg, job, adam_cfg, schedule, source, env, device, failure_hook):
     # --- state init / restore ------------------------------------------------
     start_step = 0
     if job.ckpt_dir and ckpt_lib.latest(job.ckpt_dir):
         p_shape = steps_mod.abstract_params(cfg)
         o_shape = steps_mod.abstract_opt_state(cfg, adam_cfg, p_shape)
+        shardings = None
+        if env is not None:
+            ps, os_ = elastic_lib.state_shardings(cfg, adam_cfg, env)
+            shardings = {"params": ps, "opt": os_}
         start_step, state = ckpt_lib.restore(
             job.ckpt_dir, {"params": p_shape, "opt": o_shape},
-            device=device)
-        params = weights.unstack(state["params"], cfg)
-        opt_state = state["opt"]
+            device=device, shardings=shardings)
+        params, opt_state = state["params"], state["opt"]
+        if env is None:
+            params = weights.unstack(params, cfg)
     else:
         gen = torch.Generator(device=device).manual_seed(job.seed)
         params = weights.init_params(cfg, generator=gen, device=device)
-        opt_state = adam_lib.init(weights.to_reference(params, cfg),
-                                  adam_cfg)
+        if env is not None:
+            params = weights.shard_tree(weights.to_reference(params, cfg),
+                                        env.mesh)
+            opt_state = adam_lib.init(params, adam_cfg)
+        else:
+            opt_state = adam_lib.init(weights.to_reference(params, cfg),
+                                      adam_cfg)
 
     step_fn = steps_mod.make_train_step(cfg, adam_cfg, schedule)
+    cards = sorted({d for d in (env.mesh.devices if env is not None
+                                else (device,)) if d.type == "cuda"},
+                   key=str)
 
     # --- runtime services ----------------------------------------------------
     nodes = ["host0"]
@@ -91,8 +116,8 @@ def run(cfg, shape, mesh=None, rules=None, job: TrainJobConfig = None,
     prefetch = data_lib.Prefetcher(source, start_step=start_step)
 
     def state_tree():
-        return {"params": weights.to_reference(params, cfg),
-                "opt": opt_state}
+        return {"params": params if env is not None
+                else weights.to_reference(params, cfg), "opt": opt_state}
 
     t_loop = time.time()
     last, saved = {}, None
@@ -106,8 +131,8 @@ def run(cfg, shape, mesh=None, rules=None, job: TrainJobConfig = None,
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in host_batch.items()}
             params, opt_state, metrics = step_fn(params, opt_state, batch)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            for d in cards:
+                torch.cuda.synchronize(d)
             dt = time.time() - t0
             hb.beat(nodes[0])
             evict = straggler.observe({nodes[0]: dt})

@@ -13,9 +13,122 @@ from __future__ import annotations
 import torch
 
 from repro_torch import weights
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL, ModelConfig
 from repro_torch.models import attention, lm
 from repro_torch.optim import adam as adam_lib
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import Sharded, current_env
+
+
+MESH_ITEM = "ROADMAP.md Queue A item 16"
+
+
+def check_mesh(cfg: ModelConfig, mesh):
+    """Refuse what the mesh trainer does not run, naming the ROADMAP item
+    that holds it: MoE on any mesh (the reference's MoE averages each
+    data shard's aux loss and sizes capacity from the local tokens), and
+    a "model" axis over anything but GQA attention with a dense FFN."""
+    if mesh is None:
+        return
+    tp = mesh.shape.get("model", 1)
+    odd = sorted({k for k in cfg.layer_kinds if k not in (ATTN, LOCAL)})
+    if tp > 1 and odd:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(odd)} layers on a model axis of {tp} "
+            f"are not ported ({MESH_ITEM}); train it on a data-only mesh")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training on a mesh is not ported ({MESH_ITEM},"
+            " with the sharded MoE of item 7); train it on one device")
+    if tp > 1:
+        for what, n in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)):
+            if n % tp:
+                raise NotImplementedError(
+                    f"{cfg.name}: {what}={n} does not split over a model "
+                    f"axis of {tp}")
+
+
+def batch_specs(cfg: ModelConfig, env):
+    """The specs the reference gives a batch's leaves: the batch dim over
+    the ("pod", "data") axes."""
+    tok = env.spec("batch", None) if cfg.embed_inputs \
+        else env.spec("batch", None, None)
+    b = {"tokens": tok, "labels": env.spec("batch", None),
+         "mask": env.spec("batch", None)}
+    if cfg.mrope_sections is not None:
+        b["positions"] = env.spec(None, "batch", None)
+    return b
+
+
+def model_groups(mesh):
+    """The model groups of a mesh (a :class:`collectives.Group` for each
+    index of the other axes, in mesh order: the order of the batch's
+    row blocks)."""
+    if "model" in mesh.axis_names:
+        groups = mesh.axis_groups("model")
+    else:
+        groups = [(p,) for p in range(len(mesh.devices))]
+    return [col.Group(g, tuple(mesh.devices[p] for p in g)) for g in groups]
+
+
+def _group_batch(batch, specs, n_groups, g, device):
+    """Data group ``g``'s rows of every batch leaf, on ``device``."""
+    out = {}
+    for k, v in batch.items():
+        dim = next((i for i, e in enumerate(specs.get(k, ())) if e), None)
+        out[k] = (v if dim is None else v.chunk(n_groups, dim)[g]).to(device)
+    return out
+
+
+def mesh_loss_and_grads(cfg: ModelConfig, params, batch):
+    """The loss of a batch on the current mesh and each leaf's gradient:
+    every data group in turn (one group's activations alive at a time)
+    runs its rows' forward and backward on its model group, its loss the
+    group's NLL sum over the WHOLE batch's mask count (the reference's
+    ``_chunk_ce`` sums both over the batch axes).  ``params`` is the
+    reference-shaped tree of Sharded leaves; returns (metrics, gradients:
+    a tree of partial Sharded leaves, each position's share)."""
+    env = current_env()
+    mesh = env.mesh
+    groups = model_groups(mesh)
+    specs = batch_specs(cfg, env)
+    B, S = batch["labels"].shape
+    if B % len(groups) or S % groups[0].size:
+        raise ValueError(
+            f"a batch of {B} x {S} does not split over {len(groups)} data "
+            f"groups (rows) and {groups[0].size} model positions (sequence)")
+    leaves = weights.tree_leaves(params)
+    cnt = batch["mask"].sum().to(groups[0].root)
+    grads = [[None] * len(mesh.devices) for _ in leaves]
+    tot = None
+    for g, group in enumerate(groups):
+        rows = _group_batch(batch, specs, len(groups), g, group.root)
+        mine = {p: [l.shards[p].detach().requires_grad_() for l in leaves]
+                for p in group.positions}
+        trees = [weights.unstack(weights.tree_unflatten(params, mine[p]),
+                                 cfg) for p in group.positions]
+        with torch.enable_grad():
+            if group.size == 1:
+                t, _ = lm.loss_sums(trees[0], cfg, rows)
+            else:
+                t, _ = lm.loss_sums(weights.group_view(trees), cfg, rows,
+                                    group=group)
+            flat = [x for p in group.positions for x in mine[p]]
+            gs = torch.autograd.grad(t / cnt.to(t.device), flat,
+                                     allow_unused=True)
+        for j, p in enumerate(group.positions):
+            for i, l in enumerate(leaves):
+                gi = gs[j * len(leaves) + i]
+                grads[i][p] = torch.zeros_like(l.shards[p]) if gi is None \
+                    else gi
+        t = t.detach().to(groups[0].root)
+        tot = t if tot is None else tot + t
+        del mine, trees, gs, flat
+    ce = tot / torch.clamp(cnt, min=1.0)
+    metrics = {"ce": ce, "moe_aux": torch.zeros_like(ce), "loss": ce}
+    return metrics, weights.tree_unflatten(params, [
+        Sharded(g, l.spec, l.shape, mesh, partial=True)
+        for g, l in zip(grads, leaves)])
 
 
 def make_train_step(cfg: ModelConfig, adam_cfg: adam_lib.AdamConfig,
@@ -28,10 +141,29 @@ def make_train_step(cfg: ModelConfig, adam_cfg: adam_lib.AdamConfig,
     views of the new stacked leaves (``weights.unstack``).  ``lr =
     schedule(opt_state.step)`` is read before the step is counted, as in
     the reference.  The old optimizer state is consumed by the update
-    (``adam.update``): the caller must not read it again."""
+    (``adam.update``): the caller must not read it again.
+
+    Under a sharding environment (``use_sharding(mesh)``) the step runs
+    on the mesh: ``params`` is the reference-shaped tree of Sharded
+    leaves (``weights.shard_tree``), the batch is split over the
+    ("pod", "data") axes (``batch_specs``), ``mesh_loss_and_grads`` takes
+    the loss and the gradients and ``adam.update`` the ZeRO-1 step; the
+    metrics are the whole batch's."""
     schedule = schedule or (lambda s: 3e-4)
 
+    def mesh_step(params, opt_state, batch):
+        metrics, grads = mesh_loss_and_grads(cfg, params, batch)
+        lr = schedule(opt_state.step)
+        new, opt_state2, om = adam_lib.update(grads, opt_state, params,
+                                              lr=lr, cfg=adam_cfg)
+        metrics.update(om)
+        metrics["lr"] = lr
+        return new, opt_state2, metrics
+
     def train_step(params, opt_state, batch):
+        if current_env() is not None:
+            check_mesh(cfg, current_env().mesh)
+            return mesh_step(params, opt_state, batch)
         tree = weights.to_reference(params, cfg)
         leaves = [l.detach().requires_grad_() for l in
                   weights.tree_leaves(tree)]

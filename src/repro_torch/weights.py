@@ -162,6 +162,44 @@ def unstack(tree, cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the reference-shaped tree on a mesh
+# ---------------------------------------------------------------------------
+def shard_tree(tree, mesh):
+    """A reference-shaped tree of logical tensors placed on ``mesh``: each
+    leaf a :class:`~repro_torch.parallel.sharding.Sharded` by its
+    ``sharding.param_specs`` entry under the current environment."""
+    from repro_torch.parallel import sharding
+    specs = sharding.param_specs(tree)
+    return tree_unflatten(tree, [
+        sharding.shard(t, s, mesh) for t, s in zip(
+            tree_leaves(tree), tree_leaves_specs(specs))])
+
+
+def tree_leaves_specs(specs) -> list:
+    """The specs of a spec tree in ``tree_leaves`` order (a spec is a
+    tuple, so it is a leaf here)."""
+    if isinstance(specs, dict):
+        return [l for k in sorted(specs) for l in tree_leaves_specs(specs[k])]
+    if isinstance(specs, list):
+        return [l for t in specs for l in tree_leaves_specs(t)]
+    return [specs]
+
+
+def group_view(trees):
+    """One nesting of several positions' trees (the same nesting), whose
+    leaves hold each position's tensor (``collectives.PerPos``): the
+    parameters of a model group as the train forward takes them."""
+    from repro_torch.parallel.collectives import PerPos
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: group_view([t[k] for t in trees]) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(group_view([t[i] for t in trees])
+                        for i in range(len(t0)))
+    return PerPos(trees)
+
+
 def init_params(cfg, generator: Optional[torch.Generator] = None,
                 device=None):
     """Random parameters drawn from the reference's distributions

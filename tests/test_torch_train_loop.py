@@ -13,8 +13,9 @@ on the CPU, with checkpoints crossing to and from the JAX reference.
   checkpoint, whose values equal the uninterrupted run's at step 4, and
   its steps 4 to 7 repeat that run's losses and final parameters bit for
   bit (the CPU's arithmetic is deterministic);
-* the loss falls over 30 steps; the train CLI on ``--device cpu``, and
-  its exit-2 flags; both examples.
+* the loss falls over 30 steps; the train CLI on ``--device cpu``, its
+  mesh flags on CPU positions, and its exit-2 cases (MoE on a mesh; MLA,
+  RG-LRU and RWKV-6 on a model axis; ``--impl pallas``); both examples.
 """
 import json
 import os
@@ -245,9 +246,13 @@ def test_loss_falls_over_thirty_steps(tmp_path):
 
 
 def test_mesh_training_is_refused():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_loop.run(get_tiny_config("qwen3-14b"), TINY_SHAPE,
-                       mesh=object(), device="cpu")
+    """MoE on a mesh raises before any state is made, naming the ROADMAP
+    item that holds it."""
+    from repro_torch.launch.mesh import make_test_mesh
+    with pytest.raises(NotImplementedError, match="item 16"):
+        train_loop.run(get_tiny_config("grok-1-314b"), TINY_SHAPE,
+                       mesh=make_test_mesh(2, 1, devices="cpu"),
+                       device="cpu")
 
 
 def test_train_cli_on_the_cpu(tmp_path, capsys):
@@ -260,14 +265,34 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--devices", "2"], ["--data", "2"],
-                                   ["--model", "2"], ["--layout", "auto"],
-                                   ["--impl", "pallas"]])
-def test_train_cli_refuses_what_it_cannot_train(flags, capsys):
+                                   ["--model", "2"],
+                                   ["--devices", "4", "--layout", "auto"]])
+def test_train_cli_trains_on_a_mesh(flags, capsys):
+    """The mesh flags that exited 2 before the mesh trainer was ported:
+    a run on CPU positions (``--devices 2`` alone is one device, as in
+    the reference: no ``--data`` or ``--model`` makes no mesh)."""
+    out = train_cli.main(["--tiny", "--device", "cpu", "--steps", "2",
+                          "--seq", "32", "--batch", "4"] + flags)
+    text = capsys.readouterr().out
+    assert "final:" in text and np.isfinite(out["final_metrics"]["loss"])
+    if "--layout" in flags:
+        assert "[cost-engine]" in text and "TPU v5e-class" in text
+    if "--devices" not in flags or "--layout" in flags:
+        assert "mesh {" in text       # a mesh of CPU positions was made
+
+
+@pytest.mark.parametrize("arch,flags,why", [
+    ("grok-1-314b", ["--data", "2"], "item 16"),
+    ("deepseek-v3-671b", ["--data", "2"], "item 16"),
+    ("deepseek-v3-671b", ["--model", "2"], "item 16"),
+    ("recurrentgemma-2b", ["--model", "2"], "item 16"),
+    ("rwkv6-1.6b", ["--model", "2"], "item 16"),
+    ("tiny-100m", ["--impl", "pallas"], "no backward")])
+def test_train_cli_refuses_what_it_cannot_train(arch, flags, why, capsys):
     with pytest.raises(SystemExit) as e:
-        train_cli.main(["--tiny", "--device", "cpu"] + flags)
+        train_cli.main(["--tiny", "--device", "cpu", "--arch", arch] + flags)
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert ("no backward" if "pallas" in flags else "item 10") in err
+    assert why in capsys.readouterr().err
 
 
 def test_examples(tmp_path, monkeypatch):
