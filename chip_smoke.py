@@ -10,8 +10,9 @@ three nodes, untraced and with the flight recorder on), rwkv6-1.6b and
 recurrentgemma-2b at full width through the dense engine,
 grok-1-314b at full width with its depth cut to four layers through both
 engines, DeepSeek-V3 (five layers: three dense, two MoE) and gemma2-27b
-(24 of its 46 layers) at full width through the dense engine, qwen3-14b and
-minitron-8b at full width through the paged engine, qwen2-vl-7b (four
+(6 of its 46 layers) at full width through the dense engine, qwen3-14b
+(20 of 40 layers) and minitron-8b (16 of 32) at full width through the
+paged engine, qwen2-vl-7b (four
 layers) through ``lm.prefill`` and ``lm.decode_step`` with embeddings at
 3-D M-RoPE positions, and hubert-xlarge through ``lm.forward``, and
 checks each served path at a cut depth against the port's plain path
@@ -35,24 +36,39 @@ steps on the CPU (fp32 moments, and int8 ones at a vocabulary cut to
 16,384), the served model's loss under
 impl="pallas" against impl="blocked" with the kernels' launches (and a
 train step under impl="pallas", which must raise: the kernels have no
-backward), and ``train_loop.run`` at full width (28 layers, B=4,
-S=2048, 6 steps) with a checkpoint at step 3, the restart from it
+backward), and ``train_loop.run`` at full width (8 of its 28 layers,
+B=4, S=2048, 6 steps) with a checkpoint at step 3, the restart from it
 (steps 3 to 5 must repeat), and again with int8 moments (its final
 checkpoint must restore bit for bit), reporting step time, tokens/s,
 peak memory, a profiled step and the checkpoint times.  Phase 7
 ("mesh") trains on device meshes whose positions all share the one
 card: the mesh trainer at 2 layers on a 2x2 and a 1x2 mesh against the
 one-device trainer (fp32 and int8 moments), ``train_loop.run`` at full
-width on a 2x2 mesh (6 steps, a checkpoint at step 3) with its step
+width, 8 layers, on a 2x2 mesh (6 steps, a checkpoint at step 3) with its step
 time, peak memory, a profiled step and each position's bytes on the
 wire beside ``core/costs.comm_events``, the step-3 checkpoint restored
 onto a 1x4 and a 4x1 mesh bit for bit and one more step on the 1x4
-mesh, ``compressed_all_reduce`` over a 4x1 mesh's data axis against its
-plain version, and the train CLI on a mesh in a process of its own.
+mesh, ``compressed_all_reduce`` over a 4x1 mesh's data
+axis against its plain version, and the train CLI in a process of its
+own on a 2x2 mesh and under ``--layout auto``.
+Phase 8 ("dense-mesh") serves on device meshes whose positions share the
+card: each family's dense engine (qwen3-1.7b on 1x2, 2x2 and 1x4, grok-1
+under expert-TP and EP, DeepSeek-V3, gemma2-27b past its window,
+recurrentgemma-2b, rwkv6-1.6b) at fp32 and cut depth against the
+one-device dense engine; qwen3-1.7b at 28 layers on 1x4 and 2x2 and
+grok-1 at four layers on 1x2 (expert-TP and EP), bf16, full width, with
+their decode step, prefill, tok/s, peak memory, a profiled step and each
+position's bytes on the wire beside ``core/costs.comm_events``; the mesh
+trainer for grok-1 (expert-TP, EP, and a data axis against the same mesh
+on the CPU), DeepSeek-V3, recurrentgemma-2b and rwkv6-1.6b against one
+device; the pipeline's backward on four streams against the stages run
+in order; and the serve CLI's dense engine on a 1x2 mesh in a process of
+its own.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only-train     # the build and phase 6 alone
     python3 chip_smoke.py --only-mesh      # the build and phase 7 alone
+    python3 chip_smoke.py --only-dense-mesh  # the build and phase 8 alone
 
 Needs one CUDA card with 80 GB (the kernels target Hopper, sm_90a;
 DeepSeek's five layers hold 53.3 GB of bf16 parameters), the CUDA
@@ -67,12 +83,14 @@ of standard output is
 preceded by the kernels' JSON line and the card's name and power limit.
 The full record of the run is also written to chiprun_out/chip_smoke.json,
 the traced chaos run's Chrome trace to chiprun_out/chaos_trace.json,
-the striped serve CLI's output to chiprun_out/serve_cli_striped.txt and
-the mesh train CLI's to chiprun_out/mesh_train_cli.txt.
+the striped serve CLI's output to chiprun_out/serve_cli_striped.txt,
+the mesh train CLI's to chiprun_out/mesh_train_cli.txt and the dense
+mesh serve CLI's to chiprun_out/serve_cli_dense_mesh.txt.
 """
 import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1421,12 +1439,16 @@ GROK_DEPTH = 4     # 4 x 9.84 GB of layers + 3.2 GB of embedding and head
 # the depth cuts of phase 3 (every width as published): grok-1's
 # GROK_DEPTH layers, DeepSeek-V3's 3 dense layers and 2 MoE layers (3 x
 # 1.16 + 2 x 23.0 GB of layers, 3.7 GB of embedding and head) without the
-# MTP module (a training loss, about 23 GB), gemma2-27b's first 24 of 46
-# layers (its serve at every layer took 45 s on an H100: the cut gives
-# phase 7 part of its time), qwen2-vl-7b's first 4 layers
+# MTP module (a training loss, about 23 GB), gemma2-27b's first 6 of 46
+# layers (its serve at every layer took 45 s on an H100, at 24 layers
+# 23.8 s, at 12 12.1 s: the cuts give phases 7 and 8 their time), qwen3-14b
+# at 20 of 40 and minitron-8b at 16 of 32 layers (the script ran past its
+# 1,200 s limit on one host at 40 and 32), qwen2-vl-7b's first 4 layers
 CUTS = {"grok-1-314b": dict(n_layers=GROK_DEPTH),
         "deepseek-v3-671b": dict(n_layers=5, mtp_depth=0),
-        "gemma2-27b": dict(n_layers=24),
+        "gemma2-27b": dict(n_layers=6),
+        "qwen3-14b": dict(n_layers=20),
+        "minitron-8b": dict(n_layers=16),
         "qwen2-vl-7b": dict(n_layers=4)}
 # qwen2-vl-7b's run: one prefill of (batch, prompt) embeddings, then decode
 # steps; hubert-xlarge's: one forward of (batch, frames) embeddings
@@ -2080,12 +2102,15 @@ STRIPED_RUN = dict(data=1, model=4, prefill_budget=4.0)
 BF16_TIE_UNITS = 4
 
 
-def _bf16_ties(cfg, params, prompts, base, got, what):
+def _bf16_ties(cfg, params, prompts, base, got, what, mesh=None,
+               rules=None):
     """(rid, step, logit gap) of each request's first token that differs
-    between two bf16 runs.  Fails unless the dense kernel path, fed the
+    between two bf16 runs.  Fails unless the dense kernel path (on
+    ``mesh`` under ``rules``, with ``params`` placed there), fed the
     prompt and the tokens both runs agree on, gives the two tokens logits
     within BF16_TIE_UNITS bf16 units of each other."""
     from repro_torch import steps
+    from repro_torch.parallel.sharding import use_sharding
     ties = []
     for rid, want in base.items():
         have = got[rid]
@@ -2095,8 +2120,10 @@ def _bf16_ties(cfg, params, prompts, base, got, what):
             continue
         i = int(rid[3:])
         seq = np.concatenate([prompts[i], np.asarray(want[:j], np.int32)])
-        logits, _ = steps.make_prefill_step(cfg, len(seq) + 1)(
-            params, torch.tensor(seq[None], device=DEVICE))
+        with use_sharding(mesh, rules):
+            logits, _ = steps.make_prefill_step(cfg, len(seq) + 1,
+                                                mesh=mesh)(
+                params, torch.tensor(seq[None], device=DEVICE))
         la, lb = float(logits[0, 0, want[j]]), float(logits[0, 0, have[j]])
         tol = BF16_TIE_UNITS * 2.0 ** -7 * max(abs(la), abs(lb), 1.0)
         ties.append((rid, j, abs(la - lb)))
@@ -4041,12 +4068,25 @@ LOSS_RUN = dict(batch=4, seq=1024)
 # losses are deterministic, every run read the same), far below the
 # change that bf16 activations make against fp32 ones (also printed)
 LOSS_TOL = 1e-5
-# the trainer: all 28 layers, fp32 parameters, bf16 activations, remat;
-# 6 steps with a checkpoint at step 3 (8 and 4 until phase 7 came: the
-# cut, and the step-6 checkpoints that nothing reads not being written,
-# give phase 7 its time)
+# the trainers of phases 6 and 7 at full width, cut to TRAIN_DEPTH of
+# qwen3-1.7b's 28 layers: at 28 the two phases took 262 and 248 s of a
+# script that ran 960 to 1,120 s on an H100 host and past its 1,200 s
+# limit on another (the steps are host-bound, and the checkpoints'
+# writes and restores scale with the layers)
+TRAIN_DEPTH = 8
+# the trainer: fp32 parameters, bf16 activations, remat; 6 steps with a
+# checkpoint at step 3 (8 and 4 until phase 7 came: the cut, and the
+# step-6 checkpoints that nothing reads not being written, give phase 7
+# its time)
 TRAIN_RUN = dict(batch=4, seq=2048, steps=6, warmup=2, ckpt_every=3,
                  peak_lr=3e-4)
+
+
+def _trainer_cfg():
+    """The config of the phase 6 and 7 trainers: TRAIN_ARCH at full
+    width, TRAIN_DEPTH layers."""
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH).replace(n_layers=TRAIN_DEPTH)
 
 
 def _train_batches(cfg, batch, seq, n):
@@ -4066,9 +4106,17 @@ def _ckpt_items(tree):
     return list(ckpt_lib._items(tree))
 
 
+def _pair(a, b):
+    """Two leaves as fp32 on one device: the card's when either lies
+    there (the comparisons are exact, so the device does not change
+    them, and a card reads a GB leaf many times faster than the host)."""
+    dev = b.device if b.device.type != "cpu" else a.device
+    return a.float().to(dev), b.float().to(dev)
+
+
 def _leaf_err(a, b):
-    """max |a - b| over a leaf (on the host), relative to max |a|."""
-    a, b = a.float().cpu(), b.float().cpu()
+    """max |a - b| over a leaf, relative to max |a|."""
+    a, b = _pair(a, b)
     d = (a - b).abs()
     if not bool(torch.isfinite(d).all()):
         return float("inf")
@@ -4103,7 +4151,7 @@ def _param_errs(pc, pg, paths):
     share = (0.0, None)
     worst = (0.0, None)
     for path, a, b in zip(paths, pc, pg):
-        a, b = a.float().cpu(), b.float().cpu()
+        a, b = _pair(a, b)
         d = (a - b).abs()
         if not bool(torch.isfinite(d).all()):
             return (1.0, path), (float("inf"), path)
@@ -4384,9 +4432,8 @@ def train_runs(problems):
     import shutil
     import tempfile
     from repro_torch import steps, weights
-    from repro_torch.configs import get_config
     from repro_torch.runtime import checkpoint as ckpt_lib
-    cfg = get_config(TRAIN_ARCH)
+    cfg = _trainer_cfg()
     assert (cfg.impl, cfg.remat, cfg.param_dtype, cfg.activation_dtype) \
         == ("blocked", True, "float32", "bfloat16")
     tmp = tempfile.mkdtemp(prefix="train_ckpt_")
@@ -4462,7 +4509,8 @@ def train_runs(problems):
                  f"below step 1's {r['losses'][1]}")
         pr = r["profile"]
         lines.append(
-            f"{TRAIN_ARCH} trainer, {name} moments (28 layers, fp32 params, "
+            f"{TRAIN_ARCH} trainer, {name} moments ({cfg.n_layers} layers, "
+            f"fp32 params, "
             f"bf16 activations, remat, B={TRAIN_RUN['batch']}, "
             f"S={TRAIN_RUN['seq']}): step {r['step_s'] * 1e3:.1f} ms "
             f"(median of steps 2-{TRAIN_RUN['steps'] - 1}), "
@@ -4489,16 +4537,25 @@ def train_phase(ops):
     lines)."""
     t0 = time.time()
     recs, launches, lines, problems = {}, {}, [], []
+    clock = {}
     for sd in ("float32", "int8"):
+        t1 = time.time()
         recs[f"step parity {sd}"], line = train_step_parity(sd, problems)
+        clock[f"parity {sd}"] = time.time() - t1
         lines.append(line)
+    t1 = time.time()
     recs["pallas loss"], launches["train: loss under impl=pallas"], line = \
         pallas_loss(ops, problems)
+    clock["pallas loss"] = time.time() - t1
     lines.append(line)
+    t1 = time.time()
     recs["trainer"], run_lines = train_runs(problems)
+    clock["trainer"] = time.time() - t1
     lines += run_lines
     recs["seconds"] = time.time() - t0
-    lines.append(f"phase 6 took {recs['seconds']:.1f} s")
+    recs["section_s"] = clock
+    lines.append(f"phase 6 took {recs['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in clock.items()) + ")")
     if problems:            # every gate of the phase is read before this
         for line in lines:
             print(f"[train] {line}")
@@ -4515,8 +4572,8 @@ def train_phase(ops):
 # fp32 and int8 moments, with phase 6's gates (STEP_TOL)
 MESH_PARITY = dict(n_layers=2, batch=4, seq=256, steps=3, lr=1e-5,
                    meshes=((2, 2), (1, 2)))
-# the trainer at full width on a 2x2 mesh: 28 layers, fp32 parameters and
-# moments, bf16 activations, remat; a checkpoint at step 3 (the step-6
+# the trainer at full width on a 2x2 mesh: TRAIN_DEPTH layers, fp32
+# parameters and moments, bf16 activations, remat; a checkpoint at step 3 (the step-6
 # one is not written: nothing reads it)
 MESH_RUN = dict(data=2, model=2, batch=4, seq=2048, steps=6, ckpt_every=3,
                 warmup=2, peak_lr=3e-4)
@@ -4576,39 +4633,45 @@ def _mesh_parity_cfg():
         n_layers=MESH_PARITY["n_layers"], activation_dtype="float32")
 
 
-def _mesh_parity_run(cfg, state_dtype, mesh):
-    """MESH_PARITY's steps on ``mesh`` (None: one device, the card) from
-    the seeded weights.  Returns (logical parameter leaves on the host,
-    logical moments (m, v) on the host, per-step metrics)."""
+def _mesh_parity_run(cfg, state_dtype, mesh, rules=None, device=None,
+                     init="device"):
+    """MESH_PARITY's steps on ``mesh`` (None: one device, the card) under
+    ``rules`` from the seeded weights, made on ``device`` (the CPU for a
+    mesh of CPU positions), or with ``init="cpu"`` drawn on the CPU and
+    moved there (the CPU's and the card's generators draw different
+    numbers from one seed).  Returns (logical parameter leaves, logical
+    moments (m, v), per-step metrics), on the run's first device."""
     from repro_torch import steps, weights
     from repro_torch.optim import adam, quant
     from repro_torch.parallel.sharding import gather, use_sharding
     P = MESH_PARITY
+    device = device or DEVICE
     c = adam.AdamConfig(state_dtype=state_dtype, weight_decay=0.1)
     step = steps.make_train_step(cfg, c, lambda s: P["lr"])
-    params = weights.init_params(cfg, torch.Generator(DEVICE).manual_seed(
-        SEED), DEVICE)
+    at = "cpu" if init == "cpu" else device
+    params = weights.init_params(cfg, torch.Generator(at).manual_seed(
+        SEED), at)
+    params = weights._tree(lambda t: t.to(device), params)
     hist = []
     batches = _train_batches(cfg, P["batch"], P["seq"], P["steps"])
-    with use_sharding(mesh):
+    with use_sharding(mesh, rules):
         if mesh is None:
             o = adam.init(weights.to_reference(params, cfg), c)
         else:
-            params = weights.shard_tree(weights.to_reference(params, cfg),
-                                        mesh)
+            params = weights.shard_params(params, cfg, mesh)
             o = adam.init(params, c)
         for b in batches:
-            params, o, m = step(params, o, _on(b, DEVICE))
+            params, o, m = step(params, o, _on(b, device))
             hist.append({k: float(v) for k, v in m.items()})
 
-    def host(t):
+    def logical(t):
         if isinstance(t, quant.QTensor):
-            return t._replace(q=host(t.q), scale=host(t.scale))
-        return (t if isinstance(t, torch.Tensor) else gather(t)).cpu()
+            return t._replace(q=logical(t.q), scale=logical(t.scale))
+        return t if isinstance(t, torch.Tensor) else gather(t)
     leaves = weights.tree_leaves(params if mesh is not None
                                  else weights.to_reference(params, cfg))
-    return ([host(t) for t in leaves], ([host(t) for t in o.m],
-                                        [host(t) for t in o.v]), hist)
+    return ([logical(t) for t in leaves], ([logical(t) for t in o.m],
+                                           [logical(t) for t in o.v]), hist)
 
 
 def mesh_parity(problems):
@@ -4701,14 +4764,13 @@ def mesh_trainer(ops, problems, tmp):
     import contextlib
     import io
     from repro_torch import steps
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.parallel import collectives as col
     from repro_torch.parallel.sharding import use_sharding
     from repro_torch.runtime import checkpoint as ckpt_lib, train_loop
     R = MESH_RUN
-    cfg = get_config(TRAIN_ARCH)
+    cfg = _trainer_cfg()
     mesh = make_test_mesh(R["data"], R["model"])
     job = train_loop.TrainJobConfig(
         steps=R["steps"], log_every=1, ckpt_every=R["ckpt_every"],
@@ -4773,8 +4835,8 @@ def mesh_trainer(ops, problems, tmp):
         param=w["param_measured"] / ev.get("param_all_gather", float("nan")))
     rec["wire_ratios"] = ratios
     pr = rec["profile"]
-    line = (f"{TRAIN_ARCH} mesh trainer, 2x2 mesh on one card (28 layers, "
-            f"fp32 params and moments, bf16 activations, remat, "
+    line = (f"{TRAIN_ARCH} mesh trainer, 2x2 mesh on one card "
+            f"({cfg.n_layers} layers, fp32 params and moments, bf16 activations, remat, "
             f"B={R['batch']}, S={R['seq']}): step {step_s * 1e3:.1f} ms "
             f"(median of steps 2-5), {rec['tokens_per_s']:.0f} tokens/s, "
             f"peak {peak:.2f} GB; losses "
@@ -4800,18 +4862,17 @@ def mesh_trainer(ops, problems, tmp):
 
 
 def elastic_restores(problems, tmp, kept, step3_loss):
-    """The step-3 checkpoint restored onto a 1x4 and a 4x1 mesh: every
-    position's block equal to the saved array's, bit for bit; one more
-    step on the 1x4 mesh with ``rebatch``'s batch.  Returns (record,
-    line)."""
+    """The step-3 checkpoint restored onto each ELASTIC_MESHES mesh:
+    every position's block equal to the saved array's, bit for bit; one
+    more step on the first (1x4) with ``rebatch``'s batch.  Returns
+    (record, line)."""
     from repro_torch import steps
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.optim import adam
     from repro_torch.parallel.sharding import region, use_sharding
     from repro_torch.runtime import checkpoint as ckpt_lib, elastic
     R = MESH_RUN
-    cfg = get_config(TRAIN_ARCH)
+    cfg = _trainer_cfg()
     c = steps.adam_config_for(cfg)
     rec = {}
     for d, m in ELASTIC_MESHES:
@@ -4875,11 +4936,11 @@ def elastic_restores(problems, tmp, kept, step3_loss):
         rec[f"{d}x{m}"] = r
         del params, opt
     a = rec["1x4"]
-    line = (f"elastic restore of the 2x2 run's step-3 checkpoint: onto 1x4 "
-            f"in {a['restore_s']:.2f} s, 4x1 in {rec['4x1']['restore_s']:.2f}"
-            f" s; {a['blocks']} and {rec['4x1']['blocks']} blocks, leaves "
-            f"differing {len(a['bad'])} and {len(rec['4x1']['bad'])}; rebatch "
-            f"{a['rebatch']}; step 3 on 1x4 loss {a['loss']:.5f} "
+    line = (f"elastic restore of the 2x2 run's step-3 checkpoint: "
+            + ", ".join(f"onto {k} in {r['restore_s']:.2f} s, {r['blocks']} "
+                        f"blocks, {len(r['bad'])} leaves differing"
+                        for k, r in rec.items())
+            + f"; rebatch {a['rebatch']}; step 3 on 1x4 loss {a['loss']:.5f} "
             f"({a['step_s']:.2f} s) against the 2x2 run's {step3_loss:.5f} "
             f"({a['gap']:.2e} relative, gate {ELASTIC_LOSS_TOL:g}); the "
             f"control on step 4's batch {a['control_loss']:.5f} "
@@ -5038,6 +5099,492 @@ def mesh_phase(ops):
     return recs, {"mesh train: qwen3-1.7b 2x2": launches}, lines
 
 
+# ---------------------------------------------------------------------------
+# phase 8 — the dense engine on a device mesh (every position on the one
+# card), and the mesh trainer for every family
+# ---------------------------------------------------------------------------
+EP_RULES = {"expert": "model", "expert_ff": None}
+# (a) each family's dense engine on meshes against the one-device dense
+# engine on the card: published widths, depth cut, fp32 activations,
+# impl=pallas; 2 prompts of 64 tokens (gemma2's 4100: past its window, the
+# ring caches wrap) and 10 tokens each.  max_len 74 splits over 2
+# positions (split-T) and not over 4 (every position keeps the whole
+# cache, the global layers through the decode kernel).  Tokens must be
+# identical (a row may flip only where the one-device top-2 margin is
+# below 2 tol); logits within tol until the first flip.
+DMESH_PARITY = dict(batch=2, prompt_len=64, gen=10, tol=1e-3)
+DMESH_CASES = (
+    ("qwen3-1.7b", dict(n_layers=2), ((1, 2), (2, 2), (1, 4)), (None,), 64),
+    ("grok-1-314b", dict(n_layers=2), ((1, 2),), (None, EP_RULES), 64),
+    ("deepseek-v3-671b", dict(n_layers=2, first_k_dense=1, mtp_depth=0),
+     ((1, 2),), (None,), 64),
+    ("gemma2-27b", dict(n_layers=2), ((1, 2),), (None,), 4100),
+    ("recurrentgemma-2b", dict(n_layers=3), ((1, 2),), (None,), 64),
+    ("rwkv6-1.6b", dict(n_layers=2), ((1, 2),), (None,), 64))
+# (b) full width, bf16: qwen3-1.7b at 28 layers on 1x4 and 2x2, grok-1 at
+# GROK_DEPTH layers on 1x2 under expert-TP and EP; tokens held to the
+# one-device run under the bf16 near-tie rule (_bf16_ties)
+DMESH_RUNS = {"qwen3-1.7b": dict(requests=4, batch=4, prompt_len=512, gen=16,
+                                 meshes=((1, 4, None), (2, 2, None))),
+              "grok-1-314b": dict(requests=4, batch=4, prompt_len=256,
+                                  gen=16, meshes=((1, 2, None),
+                                                  (1, 2, EP_RULES)))}
+# (c) the mesh trainer's item-16 families, MESH_PARITY's steps (2 layers,
+# fp32, B=4, S=256, 3 steps at lr 1e-5, fp32 moments) with phase 6's
+# gates: on 1x2 against the one-device trainer on the card; grok on 2x1
+# against the same mesh on the CPU (a data axis changes MoE's loss by
+# design).  rwkv6 at its published widths, recurrentgemma at its
+# published widths but a vocabulary of 32,768 (its 256,000 took 29.7 s of
+# the phase's 197 s on an H100).  grok on the card at its published
+# d_model, heads and 8 experts top-2, its experts' d_ff cut from 32,768
+# to 4,096 and its vocabulary from 131,072 to 8,192: the card holds the
+# one-device run's parameters and moments beside the mesh run (53.5 GB
+# at its peak on an H100; an expert d_ff of 8,192 would need about 96);
+# DeepSeek at cut widths (its 256 experts at full width do not train on
+# one card).
+# The CPU run of grok's 2x1 mesh at d_model 512 (TRAIN_CPU_CUT): the data
+# axis's capacity and aux rules do not depend on the width, and at d_model
+# 1024 that run took 36.5 s beside the card's
+TRAIN_FAMILY_CUTS = {
+    "grok-1-314b": dict(vocab_size=8192, moe=dict(d_ff_expert=4096)),
+    "deepseek-v3-671b": dict(d_model=1024, n_heads=8, n_kv_heads=8,
+                             head_dim=128, d_ff=2048, vocab_size=16384,
+                             first_k_dense=1,
+                             moe=dict(n_experts=16, top_k=4,
+                                      d_ff_expert=512),
+                             mla=dict(q_lora_rank=256, kv_lora_rank=128)),
+    "recurrentgemma-2b": dict(vocab_size=32768), "rwkv6-1.6b": dict()}
+TRAIN_CPU_CUT = dict(d_model=512, n_heads=8, n_kv_heads=4, head_dim=64,
+                     d_ff=2048, vocab_size=8192,
+                     moe=dict(n_experts=8, d_ff_expert=2048))
+TRAIN_FAMILY_MESHES = (("grok-1-314b", (1, 2), None),
+                       ("grok-1-314b", (1, 2), EP_RULES),
+                       ("deepseek-v3-671b", (1, 2), None),
+                       ("recurrentgemma-2b", (1, 2), None),
+                       ("rwkv6-1.6b", (1, 2), None),
+                       ("grok-1-314b", (2, 1), "cpu"))
+ZERO_INIT = r"(conv_b|lru_(a|x)_gate_b|rwkv_mix_(x|base)|rwkv_ln_bias)$"
+DMESH_CLI = ["--arch", "qwen3-1.7b", "--engine", "dense", "--model", "2",
+             "--requests", "4", "--batch", "4", "--prompt-len", "128",
+             "--gen", "16"]
+
+
+def _dmesh_greedy(cfg, params, tok0, plen, gen_len, mesh=None):
+    """The dense engine's greedy run: (tokens (gen_len lists of B ids),
+    each step's logits on the host, the top-2 margins)."""
+    from repro_torch import steps
+    prefill = steps.make_prefill_step(cfg, plen + gen_len, mesh=mesh)
+    serve = steps.make_serve_step(cfg, mesh=mesh)
+    logits, caches = prefill(params, tok0)
+    toks, lgs, mg = [], [], []
+    for j in range(gen_len):
+        top2 = logits[:, 0].topk(2).values
+        mg.append((top2[:, 0] - top2[:, 1]).tolist())
+        lgs.append(logits[:, 0].float().cpu())
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok[:, 0].tolist())
+        if j < gen_len - 1:
+            tok, logits, caches = serve(params, tok, caches, plen + j)
+    return toks, lgs, mg
+
+
+def dense_mesh_parity(ops, problems):
+    """(a): every DMESH_CASES mesh against one device.  Returns (records,
+    the kernels' launches over the mesh runs, lines)."""
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.parallel.sharding import use_sharding
+    P = DMESH_PARITY
+    recs, lines = {}, []
+    total = {fn.__name__: 0 for fn in ops.WRAPPERS}
+    for arch, cut, meshes, rules_list, plen in DMESH_CASES:
+        cfg = get_config(arch).replace(activation_dtype="float32",
+                                       impl="pallas", **cut)
+        params = weights.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(SEED + 8), DEVICE)
+        tok0 = torch.tensor(np.stack(make_prompts(
+            P["batch"], plen, cfg.vocab_size, SEED + 8)), device=DEVICE)
+        one = _dmesh_greedy(cfg, params, tok0, plen, P["gen"])
+        for rules in rules_list:
+            for shape in meshes:
+                mesh = make_test_mesh(*shape)
+                what = (f"{arch} {shape[0]}x{shape[1]}"
+                        + (" EP" if rules else ""))
+                ops.reset_launches()
+                with use_sharding(mesh, rules):
+                    placed = weights.shard_params(params, cfg, mesh)
+                    got = _dmesh_greedy(cfg, placed, tok0, plen, P["gen"],
+                                        mesh)
+                torch.cuda.synchronize()
+                for k, v in _launches(ops).items():
+                    total[k] += v
+                del placed
+                seqs = {"pallas": got[0], "ref": one[0]}
+                inf = [[float("inf")] * P["batch"] for _ in one[0]]
+                flips = _token_flips(seqs, one[2], P["tol"], inf, what)
+                upto = min([j for _, j, _, _ in flips] + [P["gen"]])
+                err = max((max_err(a, b) for a, b in
+                           zip(got[1][:upto + 1], one[1][:upto + 1])),
+                          default=0.0)
+                if not err <= P["tol"]:
+                    problems.append(f"dense mesh {what}: logits {err:.3g} "
+                                    f"> {P['tol']}")
+                recs[what] = dict(logit_err=err, flips=flips,
+                                  n_layers=cfg.n_layers, prompt_len=plen)
+                lines.append(
+                    f"dense mesh parity {what} ({cfg.n_layers} layers at "
+                    f"published widths, fp32 activations, impl=pallas, "
+                    f"{P['batch']} prompts of {plen} x {P['gen']} tokens): "
+                    f"against one device on the card, logits max abs err "
+                    f"{err:.3g} (tol {P['tol']}), greedy tokens "
+                    + ("identical" if not flips else
+                       f"differ only at near-ties {flips}"))
+        del params
+        torch.cuda.empty_cache()
+    return recs, total, lines
+
+
+def _dmesh_wire(cfg, run, mesh, steps_n, wire):
+    """Each position's bytes a decode step by collective, beside
+    ``core/costs.comm_events`` for the decode shape and layout."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import costs
+    n_pos = len(mesh.devices)
+    per = {k: v / n_pos / steps_n for k, v in sorted(wire.items())}
+    events = {e.name: e.wire_bytes_per_device() for e in costs.comm_events(
+        cfg, ShapeConfig("serve", run["prompt_len"] + run["gen"],
+                         run["batch"], "decode"),
+        costs.Layout(data=mesh.shape["data"], model=mesh.shape["model"]))}
+    return dict(per_position=per, measured=sum(per.values()),
+                comm_events=events)
+
+
+def _dmesh_profile(cfg, placed, mesh, rules, args, prompts, run):
+    """A profiled prefill of the first batch and four profiled decode
+    steps on ``mesh``, their bytes on the wire counted.  Returns (the
+    profiles, ``_dmesh_wire``, whether the last logits are finite)."""
+    from repro_torch import steps
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import use_sharding
+    with use_sharding(mesh, rules):
+        prefill = steps.make_prefill_step(cfg, args.prompt_len + args.gen,
+                                          mesh=mesh)
+        serve = steps.make_serve_step(cfg, mesh=mesh)
+        tok = torch.tensor(np.stack(prompts[:args.batch]), device=DEVICE)
+        state = {}
+
+        def run_prefill():
+            state["l"], state["c"] = prefill(placed, tok)
+            return 1
+
+        def run_decode(n=4):
+            t = state["l"].argmax(-1).to(torch.int32)
+            for i in range(n):
+                t, state["l"], state["c"] = serve(placed, t, state["c"],
+                                                  args.prompt_len + i)
+            return n
+        prof = dict(prefill=_profile(run_prefill, cpu=False))
+        col.WIRE.clear()
+        prof["decode"] = _profile(run_decode, cpu=False)
+        wire = _dmesh_wire(cfg, run, mesh, 4, dict(col.WIRE))
+    return prof, wire, bool(torch.isfinite(state["l"]).all())
+
+
+def dense_mesh_serve(ops, problems):
+    """(b): DMESH_RUNS through ``run_dense`` on each mesh, the one-device
+    run's tokens beside them.  Returns (records, {path: launches},
+    lines)."""
+    from repro_torch import weights
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import build_parser, make_prompts, \
+        run_dense
+    from repro_torch.parallel.sharding import use_sharding
+    recs, launches, lines = {}, {}, []
+    for arch, run in DMESH_RUNS.items():
+        args = build_parser().parse_args(
+            [f"--{k.replace('_', '-')}={v}" for k, v in run.items()
+             if k != "meshes"] + [f"--seed={SEED}"])
+        cfg, params = full_width_params(arch)
+        prompts = make_prompts(args.requests, args.prompt_len,
+                               cfg.vocab_size, SEED)
+        base, st1 = run_dense(args, cfg, params=params, device=DEVICE)
+        base = {f"req{i}": t for i, t in base.items()}
+        for d, m, rules in run["meshes"]:
+            mesh = make_test_mesh(d, m)
+            what = f"{arch} {d}x{m}" + (" EP" if rules else "")
+            if params is None:           # consumed by the run before
+                cfg, params = full_width_params(arch)
+            keep = arch != "grok-1-314b"     # grok's copy does not fit
+            with use_sharding(mesh, rules):
+                placed = weights.shard_params(params, cfg, mesh,
+                                              consume=not keep)
+            if not keep:
+                params = None
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            with use_sharding(mesh, rules):
+                out, st = run_dense(args, cfg, params=placed, mesh=mesh,
+                                    rules=rules)
+            torch.cuda.synchronize()
+            launches[f"dense mesh: {what}"] = _launches(ops)
+            peak = _peak_gb()
+            got = {f"req{i}": t for i, t in out.items()}
+            if keep:
+                ties = _bf16_ties(cfg, params, prompts, base, got, what)
+            else:
+                ties = _bf16_ties(cfg, placed, prompts, base, got, what,
+                                  mesh=mesh, rules=rules)
+            prof, wire, finite = _dmesh_profile(cfg, placed, mesh, rules,
+                                                args, prompts, run)
+            if not finite:
+                problems.append(f"dense mesh {what}: non-finite logits")
+            del placed
+            torch.cuda.empty_cache()
+            tp = wire["comm_events"].get("tp_sublayer_allreduce", 0.0)
+            rec = dict(decode_step_ms=st["step_s"] * 1e3,
+                       prefill_ms=st["prefill_s"] * 1e3,
+                       tok_per_s=st["tokens"] / st["seconds"],
+                       one_device_step_ms=st1["step_s"] * 1e3,
+                       one_device_tok_per_s=st1["tokens"] / st1["seconds"],
+                       peak_gb=peak, ties=ties, profile=prof, wire=wire,
+                       launches=launches[f"dense mesh: {what}"])
+            recs[what] = rec
+            dp = prof["decode"]
+            lines.append(
+                f"dense mesh serve {what} on one card ({cfg.n_layers} "
+                f"layers, bf16, impl=pallas, {args.requests} requests x "
+                f"{args.gen} tokens, batch {args.batch}, prompt "
+                f"{args.prompt_len}): decode step "
+                f"{rec['decode_step_ms']:.3f} ms (one device "
+                f"{rec['one_device_step_ms']:.3f}), prefill "
+                f"{rec['prefill_ms']:.3f} ms, {rec['tok_per_s']:.1f} tok/s "
+                f"(one device {rec['one_device_tok_per_s']:.1f}), peak "
+                f"{peak:.2f} GB; tokens against one device: "
+                + ("identical" if not ties else f"bf16 near-ties {ties}")
+                + f"; profiled decode step {dp['wall_ms'] / 4:.3f} ms wall, "
+                f"busy {dp['busy_share']:.3f}, "
+                f"{dp['launches_per_step']:.0f} launches, top {dp['top']}; "
+                f"wire a position a decode step "
+                f"{wire['measured'] / 1e6:.4f} MB ("
+                + ", ".join(f"{k} {v / 1e6:.4f}" for k, v in
+                            wire["per_position"].items())
+                + f"), comm_events tp_sublayer_allreduce {tp / 1e6:.4f} MB"
+                + (f", moe_dispatch_combine "
+                   f"{wire['comm_events']['moe_dispatch_combine'] / 1e6:.4f}"
+                   f" MB" if "moe_dispatch_combine" in wire["comm_events"]
+                   else "")
+                + f"; launches {rec['launches']}")
+        del params
+        torch.cuda.empty_cache()
+    return recs, launches, lines
+
+
+def _family_train_cfg(arch, cpu=False):
+    """``arch`` at MESH_PARITY's depth and TRAIN_FAMILY_CUTS' widths (with
+    ``cpu``, TRAIN_CPU_CUT's), fp32, impl=blocked (the kernels have no
+    backward)."""
+    from repro_torch.configs import get_config
+    cut = dict(TRAIN_CPU_CUT if cpu else TRAIN_FAMILY_CUTS[arch])
+    cfg = get_config(arch)
+    for k in ("moe", "mla"):
+        if k in cut:
+            cut[k] = dataclasses.replace(getattr(cfg, k), **cut[k])
+    return cfg.replace(n_layers=MESH_PARITY["n_layers"],
+                       activation_dtype="float32", param_dtype="float32",
+                       impl="blocked", **cut)
+
+
+def family_train(problems):
+    """(c): TRAIN_FAMILY_MESHES' mesh trainer runs against one device on
+    the card (or, "cpu", the same mesh on the CPU), phase 6's gates."""
+    from repro_torch import weights
+    from repro_torch.launch.mesh import make_test_mesh
+    P = MESH_PARITY
+    recs, lines = {}, []
+    ones = {}
+    for arch, shape, rules in TRAIN_FAMILY_MESHES:
+        cfg = _family_train_cfg(arch, cpu=rules == "cpu")
+        paths = ["/".join(k) for k, _ in _ckpt_items(weights.to_reference(
+            weights.init_params(cfg, device="meta"), cfg))]
+        t0 = time.time()
+        if rules == "cpu":
+            other = _mesh_parity_run(cfg, "float32",
+                                     make_test_mesh(*shape, devices="cpu"),
+                                     device="cpu")
+            got = _mesh_parity_run(cfg, "float32", make_test_mesh(*shape),
+                                   init="cpu")
+            rules, against = None, "the same mesh on the CPU"
+        else:
+            if arch not in ones:
+                ones[arch] = _mesh_parity_run(cfg, "float32", None)
+            other, against = ones[arch], "one device on the card"
+            got = _mesh_parity_run(cfg, "float32", make_test_mesh(*shape),
+                                   rules=rules)
+        metric = max(abs(g[k] - h[k]) / max(abs(h[k]), 1e-30)
+                     for h, g in zip(other[2], got[2])
+                     for k in ("loss", "grad_norm"))
+        # a leaf that is zero at init is all update, lr m/(sqrt(v)+eps) a
+        # step, whose sign an entry with a vanishing gradient takes from
+        # rounding: it is held by the moments' gate instead
+        keep = [i for i, p in enumerate(paths)
+                if not re.search(ZERO_INIT, p)]
+        (share, share_at), (worst, _) = _param_errs(
+            [other[0][i] for i in keep], [got[0][i] for i in keep],
+            [paths[i] for i in keep])
+        m_rel = max(_moment_errs(other[1][i], got[1][i])[0] for i in (0, 1))
+        what = (f"mesh trainer {arch} {shape[0]}x{shape[1]}"
+                + (" EP" if rules else ""))
+        if not metric <= STEP_TOL["metric"]:
+            problems.append(f"{what}: loss / grad norm {metric:.3g}")
+        if not share <= STEP_TOL["param_share"]:
+            problems.append(f"{what}: {share:.3g} of {share_at} more than "
+                            f"{STEP_TOL['param_near']} apart")
+        if not m_rel <= STEP_TOL["moment"]:
+            problems.append(f"{what}: moments {m_rel:.3g}")
+        recs[what] = dict(metric_rel_err=metric, param_share_off=share,
+                          param_share_leaf=share_at, param_max_abs=worst,
+                          moment_rel_err=m_rel,
+                          losses=[h["loss"] for h in got[2]],
+                          seconds=time.time() - t0, d_model=cfg.d_model)
+        lines.append(
+            f"{what} (2 layers, d_model {cfg.d_model}, fp32, B={P['batch']},"
+            f" S={P['seq']}, 3 steps at lr {P['lr']}) against {against}: "
+            f"loss and grad norm within {metric:.3g} (tol "
+            f"{STEP_TOL['metric']}); parameters at most {share:.3g} of a "
+            f"leaf ({share_at}) more than {STEP_TOL['param_near']} of its "
+            f"max apart, largest gap {worst:.3g}; moments {m_rel:.3g}; "
+            f"losses {', '.join(f'{l:.5f}' for l in recs[what]['losses'])}")
+        del got
+        torch.cuda.empty_cache()
+    return recs, lines
+
+
+PIPE_GRAD = dict(stages=4, micro=8, batch=64, width=1024)
+
+
+def pipeline_backward(problems):
+    """``pipeline_apply``'s backward on a 4-stage mesh on the one card
+    (a CUDA stream a position, the gradients handed back through the
+    sends) against autograd of the stages run in order: fp32, tanh
+    stages of PIPE_GRAD's width."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.parallel.sharding import use_sharding
+    P = PIPE_GRAD
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    w = (torch.randn(P["stages"], P["width"], P["width"], generator=g,
+                     device=DEVICE) * P["width"] ** -0.5).requires_grad_()
+    x = torch.randn(P["batch"], P["width"], generator=g, device=DEVICE,
+                    requires_grad=True)
+    c = torch.randn(P["batch"], P["width"], generator=g, device=DEVICE)
+
+    def stage(q, t):
+        return torch.tanh(t @ q)
+    grads = {}
+    for name in ("plain", "pipeline"):
+        t0 = time.time()
+        if name == "plain":
+            y = x
+            for s_ in range(P["stages"]):
+                y = stage(w[s_], y)
+        else:
+            with use_sharding(make_mesh((P["stages"],), ("stage",))):
+                y = pipeline_apply(stage, [w[s_] for s_ in
+                                           range(P["stages"])], x,
+                                   n_micro=P["micro"])
+        grads[name] = torch.autograd.grad((y * c).sum(), (w, x))
+        torch.cuda.synchronize()
+        grads[name + "_s"] = time.time() - t0
+    err = max(max_err(a, b) / float(b.abs().max())
+              for a, b in zip(grads["pipeline"], grads["plain"]))
+    if not err <= 1e-5:
+        problems.append(f"pipeline backward: gradients {err:.3g} of their "
+                        "max from the plain run's")
+    return dict(rel_err=err, s=grads["pipeline_s"],
+                plain_s=grads["plain_s"]), (
+        f"pipeline backward, {P['stages']} stages x {P['micro']} "
+        f"microbatches on one card (a stream a stage), fp32 tanh stages "
+        f"{P['batch']} x {P['width']}: gradients within {err:.3g} of their "
+        f"max of the stages run in order (tol 1e-5); {grads['pipeline_s']:.3f}"
+        f" s, in order {grads['plain_s']:.3f} s")
+
+
+def dense_mesh_cli(problems):
+    """(d): the serve CLI's dense engine on a 1x2 mesh in a process of
+    its own; output in chiprun_out/serve_cli_dense_mesh.txt."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"]
+                       + DMESH_CLI, capture_output=True, text=True,
+                       timeout=600, cwd=ROOT, env=env)
+    s = time.time() - t0
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "serve_cli_dense_mesh.txt").write_text(
+        f"$ serve {' '.join(DMESH_CLI)}\n{r.stdout}{r.stderr}")
+    lines = r.stdout.splitlines()
+    mesh = [x for x in lines if x.startswith("[dense] mesh")]
+    served = [x for x in lines if "served" in x]
+    # the positions must lie on the card, not fall back to the CPU
+    if r.returncode or not mesh or "cuda" not in mesh[0] or not served:
+        problems.append(f"serve CLI {' '.join(DMESH_CLI)}: exit "
+                        f"{r.returncode}; {r.stderr[-800:]}")
+    return dict(rc=r.returncode, s=s, lines=mesh + served), (
+        f"serve CLI {' '.join(DMESH_CLI)} in its own process: exit "
+        f"{r.returncode} in {s:.1f} s; " + "; ".join(mesh + served))
+
+
+def dense_mesh_phase(ops):
+    """Phase 8: the dense engine on device meshes and the mesh trainer's
+    item-16 families, every position on the one card.  Returns (records,
+    {path: launches}, lines)."""
+    t0 = time.time()
+    recs, lines, problems, clock = {}, [], [], {}
+
+    def timed(name, fn, *args):
+        t1 = time.time()
+        out = fn(*args)
+        clock[name] = time.time() - t1
+        return out
+    recs["parity"], parity_launches, ls = timed("parity", dense_mesh_parity,
+                                                ops, problems)
+    lines += ls
+    recs["serve"], launches, ls = timed("serve", dense_mesh_serve, ops,
+                                        problems)
+    lines += ls
+    launches["dense mesh parity"] = parity_launches
+    recs["train"], ls = timed("train", family_train, problems)
+    lines += ls
+    recs["pipeline"], line = timed("pipeline", pipeline_backward, problems)
+    lines.append(line)
+    recs["cli"], line = timed("cli", dense_mesh_cli, problems)
+    lines.append(line)
+    phase = {fn.__name__: sum(l[fn.__name__] for l in launches.values())
+             for fn in ops.WRAPPERS}
+    kern = {}
+    for w, n in phase.items():
+        kern[ops.KERNEL_OF[w]] = kern.get(ops.KERNEL_OF[w], 0) + n
+    recs["kernel_launches"] = kern
+    for k in ("flash_attention", "moe_gemm", "rmsnorm", "rglru_scan",
+              "rwkv6_scan", "decode_attention"):
+        if not kern.get(k):
+            problems.append(f"{k} never launched on the dense mesh paths")
+    recs["seconds"] = time.time() - t0
+    recs["section_s"] = clock
+    lines.append(f"kernel launches on the dense mesh paths: {kern}")
+    lines.append(f"phase 8 took {recs['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in clock.items()) + ")")
+    if problems:
+        for line in lines:
+            print(f"[dense-mesh] {line}")
+        fail("phase 8: " + "; ".join(problems))
+    return recs, launches, lines
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -5095,6 +5642,24 @@ def main():
             default=str))
         print(gpu_info())
         return
+    if sys.argv[1:] == ["--only-dense-mesh"]:  # phase 8 alone, no verdict
+        dmesh, launches, dmesh_lines = dense_mesh_phase(ops)
+        for line in dmesh_lines:
+            print(f"[dense-mesh] {line}")
+        OUT.mkdir(exist_ok=True)
+        (OUT / "chip_smoke_dense_mesh.json").write_text(json.dumps(
+            dict(gpu=info, dense_mesh=dmesh, launches=launches), indent=2,
+            default=str))
+        print(gpu_info())
+        return
+    # the seconds of each part of phases 1 to 4, printed at the end
+    laps, last = {}, [t0]
+
+    def lap(name):
+        now = time.time()
+        laps[name] = now - last[0]
+        last[0] = now
+    lap("build")
     recs, lines = {}, []
     for check in (check_paged, check_flash, check_rwkv6, check_rglru,
                   check_moe_gemm, check_decode, check_rmsnorm):
@@ -5125,6 +5690,7 @@ def main():
     lines += fam_lines
     for line in lines:
         print(f"[kernels] {line}")
+    lap("kernels")
 
     # each served path with the counts set to 0 just before it; a kernel's
     # launches are the sum over the paths
@@ -5151,14 +5717,17 @@ def main():
     print(f"[parity] {line}")
     del params
     torch.cuda.empty_cache()
+    lap("qwen3-1.7b paged serving")
     serve_stats["qwen3-1.7b paged 1x4 mesh, serve CLI"], line = \
         serve_cli_striped()
     print(f"[serve] {line}")
+    lap("serve CLI")
     for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
         cfg, params = full_width_params(arch)
         served(f"{arch} dense", serve_dense(ops, cfg, params))
         del params
     torch.cuda.empty_cache()
+    lap("rwkv6, recurrentgemma serving")
     parity["qwen3-1.7b paged"], line = engine_parity()
     print(f"[parity] {line}")
     inp = feature_parity_inputs()
@@ -5173,9 +5742,11 @@ def main():
     print(f"[parity] {line}")
     del inp
     torch.cuda.empty_cache()
+    lap("qwen3-1.7b parity")
     for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
         parity[f"{arch} dense"], line = dense_parity(arch)
         print(f"[parity] {line}")
+    lap("rwkv6, recurrentgemma parity")
     # grok-1 at its published widths, cut to GROK_DEPTH layers: one set of
     # bf16 parameters for both engines and for the parity runs
     torch.cuda.empty_cache()
@@ -5197,7 +5768,8 @@ def main():
     print(f"[parity] {line}")
     del params
     torch.cuda.empty_cache()
-    # DeepSeek-V3 (5 layers) and gemma2-27b (24 layers) at their
+    lap("grok-1")
+    # DeepSeek-V3 (5 layers) and gemma2-27b (6 layers) at their
     # published widths through the dense engine; each parity run then
     # takes its layers from the served weights, and the rest are freed
     for arch in ("deepseek-v3-671b", "gemma2-27b"):
@@ -5212,6 +5784,7 @@ def main():
         print(f"[parity] {line}")
         del params
         torch.cuda.empty_cache()
+        lap(arch)
     for arch in ("qwen3-14b", "minitron-8b"):
         cfg, params = full_width_params(arch)
         served(f"{arch} paged", serve_paged(ops, cfg, params))
@@ -5221,6 +5794,7 @@ def main():
         print(f"[parity] {line}")
         del params
         torch.cuda.empty_cache()
+        lap(arch)
     for arch, serve_fn in (("qwen2-vl-7b", serve_embeddings),
                            ("hubert-xlarge", serve_encoder)):
         cfg, params = full_width_params(arch)
@@ -5229,21 +5803,31 @@ def main():
         print(f"[parity] {line}")
         del params
         torch.cuda.empty_cache()
+        lap(arch)
 
     paper, paper_launches, paper_lines = paper_phase(ops)
     path_launches.update(paper_launches)
     for line in paper_lines:
         print(f"[paper] {line}")
+    lap("phase 5")
 
     train, train_launches, train_lines = train_phase(ops)
     path_launches.update(train_launches)
     for line in train_lines:
         print(f"[train] {line}")
+    lap("phase 6")
 
     mesh, mesh_launches, mesh_lines = mesh_phase(ops)
     path_launches.update(mesh_launches)
     for line in mesh_lines:
         print(f"[mesh] {line}")
+    lap("phase 7")
+
+    dmesh, dmesh_launches, dmesh_lines = dense_mesh_phase(ops)
+    path_launches.update(dmesh_launches)
+    for line in dmesh_lines:
+        print(f"[dense-mesh] {line}")
+    lap("phase 8")
 
     for name, rec in recs.items():
         rec["launches"] = sum(l[w] for l in path_launches.values()
@@ -5263,9 +5847,11 @@ def main():
              kernels=[recs[fn.__name__] for fn in ops.KERNELS],
              flash_local=flash_local,
              path_launches=path_launches, serve=serve_stats, parity=parity,
-             paper=paper, train=train, mesh=mesh),
+             paper=paper, train=train, mesh=mesh, dense_mesh=dmesh,
+             section_s=laps),
         indent=2, default=str))
-    print(f"[done] {time.time() - t0:.1f} s after the build started")
+    print(f"[done] {time.time() - t0:.1f} s after the build started ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ")")
     print(json.dumps(kernels))
     print(gpu_info())
     print(json.dumps({"ok": True, "device": {

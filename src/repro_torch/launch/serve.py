@@ -37,10 +37,17 @@ registry's snapshot.  The nOS fleet view closes every paged run.  Runs
 on the GPU (``--device cpu`` for the CPU) with ``impl="pallas"``, so
 every kernel of the path goes through ``kernels/ops.py``.  Weights are
 random, from ``--seed``; prompts are drawn with numpy from the same
-seed.  The dense engine's mesh (tensor parallelism) is not ported: with
-``--engine dense`` the flags that build one (``--layout auto``,
-``--devices``, ``--data`` > 1, ``--model`` > 1) are rejected with exit
-code 2.
+seed.
+
+With ``--engine dense``, ``--data D --model M`` (D x M > 1) serves on a
+device mesh of D x M positions (round-robin over the visible cards, or
+the CPU with ``--device cpu``), as the reference's dense engine does:
+the batch rows split over the D data groups, each model group's
+positions holding their blocks of the weights (tensor parallelism: the
+heads, FFN columns, RG-LRU lanes, RWKV-6 heads, the experts' FFN
+columns or, under EP, the experts) and their time blocks of the
+attention and MLA caches (split-T decode).  ``--layout auto`` picks (D,
+M) for the ``--devices`` positions with the reference's cost model.
 """
 from __future__ import annotations
 
@@ -50,11 +57,6 @@ import sys
 import time
 
 import numpy as np
-
-# flag -> the value that means "no mesh"; anything else is rejected with
-# the dense engine, whose mesh (ROADMAP Queue A item 7) is not ported
-_MESH_FLAGS = {"layout": "manual", "devices": 0, "data": 1, "model": 1}
-
 
 def make_prompts(n_requests: int, prompt_len: int, vocab_size: int,
                  seed: int = 0, shared_prefix: int = 0):
@@ -77,24 +79,46 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def run_dense(args, cfg, params=None, device=None):
+def run_dense(args, cfg, params=None, device=None, mesh=None,
+              rules=None):
     """Fixed-batch loop.  Requests are served ``args.batch`` at a time; a
     short last batch is padded by repeating its last prompt.  Each batch
     runs one batched prefill, then ``args.gen - 1`` greedy decode steps at
     the shared position ``prompt_len + i``.  A warmup prefill and decode
-    step run before the clock starts.  Returns (request id -> token list,
-    stats)."""
+    step run before the clock starts.  With ``mesh`` the weights (the
+    port's nesting, on one device) are placed on it by the reference's
+    specs under ``rules`` (``weights.shard_params``; weights it made
+    itself are consumed as they are placed), unless they already are (a
+    tree of Sharded leaves), and every step runs on it
+    (``steps.make_prefill_step(mesh=)``); the tokens come back to its
+    first device.  Returns (request id -> token list, stats)."""
     import torch
-    from repro_torch import steps
+    from repro_torch import steps, weights
+    from repro_torch.parallel.sharding import Sharded, use_sharding
     from repro_torch.weights import init_params, resolve_device
 
-    device = resolve_device(device)
-    if params is None:
+    device = mesh.devices[0] if mesh is not None else resolve_device(device)
+    own = params is None
+    if own:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = init_params(cfg, gen, device)
     max_len = args.prompt_len + args.gen
-    prefill = steps.make_prefill_step(cfg, max_len=max_len)
-    serve = steps.make_serve_step(cfg)
+    if mesh is not None:
+        with use_sharding(mesh, rules):
+            if not isinstance(weights.tree_leaves(params)[0], Sharded):
+                params = weights.shard_params(params, cfg, mesh,
+                                              consume=own)
+            return _dense_loop(
+                args, cfg, params,
+                steps.make_prefill_step(cfg, max_len=max_len, mesh=mesh),
+                steps.make_serve_step(cfg, mesh=mesh), device)
+    return _dense_loop(args, cfg, params,
+                       steps.make_prefill_step(cfg, max_len=max_len),
+                       steps.make_serve_step(cfg), device)
+
+
+def _dense_loop(args, cfg, params, prefill, serve, device):
+    import torch
     prompts = make_prompts(args.requests, args.prompt_len, cfg.vocab_size,
                            args.seed)
 
@@ -357,29 +381,32 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _mesh(args, cfg):
-    """(mesh or None, n_nodes, the cost engine's chosen estimate or
-    None) of a paged run, as the reference CLI builds them: ``--layout
-    auto`` ranks the layouts of the mesh positions (``--devices``, else
-    one per visible card, else 1) and prints them; otherwise a ``--data``
-    x ``--model`` mesh when there are enough positions, else host-side
-    striping over ``--model`` nodes only."""
+def _layout_mesh(args, cfg, paged):
+    """(mesh or None, the cost engine's chosen estimate or None), as the
+    reference CLI builds them.  The positions lie on the CPU only with
+    ``--device cpu``; with no ``--device`` and no card it raises, as the
+    one-device runs do.  ``--layout auto`` ranks the (data, model)
+    layouts of the mesh positions (``--devices``, else one per visible
+    card, else 1) for the decode shape, pricing the paged engine's
+    striped-KV traffic on top of the transformer collectives, and prints
+    them.  Otherwise a ``--data`` x ``--model`` mesh of more than one
+    position: the paged engine's only when there are that many positions
+    (else it stripes host-side over ``--model`` nodes), the dense
+    engine's always (its positions may share a card)."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.parallel.sharding import (autotune_layout,
                                                make_layout_mesh)
-    on_cpu = args.device == "cpu" or (args.device is None
-                                      and not torch.cuda.is_available())
+    from repro_torch.weights import resolve_device
+    on_cpu = resolve_device(args.device).type == "cpu"
     devices = "cpu" if on_cpu else None
     n_pos = args.devices or (1 if on_cpu else torch.cuda.device_count())
     if args.layout == "auto":
         shape = ShapeConfig("serve", args.prompt_len + args.gen, args.batch,
                             "decode")
-        # serving=True prices the striped-KV traffic (the reference's §V
-        # link model) on top of the transformer collectives
         best, ranked = autotune_layout(cfg, shape, n_chips=n_pos,
-                                       mode=args.link_mode, serving=True)
+                                       mode=args.link_mode, serving=paged)
         print(f"[cost-engine] {len(ranked)} candidate layouts for "
               f"{best.layout.n_chips} mesh positions ({args.link_mode} "
               "mode; the reference's TPU v5e-class prices):")
@@ -389,23 +416,15 @@ def _mesh(args, cfg):
         print(f"[cost-engine] predicted decode step "
               f"{best.step_time_s * 1e3:.3f} ms "
               f"({best.tokens_per_s:.0f} tok/s)")
-        return (make_layout_mesh(best.layout, devices), best.layout.model,
-                best)
-    mesh = None
-    if args.data * args.model > 1 and n_pos >= args.data * args.model:
-        mesh = make_test_mesh(args.data, args.model, devices=devices)
-    return mesh, max(args.model, 1), None
+        return make_layout_mesh(best.layout, devices), best
+    n = args.data * args.model
+    if n > 1 and (not paged or n_pos >= n):
+        return make_test_mesh(args.data, args.model, devices=devices), None
+    return None, None
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, off in _MESH_FLAGS.items():
-        if args.engine == "dense" and getattr(args, flag) != off:
-            print(f"error: --{flag} with --engine dense needs the dense "
-                  "engine's device mesh (tensor parallelism), which is not "
-                  "ported to the PyTorch engine yet (see ROADMAP.md Queue A "
-                  "item 7); the paged engine takes it", file=sys.stderr)
-            raise SystemExit(2)
     if args.prompt_len < 1:
         print(f"error: --prompt-len must be >= 1 (got {args.prompt_len})",
               file=sys.stderr)
@@ -428,19 +447,42 @@ def main(argv=None):
               file=sys.stderr)
         raise SystemExit(2)
     if args.engine == "dense":
-        outputs, m = run_dense(args, cfg, device=args.device)
+        from repro_torch import steps
+        mesh, predicted = _layout_mesh(args, cfg, paged=False)
+        if mesh is not None:
+            groups = len(mesh.devices) // mesh.shape.get("model", 1)
+            try:
+                steps.check_mesh(cfg, mesh)
+                if args.batch % groups:
+                    raise ValueError(f"--batch {args.batch} does not split "
+                                     f"over {groups} data groups")
+            except (NotImplementedError, ValueError) as e:
+                print(f"error: {e}", file=sys.stderr)
+                raise SystemExit(2)
+            where = ", ".join(sorted(set(map(str, mesh.devices))))
+            print(f"[dense] mesh {dict(mesh.shape)}: {len(mesh.devices)} "
+                  f"positions on {mesh.distinct_devices} distinct "
+                  f"device(s) ({where})")
+        outputs, m = run_dense(args, cfg, device=args.device, mesh=mesh)
         print(f"[dense] {cfg.name}: served {m['requests']} requests, "
               f"{m['tokens']} tokens in {m['seconds']:.2f}s "
               f"({m['tokens'] / max(m['seconds'], 1e-9):.1f} tok/s); "
               f"prefill {m['prefill_s'] * 1e3:.2f} ms, decode step "
               f"{m['step_s'] * 1e3:.2f} ms over {m['decode_steps']} steps")
+        if predicted is not None:
+            print(f"[cost-engine] predicted {predicted.step_time_s * 1e3:.3f}"
+                  f" ms vs measured {m['step_s'] * 1e3:.3f} ms per decode "
+                  f"step (warmup excluded; the cost engine models the "
+                  f"reference's TPU v5e-class chips, not this device)")
         return
     if not lm.paged_decodable(cfg):
         print(f"error: --engine paged serves global-attention configs only; "
               f"{cfg.name} has layer kinds {sorted(set(cfg.layer_kinds))} "
               "(use --engine dense)", file=sys.stderr)
         raise SystemExit(2)
-    mesh, n_nodes, predicted = _mesh(args, cfg)
+    mesh, predicted = _layout_mesh(args, cfg, paged=True)
+    n_nodes = (predicted.layout.model if predicted is not None
+               else max(args.model, 1))
     if args.fault_plan == "chaos" and n_nodes < 2:
         print("error: --fault-plan chaos needs a striped pool (--model N "
               ">= 2): node 0 never fails, so a 1-node pool has nothing to "

@@ -14,9 +14,10 @@ CPU with ``--device cpu``; one card may hold every position), ``--devices
 N`` says how many positions there are (default D x M), and ``--layout
 auto`` lets the cost engine pick (data, model) for N positions, printing
 the reference's ``[cost-engine]`` lines (they price a TPU v5e-class
-chip, not the card).  MoE configs on any mesh, and MLA, RG-LRU and
-RWKV-6 layers on a model axis > 1, exit with code 2 (ROADMAP Queue A
-item 16), and so does ``--impl pallas``: the kernels, like the
+chip, not the card).  Every family trains on a mesh (MoE, MLA, RG-LRU
+and RWKV-6 included); a model axis that does not divide what it splits
+(the heads, the FFN width, the RG-LRU lanes, the experts' FFN width)
+exits with code 2, and so does ``--impl pallas``: the kernels, like the
 reference's Pallas calls, have no backward.
 """
 from __future__ import annotations

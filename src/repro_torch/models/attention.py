@@ -1,6 +1,6 @@
 """GQA attention: reference, blocked-flash, kernel, and decode paths.
 
-Reference: ``repro/models/attention.py`` (single-device paths).  Three
+Reference: ``repro/models/attention.py``.  Three
 prefill implementations (``cfg.impl``):
 
   ref     — naive (S,S) scores; the oracle.
@@ -27,9 +27,20 @@ device; here every paged function routes them itself, with fixed shapes
 (one scatter a stripe, its rows that other stripes own sent to the
 stripe's sink row), so no routing decision waits for the host.  Decode
 runs the reference's ``shard_map`` body once per stripe and merges the
-stripes' online-softmax partials on the caller's device.  The split-T
-decode of the dense engine's mesh (``attend_decode_sharded``) is not
-ported.
+stripes' online-softmax partials on the caller's device.
+
+On a model group (the dense engine's mesh, ``lm.prefill`` / ``lm.
+decode_step`` with ``group=``) a prefill runs each position's query
+heads through the core (the flash kernel under impl "pallas") and keeps
+every kv head of the whole sequence on every position, from which each
+position keeps its time block of the decode cache (:class:`TimeShards`,
+the reference's split-T layout, ``sharding.cache_specs``).  A decode step
+gathers q, k_new and v_new to every head on every position, writes the
+new slot on the position that owns it, and merges the positions'
+online-softmax partials (``attend_decode_sharded``: pmax, then the sums
+of ``l * corr`` and ``acc * corr``).  A cache length the group does not
+divide keeps the whole cache on every position instead, each attending
+with the single-device path (the decode kernel on a global layer).
 """
 from __future__ import annotations
 
@@ -70,18 +81,26 @@ def expand_kv(k, n_heads: int):
         B, T, n_heads, hd).contiguous()
 
 
-def _qkv_tp(p, cfg, x, angles):
+class TimeShards(tuple):
+    """Each position's time block of a split-T decode cache, in group
+    order: position m holds slots m*T/n .. (m+1)*T/n - 1 of every kv
+    head (a plain PerPos of caches holds the whole cache everywhere)."""
+
+
+def _qkv_tp(p, cfg, x, angles, whole_q: bool = False):
     """``_qkv`` on a model group, as the reference places it: one fused
     ``column_parallel`` of wq, wk and wv on the seq-sharded ``x``, q
     split on heads (H/tp a position), k and v all-gathered to every kv
     head on every position, so that any kv-head count works; ``angles``
-    a PerPos of the full sequence's."""
+    a PerPos of the full sequence's.  ``whole_q`` gathers q to every
+    head too (a split-T decode step)."""
     from repro_torch.parallel import collectives as col
     qf, kf, vf = col.column_parallel(x, [p["wq"], p["wk"], p["wv"]])
     hd, kv = cfg.head_dim, cfg.n_kv_heads
-    if kf[0].shape[-1] != kv * hd:    # column blocks: gather every head
-        kf = col.all_gather(kf, -1, "kv")
-        vf = col.all_gather(vf, -1, "kv")
+    kf = col.full_cols(kf, kv * hd, "kv")   # column blocks: every head
+    vf = col.full_cols(vf, kv * hd, "kv")
+    if whole_q:
+        qf = col.full_cols(qf, cfg.n_heads * hd, "q")
     q = col.local(lambda t: _split_heads(t, t.shape[-1] // hd, hd), qf)
     k = col.local(lambda t: _split_heads(t, kv, hd), kf)
     v = col.local(lambda t: _split_heads(t, kv, hd), vf)
@@ -209,6 +228,136 @@ def _attend_local_blocked(q, k, v, *, causal, window, scale, softcap, bq):
 
 
 # ---------------------------------------------------------------------------
+# split-T decode on a model group
+# ---------------------------------------------------------------------------
+def _valid_slots(slots, pos, T: int, window):
+    """Which cache slots hold a position the query at ``pos`` attends:
+    slot <= pos (global), or a ring slot whose absolute position lies in
+    the window (local; T is the ring's length, min(window, max_len))."""
+    if window is None:
+        return slots <= pos
+    abs_pos = pos - ((pos - slots) % T)
+    return (abs_pos >= 0) & (abs_pos > pos - window)
+
+
+def _decode_partial(q, k, v, valid, *, scale, softcap, n_kv: int):
+    """The reference's partial attention over a cache slice.  q
+    (B,1,H,hd); k/v (B,Tl,Kv*hd); valid (Tl,) bool.  Returns (m, l, acc),
+    the probabilities rounded to v's dtype before their product."""
+    B, _, H, hd = q.shape
+    Tl = k.shape[1]
+    kk = k.reshape(B, Tl, n_kv, hd)
+    vv = v.reshape(B, Tl, n_kv, hd)
+    qg = q.reshape(B, n_kv, H // n_kv, hd)
+    s = _einsum32("bkgd,btkd->bkgt", qg, kk) * scale
+    s = nn.softcap(s, softcap)
+    s = torch.where(valid[None, None, None], s, NEG_INF)
+    m = s.amax(-1)                                      # (B,Kv,G)
+    p = torch.exp(s - m[..., None])
+    acc = _einsum32("bkgt,btkd->bkgd", p.to(vv.dtype), vv)
+    return m, p.sum(-1), acc
+
+
+def merge_partials(parts, group, site: str):
+    """The reference's merge of per-position online-softmax partials
+    [(m, l, acc)]: pmax of m, then the sums of ``l * corr`` and ``acc *
+    corr``; returns acc / l on every position (fp32)."""
+    from repro_torch.parallel import collectives as col
+    m_g = col.all_reduce([m for m, _, _ in parts], group, site, op="max")
+    corr = [torch.exp(m - m_g[i]) for i, (m, _, _) in enumerate(parts)]
+    l_g = col.all_reduce([l * c for (_, l, _), c in zip(parts, corr)],
+                         group, site)
+    acc_g = col.all_reduce([a * c[..., None] for (_, _, a), c in
+                            zip(parts, corr)], group, site)
+    return [a / torch.clamp(l[..., None], min=1e-37)
+            for a, l in zip(acc_g, l_g)]
+
+
+def attend_decode_sharded(q, cache: TimeShards, pos, *, window, scale,
+                          softcap, n_kv: int):
+    """Split-T decode (the reference's ``shard_map`` body, once a
+    position): q Shards (B,1,H,hd), every head on every position; each
+    position scans its time block of the cache and the partials merge.
+    Returns Shards (B,1,H*hd), whole on every position."""
+    from repro_torch.parallel import collectives as col
+    g = q.group
+    B, _, H, hd = q[0].shape
+    parts = []
+    for m, c in enumerate(cache):
+        Tl = c.k.shape[1]
+        slots = m * Tl + torch.arange(Tl, device=c.k.device)
+        valid = _valid_slots(slots, pos, Tl * g.size, window)
+        parts.append(_decode_partial(q[m], c.k, c.v, valid, scale=scale,
+                                     softcap=softcap, n_kv=n_kv))
+    return col.Shards([o.to(q[m].dtype).reshape(B, 1, H * hd) for m, o in
+                       enumerate(merge_partials(parts, g, "split_t"))],
+                      g, None)
+
+
+def cache_from_prefill_tp(k, v, window, max_len, group):
+    """Each position's decode cache from the prefill's k/v (Shards, every
+    kv head of the whole sequence on every position): its time block
+    (:class:`TimeShards`) when the group divides the cache length, else
+    the whole cache (a PerPos)."""
+    from repro_torch.parallel import collectives as col
+    full = [cache_from_prefill(k[m], v[m], window, max_len)
+            for m in range(group.size)]
+    T = full[0].k.shape[1]
+    if group.size == 1 or T % group.size:
+        return col.PerPos(full)
+    Tl = T // group.size
+    return TimeShards(AttnCache(c.k[:, m * Tl:(m + 1) * Tl].clone(),
+                                c.v[:, m * Tl:(m + 1) * Tl].clone())
+                      for m, c in enumerate(full))
+
+
+def _apply_decode_tp(p, cfg, x, cache, pos, *, kind: str, angles):
+    """The decode step on a model group: x Shards (B,1,D) whole on every
+    position, ``cache`` its positions' caches.  The new slot's k/v go to
+    the position that owns the slot (every position of a whole cache);
+    then the split-T attention, or each position's single-device
+    attention over its whole cache, and ``row_parallel`` of wo, whose
+    partial products are all-reduced."""
+    from repro_torch.parallel import collectives as col
+    window = cfg.sliding_window if kind == "local" else None
+    q, k_new, v_new = _qkv_tp(p, cfg, x, angles, whole_q=True)
+    g = x.group
+    B = x[0].shape[0]
+    kw = dict(scale=_scale(cfg), softcap=cfg.attn_softcap)
+    if isinstance(cache, TimeShards):
+        Tl = cache[0].k.shape[1]
+        slot = pos % (Tl * g.size) if window is not None else pos
+        m = slot // Tl
+        cache[m].k[:, slot - m * Tl] = k_new[m].reshape(B, -1)
+        cache[m].v[:, slot - m * Tl] = v_new[m].reshape(B, -1)
+        o = attend_decode_sharded(q, cache, pos, window=window,
+                                  n_kv=cfg.n_kv_heads, **kw)
+    else:
+        cache = col.PerPos(cache_update_decode(c, k_new[m], v_new[m], pos,
+                                               window)
+                           for m, c in enumerate(cache))
+        o = col.Shards([_attend_whole(cfg, q[m], c, pos, window, kw)
+                        for m, c in enumerate(cache)], g, None)
+    return col.row_parallel(o, p["wo"]), cache
+
+
+def _attend_whole(cfg, q, cache, pos, window, kw):
+    """One position's decode attention over a whole cache: the
+    decode-attention kernel on a global layer under impl "pallas", else
+    the plain path."""
+    if window is None and cfg.impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        B, T = cache.k.shape[:2]
+        H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        o = kops.decode_attention(q.reshape(B, H, hd).contiguous(),
+                                  cache.k.view(B, T, Kv, hd),
+                                  cache.v.view(B, T, Kv, hd), pos, **kw)
+        return o.reshape(B, 1, H * hd)
+    return attend_decode(q, cache, pos, window=window, n_kv=cfg.n_kv_heads,
+                         **kw)
+
+
+# ---------------------------------------------------------------------------
 # dense decode — one query against the cache (the oracle's path)
 # ---------------------------------------------------------------------------
 def attend_decode(q, cache: AttnCache, pos, *, window, scale, softcap,
@@ -226,12 +375,7 @@ def attend_decode(q, cache: AttnCache, pos, *, window, scale, softcap,
     qg = q.reshape(B, Kv, H // Kv, hd)
     s = _einsum32("bkgd,btkd->bkgt", qg, k) * scale
     s = nn.softcap(s, softcap)
-    slots = torch.arange(T, device=q.device)
-    if window is None:
-        ok = slots <= pos
-    else:
-        abs_pos = pos - ((pos - slots) % T)    # T == window for ring caches
-        ok = (abs_pos >= 0) & (abs_pos > pos - window)
+    ok = _valid_slots(torch.arange(T, device=q.device), pos, T, window)
     s = torch.where(ok[None, None, None], s, NEG_INF)
     w = torch.softmax(s.float(), dim=-1)
     o = _einsum32("bkgt,btkd->bkgd", w.to(v.dtype), v).to(q.dtype)
@@ -608,9 +752,12 @@ def apply_decode_paged(p, cfg, x, pool: PagedAttnCache, block_tables,
 # full layer entry points
 # ---------------------------------------------------------------------------
 def _apply_tp(p, cfg, x, *, kind: str, angles):
-    """The train forward on a model group: ``_qkv_tp``, each position's
-    heads through the blocked (or ref) core against the kv heads they
-    read, then ``row_parallel`` of wo back to the seq-sharded stream."""
+    """The train forward and the prefill on a model group: ``_qkv_tp``,
+    each position's heads through the core (ref, blocked, or the flash
+    kernel under impl "pallas", which has no backward) against the kv
+    heads they read, then ``row_parallel`` of wo back to the residual
+    stream's layout.  Returns (out, (k, v): Shards of every kv head of
+    the whole sequence)."""
     from repro_torch.parallel import collectives as col
     q, k, v = _qkv_tp(p, cfg, x, angles)
     window = cfg.sliding_window if kind == "local" else None
@@ -627,13 +774,15 @@ def _apply_tp(p, cfg, x, *, kind: str, angles):
         elif cfg.impl == "blocked":
             o = attend_blocked(q_m, kh, vh, block_q=cfg.attn_block_q,
                                block_kv=cfg.attn_block_kv, **kw)
+        elif cfg.impl == "pallas":
+            from repro_torch.kernels import ops as kops
+            o = kops.flash_attention(q_m.contiguous(), kh.contiguous(),
+                                     vh.contiguous(), **kw)
         else:
-            raise NotImplementedError(
-                f"impl={cfg.impl!r} on a model group: the kernels have no "
-                "backward; train with impl='blocked'")
+            raise ValueError(cfg.impl)
         return o.reshape(*o.shape[:2], hl * cfg.head_dim)
     o = col.local(core, q, k, v, index=True)
-    return col.row_parallel(o, p["wo"]), None
+    return col.row_parallel(o, p["wo"]), (k, v)
 
 
 def apply(p, cfg, x, *, kind: str, angles):
@@ -669,20 +818,15 @@ def apply_decode(p, cfg, x, cache: AttnCache, pos, *, kind: str, angles):
 
     A global layer under ``impl == "pallas"`` runs the decode-attention
     kernel on the cache viewed as (B,T,Kv,hd); a local layer's ring cache
-    falls outside the kernel's ``slot <= pos`` mask and stays plain."""
+    falls outside the kernel's ``slot <= pos`` mask and stays plain.  On
+    a model group (``x`` Shards) ``_apply_decode_tp``."""
+    from repro_torch.parallel import collectives as col
+    if isinstance(x, col.Shards):
+        return _apply_decode_tp(p, cfg, x, cache, pos, kind=kind,
+                                angles=angles)
     window = cfg.sliding_window if kind == "local" else None
     q, k_new, v_new = _qkv(p, cfg, x, angles)
     cache = cache_update_decode(cache, k_new, v_new, pos, window)
     kw = dict(scale=_scale(cfg), softcap=cfg.attn_softcap)
-    if window is None and cfg.impl == "pallas":
-        from repro_torch.kernels import ops as kops
-        B, T = cache.k.shape[:2]
-        H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        o = kops.decode_attention(q.reshape(B, H, hd),
-                                  cache.k.view(B, T, Kv, hd),
-                                  cache.v.view(B, T, Kv, hd), pos, **kw)
-        o = o.reshape(B, 1, H * hd)
-    else:
-        o = attend_decode(q, cache, pos, window=window, n_kv=cfg.n_kv_heads,
-                          **kw)
+    o = _attend_whole(cfg, q, cache, pos, window, kw)
     return nn.matmul(o, p["wo"]), cache

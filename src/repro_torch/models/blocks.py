@@ -8,15 +8,22 @@ experts beside the routed ones), and rwkv6, the complete RWKV-6 layer
 inside the branch).  gemma2-style post-norms via ``cfg.post_norm``: a
 branch is normed before it joins the residual stream.
 
-On a model group (the train forward on a mesh with a "model" axis, GQA
-attention and a dense FFN) ``x`` and ``pending`` are the residual
-stream's sequence blocks (:class:`~repro_torch.parallel.collectives.
-Shards`) and each norm runs in that sequence-sharded domain, as the
-reference's ``_seq_sp`` places it: the all-gather to the full sequence
-happens after the norm, inside the mixer's and the FFN's
-``column_parallel``.
+On a model group (a mesh with a "model" axis: the mesh trainer and the
+dense engine's prefill and decode) ``x`` and ``pending`` are the
+residual stream's sequence blocks (:class:`~repro_torch.parallel.
+collectives.Shards`), or the whole stream on every position when the
+group does not split the sequence (a decode step), and each norm runs
+in that domain, as the reference's ``_seq_sp`` places it: the
+all-gather to the full sequence happens after the norm, inside the
+attention's and the FFN's ``column_parallel``, and before the MLA,
+RG-LRU and RWKV-6 mixers, which take the whole sequence (the
+reference's ``gather_seq``).  Caches are then each position's
+(``collectives.PerPos``, or ``attention.TimeShards`` for a split-T
+cache).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ATTN, LOCAL, MLA, RGLRU, RWKV6
 from repro_torch.models import attention, mla as mla_mod, modules as nn
@@ -35,7 +42,7 @@ def shared_cfg(cfg):
 def _seq_sp(y):
     """A row-parallel branch output lands in the sequence-sharded
     residual layout (the reference's ``_seq_sp``)."""
-    if isinstance(y, col.Shards):
+    if isinstance(y, col.Shards) and y.split is not None:
         return logical_constraint(y, "batch", "seq_sp", None)
     return y
 
@@ -72,7 +79,9 @@ def _ffn_part(p, cfg, x):
     if "moe" in p:
         out, aux = moe_mod.apply(p["moe"], cfg, x)
         if "shared" in p:
-            out = out + nn.ffn_apply(p["shared"], shared_cfg(cfg), x)
+            sh = nn.ffn_apply(p["shared"], shared_cfg(cfg), x)
+            out = col.local(torch.add, out, sh) \
+                if isinstance(out, col.Shards) else out + sh
         return out, aux
     return nn.ffn_apply(p["ffn"], cfg, x), None
 
@@ -106,6 +115,8 @@ def apply(p, cfg, kind: str, x, pending, *, angles):
     layer's raw cache contribution: (k, v) before max-len padding, or the
     recurrent cache; the MoE load-balance loss, None without MoE)."""
     x, h = _add_norm(p, cfg, "ln1", x, pending)
+    if kind in (MLA, RGLRU, RWKV6):
+        h = col.gather_seq(h)     # these mixers take the whole sequence
     if kind in (ATTN, LOCAL):
         out, cache = attention.apply(p["attn"], cfg, h, kind=kind,
                                      angles=angles)
@@ -114,7 +125,13 @@ def apply(p, cfg, kind: str, x, pending, *, angles):
     elif kind == RGLRU:
         out, cache = rglru_mod.apply(p["rglru"], cfg, h)
     elif kind == RWKV6:
-        cache0 = rwkv6_mod.cache_init(cfg, x.shape[0], x.dtype, x.device)
+        if isinstance(x, col.Shards):
+            cache0 = rwkv6_mod.cache_init_tp(
+                cfg, x[0].shape[0], x[0].dtype, x.group,
+                p["rwkv"]["rwkv_wr"][0].shape[-1] // cfg.head_dim)
+        else:
+            cache0 = rwkv6_mod.cache_init(cfg, x.shape[0], x.dtype,
+                                          x.device)
         return (*_rwkv(p, cfg, x, h, cache0), None)
     else:
         raise ValueError(kind)
@@ -207,8 +224,15 @@ def cache_init(cfg, kind: str, batch: int, max_len: int, dtype, device):
     raise ValueError(kind)
 
 
-def cache_from_prefill(cfg, kind: str, raw, max_len: int):
-    """Convert the prefill cache contribution into decode-ready form."""
+def cache_from_prefill(cfg, kind: str, raw, max_len: int, group=None):
+    """Convert the prefill cache contribution into decode-ready form; on a
+    model group, each position's (the attention and MLA caches in time
+    blocks when the group divides their length)."""
+    if group is not None and kind in (ATTN, LOCAL, MLA):
+        window = cfg.sliding_window if kind == LOCAL else None
+        if kind == MLA:
+            return mla_mod.cache_from_prefill_tp(*raw, max_len, group)
+        return attention.cache_from_prefill_tp(*raw, window, max_len, group)
     if kind in (ATTN, LOCAL):
         k, v = raw
         window = cfg.sliding_window if kind == LOCAL else None

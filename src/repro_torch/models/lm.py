@@ -14,14 +14,20 @@ reference, ``decode_step`` returns the new cache nesting: attention caches
 are written in place and returned, the recurrent states (RG-LRU, RWKV-6)
 are new tensors, so the caller must use the caches it gets back.
 
-The train forward and the loss also run on one model group of a mesh
-(``group=``, the mesh's train step, ``steps.make_train_step``): the
-parameters are then one nesting whose leaves hold each position's block
-(``weights.group_view``), the residual stream is sequence-sharded
+The forward, the loss, the prefill and the decode step also run on one
+model group of a mesh (``group=``: the mesh's train step,
+``steps.make_train_step``, and the dense engine's mesh,
+``steps.make_prefill_step`` / ``make_serve_step``): the parameters are
+then one nesting whose leaves hold each position's block
+(``weights.group_params``), the residual stream is sequence-sharded
 (:class:`~repro_torch.parallel.collectives.Shards`, the reference's
-``logical_constraint(x, "batch", "seq_sp", None)``) and the
-cross-entropy is vocabulary-parallel: each position's logits cover its
-vocabulary block and only (B, chunk)-sized sums cross positions.
+``logical_constraint(x, "batch", "seq_sp", None)``), or whole on every
+position when the group does not split the sequence (a decode step),
+and the cross-entropy and the head are vocabulary-parallel: each
+position's logits cover its vocabulary block; the loss crosses only
+(B, chunk)-sized sums, the serving head gathers the (B, 1, V) logits to
+the group's root, where the greedy token is taken (``argmax`` takes the
+lowest index of a tie, as ``jnp.argmax`` does).
 """
 from __future__ import annotations
 
@@ -166,14 +172,13 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, *,
     checkpoints its scan body, in train mode only): backward recomputes
     the cycle from its inputs instead of keeping its activations.
 
-    With ``group`` (train mode only) the forward runs on that model
-    group: ``params`` is ``weights.group_view`` of its positions' blocks,
-    ``tokens`` and ``positions`` the group's batch rows on its root
-    device, and h_final the sequence-sharded Shards."""
+    With ``group`` the forward runs on that model group: ``params`` is
+    ``weights.group_params`` of its positions' blocks, ``tokens`` and
+    ``positions`` the group's batch rows on its root device, and x,
+    pending and h_final Shards; the raw caches each position's."""
     assert mode in ("train", "prefill"), mode
     if group is not None:
-        assert mode == "train", "a model group runs the train forward only"
-        return _forward_train_tp(params, cfg, tokens, positions, group)
+        return _forward_tp(params, cfg, tokens, positions, group, mode)
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[:2]
     if positions is None:
@@ -220,26 +225,32 @@ def _forward_train(params, cfg, x, angles):
 
 
 def _embed_tp(params, cfg, tokens, group):
-    """The group's embeddings as the sequence-sharded residual stream.
-    A vocabulary-split table: each position looks up the tokens in its
-    block (zero elsewhere) and a reduce-scatter over the sequence sums
-    them (exact: one term is not zero); a whole table (a vocabulary the
-    group does not divide) or embedding inputs: each position its own
-    sequence block."""
+    """The group's embeddings as the residual stream: sequence-sharded
+    when the group splits the sequence, else whole on every position.  A
+    vocabulary-split table: each position looks up the tokens in its
+    block (zero elsewhere) and a reduce-scatter over the sequence (an
+    all-reduce) sums them (exact: one term is not zero); a whole table (a
+    vocabulary the group does not divide) or embedding inputs: each
+    position its own sequence block."""
     n = group.size
+    split = 1 if col.seq_splits(tokens.shape[1], group) else None
     act = nn.dt(cfg.activation_dtype)
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
 
     def finish(x):
         return x * torch.tensor(scale, dtype=x.dtype) if scale else x
+
+    def rows(m):
+        return tokens.chunk(n, 1)[m] if split else tokens
     if not cfg.embed_inputs:
-        return col.Shards([finish(tokens.chunk(n, 1)[m].to(d, act))
-                           for m, d in enumerate(group.devices)], group, 1)
+        return col.Shards([finish(rows(m).to(d, act))
+                           for m, d in enumerate(group.devices)], group,
+                          split)
     table = params["embed"]["embed_table"]
     if table[0].shape[0] == cfg.vocab_size:
-        return col.Shards([finish(table[m][tokens.chunk(n, 1)[m].to(
-            d).long()].to(act)) for m, d in enumerate(group.devices)],
-            group, 1)
+        return col.Shards([finish(table[m][rows(m).to(d).long()].to(act))
+                           for m, d in enumerate(group.devices)], group,
+                          split)
     parts = []
     for m, d in enumerate(group.devices):
         v_local = table[m].shape[0]
@@ -248,18 +259,67 @@ def _embed_tp(params, cfg, tokens, group):
         e = table[m][torch.clamp(loc, 0, v_local - 1)].to(act)
         parts.append(torch.where(ok[..., None], e, torch.zeros((), dtype=act,
                                                                device=d)))
-    return col.Shards([finish(x) for x in col.reduce_scatter(
-        parts, group, 1, "embed")], group, 1)
+    red = col.reduce_scatter(parts, group, 1, "embed") if split \
+        else col.all_reduce(parts, group, "embed")
+    return col.Shards([finish(x) for x in red], group, split)
 
 
-def _forward_train_tp(params, cfg, tokens, positions, group):
+def _group_angles(cfg, positions, group):
+    return col.PerPos(_angles(cfg, positions.to(d))
+                      for d in group.devices) if cfg.rope else None
+
+
+def _forward_tp(params, cfg, tokens, positions, group, mode):
     x = _embed_tp(params, cfg, tokens, group)
     B, S = tokens.shape[:2]
     if positions is None:
         positions = default_positions(cfg, B, S, device=group.root)
-    angles = col.PerPos(_angles(cfg, positions.to(d))
-                        for d in group.devices) if cfg.rope else None
-    return _forward_train(params, cfg, x, angles)
+    angles = _group_angles(cfg, positions, group)
+    if mode == "train":
+        return _forward_train(params, cfg, x, angles)
+    raw, pending = {}, None
+    for kind, p, _, key in _layers(cfg, params, None):
+        x, pending, raw[key], _ = blocks.apply(p, cfg, kind, x, pending,
+                                               angles=angles)
+    return x, pending, _nest(cfg, lambda kind, key: raw[key])
+
+
+def _head_tp(params, cfg, h):
+    """The vocabulary-parallel head of ``h`` (Shards, whole on every
+    position): each position's (B, ..., V/n) fp32 logits, softcapped,
+    gathered to the group's root."""
+    tied = cfg.tie_embeddings and cfg.embed_inputs
+    logits = col.local(lambda hm, wm: nn.softcap(
+        hm.float() @ (wm.T if tied else wm).float(), cfg.logit_softcap),
+        h, _head_weight_blocks(params, cfg))
+    root = h.group.root
+    return torch.cat([l if m == 0 else col.send(l, root, "head",
+                                                "all_gather")
+                      for m, l in enumerate(logits)], -1) \
+        if logits[0].shape[-1] != cfg.vocab_size else logits[0]
+
+
+def _final_norm_tp(params, cfg, x, pending):
+    return col.local(lambda a, b, sc: nn.add_rmsnorm(
+        a, b, sc, cfg.norm_eps, cfg.impl)[1], x, pending,
+        params["final_norm"]["scale"])
+
+
+def _last_logits_tp(params, cfg, x, pending):
+    """Next-token logits (B,1,V) of a group's prefill, on its root: the
+    last row lives on the last position of a sequence split; its norm
+    there, sent to every position for the head."""
+    g = x.group
+    if x.split is None:
+        last = col.Shards([t[:, -1:] for t in x], g, None)
+        pend = col.Shards([t[:, -1:] for t in pending], g, None)
+        return _head_tp(params, cfg, _final_norm_tp(params, cfg, last, pend))
+    h = nn.add_rmsnorm(x[-1][:, -1:], pending[-1][:, -1:],
+                       params["final_norm"]["scale"][-1], cfg.norm_eps,
+                       cfg.impl)[1]
+    return _head_tp(params, cfg, col.Shards(
+        [h if m == g.size - 1 else col.send(h, d, "head", "broadcast")
+         for m, d in enumerate(g.devices)], g, None))
 
 
 def final_norm(params, cfg, x, pending):
@@ -399,17 +459,23 @@ def cross_entropy(params, cfg, h, labels, mask):
 
 
 def loss_sums(params, cfg: ModelConfig, batch, group=None):
-    """(masked NLL sum, mask sum) of a batch's CE: what a mesh's train
-    step adds over its data groups before it divides by the whole
-    batch's mask count (the reference's ``_chunk_ce`` sums both over the
-    batch axes).  With ``group`` the forward and the CE run on that model
-    group (``forward``).  MoE and MTP configs are not trained on a
-    mesh."""
-    assert cfg.moe is None and not cfg.mtp_depth, cfg.name
-    h, _ = forward(params, cfg, batch["tokens"], batch.get("positions"),
-                   mode="train", group=group)
+    """The sums a mesh's train step adds over its data groups: ``tot``
+    and ``cnt``, the CE's masked NLL sum and mask sum (the reference's
+    ``_chunk_ce`` sums both over the batch axes, so the step divides by
+    the whole batch's count), ``aux``, this group's summed MoE
+    load-balance loss (the step averages it over the groups, the
+    reference's ``pmean``), and with DeepSeek's MTP head ``mtp_tot`` and
+    ``mtp_cnt``.  With ``group`` the forward and the CE run on that model
+    group (``forward``)."""
+    h, aux = forward(params, cfg, batch["tokens"], batch.get("positions"),
+                     mode="train", group=group)
     hn = blocks._norm(params["final_norm"]["scale"], cfg, h)
-    return ce_sums(params, cfg, hn, batch["labels"], batch["mask"])
+    tot, cnt = ce_sums(params, cfg, hn, batch["labels"], batch["mask"])
+    out = {"tot": tot, "cnt": cnt, "aux": aux}
+    if cfg.mtp_depth and "mtp" in params:
+        out["mtp_tot"], out["mtp_cnt"] = _mtp_sums(
+            params, cfg, h, batch["labels"], batch["mask"], group)
+    return out
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
@@ -436,36 +502,66 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 def _mtp_loss(params, cfg, h, labels, mask):
     """DeepSeek multi-token prediction: one extra block predicts t+2."""
+    tot, cnt = _mtp_sums(params, cfg, h, labels, mask)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _mtp_sums(params, cfg, h, labels, mask, group=None):
+    """The MTP head's CE sums (``ce_sums``).  On a model group ``h`` is
+    the sequence-sharded Shards, the next tokens are embedded the same
+    way and each position projects its rows with the whole mtp_proj
+    (its column blocks all-gathered)."""
     p = params["mtp"]
     B, S = labels.shape
-    e_next = embed_tokens(params, cfg, labels)        # token t+1's embedding
-    hn = nn.rmsnorm(h, p["norm_h"]["scale"], cfg.norm_eps, cfg.impl)
-    en = nn.rmsnorm(e_next, p["norm_e"]["scale"], cfg.norm_eps, cfg.impl)
-    h_in = nn.matmul(torch.cat([hn, en], -1), p["mtp_proj"])
-    angles = _angles(cfg, default_positions(cfg, B, S, device=h.device))
-    x, pending, _, _ = blocks.apply(p["block"], cfg,
-                                    make_segments(cfg)[-1].kinds[-1],
-                                    h_in, None, angles=angles)
-    h_mtp = nn.add_rmsnorm(x, pending, p["final_norm"]["scale"],
-                           cfg.norm_eps, cfg.impl)[1]
+    kind = make_segments(cfg)[-1].kinds[-1]
+    if group is not None:
+        hn = blocks._norm(p["norm_h"]["scale"], cfg, h)
+        en = blocks._norm(p["norm_e"]["scale"], cfg,
+                          _embed_tp(params, cfg, labels, group))
+        w = col.full_cols(col.Shards(list(p["mtp_proj"]), group, 1),
+                          cfg.d_model, "mtp")
+        h_in = col.local(lambda a, b, wm: nn.matmul(torch.cat([a, b], -1),
+                                                    wm), hn, en, w)
+        angles = _group_angles(cfg, default_positions(
+            cfg, B, S, device=group.root), group)
+        x, pending, _, _ = blocks.apply(p["block"], cfg, kind, h_in, None,
+                                        angles=angles)
+        h_mtp = _final_norm_tp({"final_norm": p["final_norm"]}, cfg, x,
+                               pending)
+    else:
+        e_next = embed_tokens(params, cfg, labels)  # token t+1's embedding
+        hn = nn.rmsnorm(h, p["norm_h"]["scale"], cfg.norm_eps, cfg.impl)
+        en = nn.rmsnorm(e_next, p["norm_e"]["scale"], cfg.norm_eps, cfg.impl)
+        h_in = nn.matmul(torch.cat([hn, en], -1), p["mtp_proj"])
+        angles = _angles(cfg, default_positions(cfg, B, S, device=h.device))
+        x, pending, _, _ = blocks.apply(p["block"], cfg, kind, h_in, None,
+                                        angles=angles)
+        h_mtp = nn.add_rmsnorm(x, pending, p["final_norm"]["scale"],
+                               cfg.norm_eps, cfg.impl)[1]
     # targets: token t+2 = labels shifted left by one
     labels2 = torch.cat([labels[:, 1:], labels[:, -1:]], 1)
     mask2 = torch.cat([mask[:, 1:], torch.zeros_like(mask[:, -1:])], 1)
-    return cross_entropy(params, cfg, h_mtp, labels2, mask2)
+    return ce_sums(params, cfg, h_mtp, labels2, mask2)
 
 
 # ---------------------------------------------------------------------------
 # prefill / dense decode (the oracle path)
 # ---------------------------------------------------------------------------
-def caches_from_prefill(cfg, raw_caches, max_len: int):
+def caches_from_prefill(cfg, raw_caches, max_len: int, group=None):
     return _nest(cfg, lambda kind, key: blocks.cache_from_prefill(
-        cfg, kind, raw_caches[key[0]][key[1]][key[2]], max_len))
+        cfg, kind, raw_caches[key[0]][key[1]][key[2]], max_len, group))
 
 
-def prefill(params, cfg, tokens, *, max_len: int, positions=None):
-    """Returns (next-token logits (B,1,V), decode caches)."""
-    x, pending, raw = forward(params, cfg, tokens, positions)
-    caches = caches_from_prefill(cfg, raw, max_len)
+def prefill(params, cfg, tokens, *, max_len: int, positions=None,
+            group=None):
+    """Returns (next-token logits (B,1,V), decode caches).  With
+    ``group`` (its ``weights.group_params``) the prefill runs on that
+    model group; the logits are on its root and the caches each
+    position's (``blocks.cache_from_prefill``)."""
+    x, pending, raw = forward(params, cfg, tokens, positions, group=group)
+    caches = caches_from_prefill(cfg, raw, max_len, group)
+    if group is not None:
+        return _last_logits_tp(params, cfg, x, pending), caches
     return last_logits(params, cfg, x, pending), caches
 
 
@@ -475,22 +571,33 @@ def init_caches(cfg, batch: int, max_len: int, device):
         cfg, kind, batch, max_len, dtype, device))
 
 
-def decode_step(params, cfg, tokens, caches, pos):
+def decode_step(params, cfg, tokens, caches, pos, group=None):
     """One decode step. tokens (B,1) ids or (B,1,D) embeddings; pos int
-    (shared position; under M-RoPE every plane's).
+    (shared position; under M-RoPE every plane's).  With ``group`` the
+    step runs on that model group (``prefill``'s caches of it).
 
     Returns (logits (B,1,V), new caches)."""
-    x = embed_tokens(params, cfg, tokens)
+    if group is not None:
+        x = _embed_tp(params, cfg, tokens, group)
+        dev = group.root
+    else:
+        x = embed_tokens(params, cfg, tokens)
+        dev = x.device
     lead = (3,) if cfg.mrope_sections is not None else ()
-    positions = torch.full(lead + (x.shape[0], 1), int(pos),
-                           dtype=torch.int32, device=x.device)
-    angles = _angles(cfg, positions)
+    positions = torch.full(lead + (tokens.shape[0], 1), int(pos),
+                           dtype=torch.int32, device=dev)
+    angles = _angles(cfg, positions) if group is None \
+        else _group_angles(cfg, positions, group)
     new, pending = {}, None
     for kind, p, cache, key in _layers(cfg, params, caches):
         x, pending, new[key] = blocks.apply_decode(
             p, cfg, kind, x, pending, cache, int(pos), angles=angles)
+    caches = _nest(cfg, lambda kind, key: new[key])
+    if group is not None:
+        return _head_tp(params, cfg, _final_norm_tp(params, cfg, x,
+                                                    pending)), caches
     h = final_norm(params, cfg, x, pending)
-    return head_logits(params, cfg, h), _nest(cfg, lambda kind, key: new[key])
+    return head_logits(params, cfg, h), caches
 
 
 # ---------------------------------------------------------------------------

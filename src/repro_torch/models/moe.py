@@ -7,12 +7,24 @@ single-device branch of ``apply``).  The reference's ``lax.scan`` over
 expert groups is a Python loop.  Its three grouped einsums
 (``preferred_element_type=float32``) run through the ``moe_gemm`` kernel
 under ``impl == "pallas"`` and as fp32 ``torch.einsum`` otherwise; both
-keep the reference's fp32 between the GEMMs.  The reference's sharded
-expert-TP and EP branches are not ported: under the paged engine's mesh
-(``SERVING_RULES``: only the KV pages are sharded) the reference's
-``shard_map`` splits nothing and computes this single-device function,
-and the dense engine's mesh, where they would split the experts, is
-refused (ROADMAP Queue A item 7).
+keep the reference's fp32 between the GEMMs.
+
+On a model group (``x`` Shards: the dense engine's mesh and the mesh
+trainer) ``apply`` is the reference's ``_sharded_moe``: the sequence is
+all-gathered, every position routes every token (as every shard of the
+reference does), and each position's expert products run on its block
+of the experts through the same grouped GEMMs: under expert-TP (the
+default rules) an ``expert_ff`` slice of every expert, whose partial
+outputs are reduce-scattered back to the sequence-split residual (summed
+on every position when the sequence is not split); under EP (rules
+``{"expert": "model", "expert_ff": None}``) ``E/n`` whole experts,
+assignments to other positions' experts falling in the drop bucket
+(``_local_moe_ep``), at the same global capacity.  Capacity comes from
+the tokens one data group sees; the load-balance loss is each
+position's, and the mesh's train step averages it over the data groups
+(the reference's ``pmean`` over the batch axes).  Under the paged
+engine's mesh (``SERVING_RULES``) nothing of the MoE is split and this
+is the single-device function.
 
 JAX's ``mode="drop"`` scatters have no torch counterpart (an index out of
 range raises), so every scatter here writes into a buffer one row longer
@@ -165,8 +177,71 @@ def local_moe(cfg, tokens, router_w, e_gate, e_up, e_down):
     return out[:T].to(tokens.dtype), aux
 
 
+def _local_moe_ep(cfg, tokens, router_w, e_gate, e_up, e_down, idx: int):
+    """EP: this position holds experts idx*E_local .. (idx+1)*E_local-1;
+    assignments to the others go to the drop bucket E_local with zero
+    weight (their outputs come from the other positions).  tokens (T, D)
+    -> (out (T, D) of this position's experts, aux)."""
+    m = cfg.moe
+    T, D = tokens.shape
+    E_local = e_up.shape[0]
+    e_lo = idx * E_local
+    w, ids, aux = route(cfg, router_w, tokens)
+    mine = (ids >= e_lo) & (ids < e_lo + E_local)
+    ids_l = torch.where(mine, ids - e_lo, E_local)
+    w_l = torch.where(mine, w, 0.0)
+    C = capacity(cfg, T)          # the same global capacity per expert
+    slot_tok, slot = dispatch_indices(ids_l, T, m.top_k, E_local + 1, C)
+    n = (E_local + 1) * C
+    slot_w = torch.zeros(n + 1, dtype=tokens.dtype,
+                         device=tokens.device).scatter_(
+        0, slot, w_l.reshape(-1).to(tokens.dtype))[:E_local * C]
+    slot_tok = slot_tok[:E_local * C]
+    act = nn.activation(cfg.act)
+    x_pad = torch.cat([tokens, tokens.new_zeros((1, D))], 0)
+    xg = x_pad[slot_tok].reshape(E_local, C, D)
+    up = _grouped(cfg, xg, e_up)
+    if e_gate is not None:
+        h = act(_grouped(cfg, xg, e_gate)) * up
+    else:
+        h = act(up)
+    y = _grouped(cfg, h.to(tokens.dtype), e_down)
+    out = torch.zeros((T + 1, D), dtype=torch.float32, device=tokens.device)
+    out.index_add_(0, slot_tok,
+                   (y.reshape(E_local * C, D) * slot_w[:, None]).float())
+    return out[:T].to(tokens.dtype), aux
+
+
+def _apply_tp(p, cfg, x):
+    """The reference's ``_sharded_moe`` on a model group: x Shards
+    (sequence-split or whole) -> (out Shards in x's layout, the first
+    position's aux)."""
+    from repro_torch.parallel import collectives as col
+    g = x.group
+    xf = col.gather_seq(x)
+    B, S, D = xf[0].shape
+    ep = p["e_up"][0].shape[0] != cfg.moe.n_experts
+
+    def one(m, pm, xm):
+        t = xm.reshape(B * S, D)
+        if ep:
+            return _local_moe_ep(cfg, t, pm["router_w"], pm.get("e_gate"),
+                                 pm["e_up"], pm["e_down"], m)
+        return local_moe(cfg, t, pm["router_w"], pm.get("e_gate"),
+                         pm["e_up"], pm["e_down"])
+    out, aux = col.local(one, p, xf, index=True)
+    parts = [o.reshape(B, S, D) for o in out]
+    if col.seq_splits(S, g):
+        return col.reduce_scatter(parts, g, 1, "moe"), aux[0]
+    return col.all_reduce(parts, g, "moe"), aux[0]
+
+
 def apply(p, cfg, x):
-    """x (B, S, D) -> (out (B, S, D), aux loss scalar)."""
+    """x (B, S, D) -> (out (B, S, D), aux loss scalar).  On a model group
+    (``x`` Shards) ``_apply_tp``."""
+    from repro_torch.parallel import collectives as col
+    if isinstance(x, col.Shards):
+        return _apply_tp(p, cfg, x)
     B, S, D = x.shape
     out, aux = local_moe(cfg, x.reshape(B * S, D), p["router_w"],
                          p.get("e_gate"), p["e_up"], p["e_down"])

@@ -15,6 +15,15 @@ plain version, ``kernels/ref.rglru_scan``); blocked =
 a log-step doubling scan over the sequence; pallas = the ``rglru_scan``
 kernel through ``kernels/ops.py`` (the hand-written CUDA kernel on a CUDA
 tensor).  Decode is one plain step under every impl, as in the reference.
+
+On a model group (``x`` Shards of the whole sequence, the residual
+gathered before the mixer as the reference's blocks do) each position
+holds its block of the RG-LRU lanes (the reference's "tp" specs): its
+columns of the two input projections, its conv taps, its recurrence
+(the ``rglru_scan`` kernel under impl "pallas") and its rows of the
+output projection, which ``row_parallel`` sums.  The block-diagonal
+gates are whole on every position; a lane block that cuts a gate head
+gathers the conv output to every lane for them.
 """
 from __future__ import annotations
 
@@ -53,20 +62,27 @@ def _conv1d(p, x, state=None):
     return out + p["conv_b"].to(x.dtype), xp[:, -(K - 1):]
 
 
+def _gate_rz(p, heads: slice, u):
+    """The recurrence and input gates of the gate heads ``heads`` from
+    their lanes u (B,S,W_h): (r, i), fp32 (B,S,W_h)."""
+    B, S, W = u.shape
+    wa, wx = p["lru_a_gate_w"][heads], p["lru_x_gate_w"][heads]
+    uh = u.reshape(B, S, wa.shape[0], wa.shape[1]).float()
+    r = torch.sigmoid(torch.einsum("bshd,hde->bshe", uh, wa.float())
+                      + p["lru_a_gate_b"][heads])
+    i = torch.sigmoid(torch.einsum("bshd,hde->bshe", uh, wx.float())
+                      + p["lru_x_gate_b"][heads])
+    return r.reshape(B, S, W), i.reshape(B, S, W)
+
+
 def _gates(p, cfg, u):
     """u (B,S,W) -> a, gated input (both fp32)."""
-    B, S, W = u.shape
-    heads = cfg.n_heads
-    hd = W // heads
-    uh = u.reshape(B, S, heads, hd).float()
-    r = torch.sigmoid(torch.einsum("bshd,hde->bshe", uh,
-                                   p["lru_a_gate_w"].float())
-                      + p["lru_a_gate_b"])
-    i = torch.sigmoid(torch.einsum("bshd,hde->bshe", uh,
-                                   p["lru_x_gate_w"].float())
-                      + p["lru_x_gate_b"])
-    r = r.reshape(B, S, W)
-    i = i.reshape(B, S, W)
+    r, i = _gate_rz(p, slice(None), u)
+    return _gated(p, r, i, u)
+
+
+def _gated(p, r, i, u):
+    """a and the gated input from the gates r, i of the lanes u."""
     log_a = -C_FACTOR * F.softplus(p["lru_a_param"]) * r       # (B,S,W) fp32
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -93,8 +109,66 @@ def _scan_assoc(a, b, h0):
     return b, b[:, -1]
 
 
+def _scan(cfg, a, b, h0):
+    if cfg.impl == "ref":
+        return kref.rglru_scan(a, b, h0)
+    if cfg.impl == "blocked":
+        return _scan_assoc(a, b, h0)
+    if cfg.impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        return kops.rglru_scan(a, b, h0)
+    raise ValueError(cfg.impl)
+
+
+def _apply_tp(p, cfg, x, cache, decode: bool):
+    """The block on a model group: x Shards (B,S,D) whole on every
+    position; ``cache`` each position's RGLRUCache of its lanes, or None
+    (a prefill from zeros).  A decode step (S = 1) is the plain step, as
+    on one device.  Returns (out Shards, PerPos of RGLRUCache)."""
+    from repro_torch.parallel import collectives as col
+    g = x.group
+    W = cfg.lru_width or cfg.d_model
+    ghd = W // cfg.n_heads
+    gate, ux = col.column_parallel(x, [p["lru_in_gate"], p["lru_in_x"]])
+    gate = col.local(lambda t: F.gelu(t, approximate="tanh"), gate)
+    u, conv = col.local(lambda pm, t, c: _conv1d(
+        pm, t, None if c is None else c.conv), p, ux,
+        col.PerPos(cache) if cache is not None else None)
+    Wl = u[0].shape[-1]
+    if Wl % ghd == 0:      # each lane block holds whole gate heads
+        rz = col.local(lambda m, pm, t: _gate_rz(
+            pm, slice(m * Wl // ghd, (m + 1) * Wl // ghd), t), p, u,
+            index=True)
+    else:
+        uf = col.all_gather(u, -1, "lru_gates")
+        rz = col.local(lambda m, pm, t: tuple(
+            col.own_cols(z, m, g.size) for z in _gate_rz(pm, slice(None), t)),
+            p, uf, index=True)
+    ab = col.local(lambda pm, r, i, t: _gated(pm, r, i, t), p, rz[0], rz[1],
+                   u)
+
+    def rec(m, a, b, c):
+        h0 = c.h if c is not None else torch.zeros(
+            (a.shape[0], a.shape[-1]), dtype=torch.float32, device=a.device)
+        if decode:
+            h = a[:, 0] * h0 + b[:, 0]
+            return h[:, None], h
+        return _scan(cfg, a.contiguous(), b.contiguous(), h0)
+    hs, hT = col.local(rec, ab[0], ab[1],
+                       col.PerPos(cache) if cache is not None else None,
+                       index=True)
+    out = col.local(lambda h, gt, t: h.to(t.dtype) * gt, hs, gate, x)
+    out = col.Shards(list(out), g, out[0].ndim - 1)
+    return col.row_parallel(out, p["lru_out"]), col.PerPos(
+        RGLRUCache(h=h, conv=c) for h, c in zip(hT, conv))
+
+
 def apply(p, cfg, x, *, cache: RGLRUCache = None):
-    """Full-sequence path. x (B,S,D) -> (out, RGLRUCache)."""
+    """Full-sequence path. x (B,S,D) -> (out, RGLRUCache).  On a model
+    group (``x`` Shards) ``_apply_tp``."""
+    from repro_torch.parallel import collectives as col
+    if isinstance(x, col.Shards):
+        return _apply_tp(p, cfg, x, cache, decode=False)
     gate = F.gelu(nn.matmul(x, p["lru_in_gate"]), approximate="tanh")
     ux = nn.matmul(x, p["lru_in_x"])
     conv_state = cache.conv if cache is not None else None
@@ -102,21 +176,16 @@ def apply(p, cfg, x, *, cache: RGLRUCache = None):
     a, b = _gates(p, cfg, u)
     h0 = cache.h if cache is not None else torch.zeros(
         (x.shape[0], u.shape[-1]), dtype=torch.float32, device=x.device)
-    if cfg.impl == "ref":
-        hs, hT = kref.rglru_scan(a, b, h0)
-    elif cfg.impl == "blocked":
-        hs, hT = _scan_assoc(a, b, h0)
-    elif cfg.impl == "pallas":
-        from repro_torch.kernels import ops as kops
-        hs, hT = kops.rglru_scan(a, b, h0)
-    else:
-        raise ValueError(cfg.impl)
+    hs, hT = _scan(cfg, a, b, h0)
     out = hs.to(x.dtype) * gate
     return nn.matmul(out, p["lru_out"]), RGLRUCache(h=hT, conv=conv_out)
 
 
 def apply_decode(p, cfg, x, cache: RGLRUCache):
     """Single-step path. x (B,1,D)."""
+    from repro_torch.parallel import collectives as col
+    if isinstance(x, col.Shards):
+        return _apply_tp(p, cfg, x, cache, decode=True)
     gate = F.gelu(nn.matmul(x, p["lru_in_gate"]), approximate="tanh")
     ux = nn.matmul(x, p["lru_in_x"])
     u, conv_state = _conv1d(p, ux, cache.conv)

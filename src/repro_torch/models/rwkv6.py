@@ -15,6 +15,16 @@ kernel on a CUDA tensor).  The LoRA products promote a bf16 activation
 against the fp32 parameters to fp32 and cast back where the reference
 does.  The layer bundles its own channel-mix (squared ReLU with token
 shift), so ``blocks.py`` treats kind "rwkv6" as a complete layer.
+
+On a model group (``x`` Shards) each position holds its block of the
+heads: the time-mix runs on the whole sequence (the residual gathered
+before it, as in the reference's blocks), every position computing the
+token-shift mixes and the decay (their weights are whole) and its heads'
+r, k, v, g, wkv (the ``rwkv6_scan`` kernel under impl "pallas") and
+group norm, summed back by ``row_parallel`` of wo; the channel-mix runs
+on the sequence-split residual, each position's token shift reading the
+last row of the position before it, its squared-ReLU columns and the
+rows of wv through ``column_parallel`` and ``row_parallel``.
 """
 from __future__ import annotations
 
@@ -127,7 +137,88 @@ def _wkv_chunked(r, k, v, lw, u, S0, chunk=CHUNK):
 # ---------------------------------------------------------------------------
 # layer entry points
 # ---------------------------------------------------------------------------
+def _time_mix_tp(p, cfg, x, cache):
+    """The time-mix on a model group: x Shards (B,S,D) whole on every
+    position, ``cache`` each position's RWKVCache (its heads' state)."""
+    from repro_torch.parallel import collectives as col
+    g = x.group
+    hd = cfg.head_dim
+
+    def heads(m, pm, xm, c):
+        B, S, D = xm.shape
+        Hl = pm["rwkv_wr"].shape[-1] // hd
+        cols = slice(m * Hl * hd, (m + 1) * Hl * hd)
+        xw, xk, xv, xr, xg = _time_mix_inputs(pm, xm, c.x_tm)
+        r = nn.matmul(xr, pm["rwkv_wr"]).reshape(B, S, Hl, hd)
+        k = nn.matmul(xk, pm["rwkv_wk"]).reshape(B, S, Hl, hd)
+        v = nn.matmul(xv, pm["rwkv_wv"]).reshape(B, S, Hl, hd)
+        gt = F.silu(nn.matmul(xg, pm["rwkv_wg"]))
+        lw = _decay(pm, xw)[..., cols].reshape(B, S, Hl, hd).contiguous()
+        o, S_T = _wkv(cfg, r, k, v, lw, pm["rwkv_u"].float(), c.state)
+        o = _group_norm({"rwkv_ln_scale": pm["rwkv_ln_scale"][cols],
+                         "rwkv_ln_bias": pm["rwkv_ln_bias"][cols]},
+                        o.float()).to(xm.dtype)
+        return o * gt, RWKVCache(state=S_T, x_tm=xm[:, -1], x_cm=c.x_cm)
+    og, caches = col.local(heads, p, x, col.PerPos(cache), index=True)
+    og = col.Shards(list(og), g, og[0].ndim - 1)
+    return col.row_parallel(og, p["rwkv_wo"]), col.PerPos(caches)
+
+
+def _channel_mix_tp(p, cfg, x, cache):
+    """The channel-mix on a model group: x Shards (B,S/n,D) split on the
+    sequence (each token shift reads the previous position's last row)
+    or whole on every position (a decode step)."""
+    from repro_torch.parallel import collectives as col
+    g = x.group
+    if x.split is None:
+        prev = col.PerPos(c.x_cm for c in cache)
+        last = col.PerPos(t[:, -1] for t in x)
+    else:
+        prev = col.shift_in(x, cache[0].x_cm)
+        last = col.broadcast(x[-1][:, -1], g, "shift") if g.size > 1 \
+            else col.PerPos([x[0][:, -1]])
+
+    def mixes(pm, xm, pv):
+        sx = _shift(xm, pv) - xm
+        return (xm + sx * pm["rwkv_cm_mix_k"].to(xm.dtype),
+                xm + sx * pm["rwkv_cm_mix_r"].to(xm.dtype))
+    xk, xr = col.local(mixes, p, x, prev)
+    (kk,) = col.column_parallel(xk, [p["rwkv_cm_wk"]])
+    h = col.local(lambda t: torch.square(F.relu(t)), kk)
+    vv = col.row_parallel(h, p["rwkv_cm_wv"])
+    out = col.local(lambda pm, t, v: torch.sigmoid(
+        nn.matmul(t, pm["rwkv_cm_wr"])) * v, p, xr, vv)
+    return out, col.PerPos(RWKVCache(state=c.state, x_tm=c.x_tm, x_cm=l)
+                           for c, l in zip(cache, last))
+
+
+def cache_init_tp(cfg, batch: int, dtype, group, heads: int):
+    """Each position's zero cache on a model group, ``heads`` heads a
+    position."""
+    from repro_torch.parallel import collectives as col
+    return col.PerPos(RWKVCache(
+        state=torch.zeros((batch, heads, cfg.head_dim, cfg.head_dim),
+                          dtype=torch.float32, device=d),
+        x_tm=torch.zeros((batch, cfg.d_model), dtype=dtype, device=d),
+        x_cm=torch.zeros((batch, cfg.d_model), dtype=dtype, device=d))
+        for d in group.devices)
+
+
+def _wkv(cfg, r, k, v, lw, u, S0):
+    if cfg.impl == "ref":
+        return kref.rwkv6_scan(r, k, v, lw, u, S0)
+    if cfg.impl == "blocked":
+        return _wkv_chunked(r, k, v, lw, u, S0)
+    if cfg.impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        return kops.rwkv6_scan(r, k, v, lw, u, S0)
+    raise ValueError(cfg.impl)
+
+
 def time_mix(p, cfg, x, cache: RWKVCache):
+    from repro_torch.parallel import collectives as col
+    if isinstance(x, col.Shards):
+        return _time_mix_tp(p, cfg, x, cache)
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     xw, xk, xv, xr, xg = _time_mix_inputs(p, x, cache.x_tm)
@@ -136,22 +227,16 @@ def time_mix(p, cfg, x, cache: RWKVCache):
     v = nn.matmul(xv, p["rwkv_wv"]).reshape(B, S, H, hd)
     g = F.silu(nn.matmul(xg, p["rwkv_wg"]))
     lw = _decay(p, xw).reshape(B, S, H, hd)
-    u = p["rwkv_u"].float()
-    if cfg.impl == "ref":
-        o, S_T = kref.rwkv6_scan(r, k, v, lw, u, cache.state)
-    elif cfg.impl == "blocked":
-        o, S_T = _wkv_chunked(r, k, v, lw, u, cache.state)
-    elif cfg.impl == "pallas":
-        from repro_torch.kernels import ops as kops
-        o, S_T = kops.rwkv6_scan(r, k, v, lw, u, cache.state)
-    else:
-        raise ValueError(cfg.impl)
+    o, S_T = _wkv(cfg, r, k, v, lw, p["rwkv_u"].float(), cache.state)
     o = _group_norm(p, o.float()).to(x.dtype)
     out = nn.matmul(o * g, p["rwkv_wo"])
     return out, RWKVCache(state=S_T, x_tm=x[:, -1], x_cm=cache.x_cm)
 
 
 def channel_mix(p, cfg, x, cache: RWKVCache):
+    from repro_torch.parallel import collectives as col
+    if isinstance(x, col.Shards):
+        return _channel_mix_tp(p, cfg, x, cache)
     sx = _shift(x, cache.x_cm) - x
     xk = x + sx * p["rwkv_cm_mix_k"].to(x.dtype)
     xr = x + sx * p["rwkv_cm_mix_r"].to(x.dtype)

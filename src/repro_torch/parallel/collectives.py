@@ -19,6 +19,14 @@ bytes each transfer carries between two different positions (also when
 they share a card), by collective, the forward's under its own name and
 the backward's under its transpose's.  With a plain tensor (no mesh)
 each function is the reference's local fp32-accumulating matmul.
+
+A residual stream that the group cannot split on the sequence (a decode
+step's one token, or a length the group does not divide) is whole on
+every position (``Shards`` with ``split=None``): the reference's
+``_applicable`` then leaves the products to GSPMD, which partitions
+them by the parameters' specs; here ``column_parallel`` gathers nothing
+and ``row_parallel`` all-reduces its fp32 partial products instead of
+reduce-scattering them, as GSPMD's partitioned dot does.
 """
 from __future__ import annotations
 
@@ -33,7 +41,9 @@ import torch
 WIRE: Counter = Counter()
 
 _TRANSPOSE = {"all_gather": "reduce_scatter", "reduce_scatter": "all_gather",
-              "all_reduce": "all_reduce", "broadcast": "reduce"}
+              "all_reduce": "all_reduce", "broadcast": "reduce",
+              "halo": "halo", "all_to_all": "all_to_all",
+              "ppermute": "ppermute"}
 
 
 @dataclass(frozen=True)
@@ -90,15 +100,30 @@ def send(x, device, site: str, kind: str):
     return _Send.apply(x, device, site, kind)
 
 
+def at(tree, m: int):
+    """Position ``m``'s value of a nesting (dicts, lists) whose leaves are
+    :class:`PerPos` or :class:`Shards`: a group's parameters
+    (``weights.group_view``) become one position's."""
+    if isinstance(tree, (Shards, PerPos)):
+        return tree[m]
+    if isinstance(tree, dict):
+        return {k: at(v, m) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [at(v, m) for v in tree]
+    return tree
+
+
 def local(fn, *args, index: bool = False):
     """``fn`` on each position of a group: :class:`Shards` and
-    :class:`PerPos` arguments give their position's value, the rest are
-    passed whole; ``index=True`` passes the position's index in the group
-    first.  Returns Shards (the first Shards argument's layout), or a
-    tuple of Shards when ``fn`` returns a tuple."""
+    :class:`PerPos` arguments give their position's value, and so do the
+    leaves of a dict argument (``at``), the rest are passed whole;
+    ``index=True`` passes the position's index in the group first.
+    Returns Shards (the first Shards argument's layout), or a tuple of
+    Shards when ``fn`` returns a tuple."""
     like = next(a for a in args if isinstance(a, Shards))
     outs = [fn(*(((m,) if index else ())
-                 + tuple(a[m] if isinstance(a, (Shards, PerPos)) else a
+                 + tuple(a[m] if isinstance(a, (Shards, PerPos)) else
+                         at(a, m) if isinstance(a, dict) else a
                          for a in args)))
             for m in range(like.group.size)]
     if isinstance(outs[0], tuple):
@@ -146,6 +171,59 @@ def all_reduce_to_root(parts: Sequence[torch.Tensor], group: Group,
     return acc
 
 
+def all_reduce(parts: Sequence[torch.Tensor], group: Group, site: str,
+               op: str = "sum") -> "Shards":
+    """The sum (or max) of the group's tensors, in group order, on every
+    position: reduced on the root, then sent back to each position."""
+    acc = all_reduce_to_root(parts, group, site, op)
+    return Shards([acc if p == 0 else send(acc, d, site, "all_reduce")
+                   for p, d in enumerate(group.devices)], group, None)
+
+
+def seq_splits(S: int, group: Group) -> bool:
+    """Whether a sequence of S positions is split over the group (the
+    reference's ``_applicable``: more than one token, and S divisible)."""
+    return group.size > 1 and S > 1 and S % group.size == 0
+
+
+def model_groups(mesh) -> List[Group]:
+    """The model groups of a mesh (a :class:`Group` for each index of
+    the other axes, in mesh order: the order of the batch's row
+    blocks)."""
+    if "model" in mesh.axis_names:
+        groups = mesh.axis_groups("model")
+    else:
+        groups = [(p,) for p in range(len(mesh.devices))]
+    return [Group(g, tuple(mesh.devices[p] for p in g)) for g in groups]
+
+
+def full_cols(xs: "Shards", n: int, site: str) -> "Shards":
+    """``xs`` with every position holding all ``n`` columns of its last
+    dim: gathered when each position holds a column block, as is when
+    the weight that made it was whole (a width the group does not
+    divide)."""
+    if xs[0].shape[-1] == n:
+        return Shards(list(xs), xs.group, None if xs.split == xs[0].ndim - 1
+                      else xs.split)
+    return all_gather(xs, -1, site)
+
+
+def own_cols(t, m: int, n_blocks: int):
+    """Block ``m`` of ``n_blocks`` of the last dim of ``t``."""
+    c = t.shape[-1] // n_blocks
+    return t[..., m * c:(m + 1) * c]
+
+
+def shift_in(xs: "Shards", first) -> PerPos:
+    """For a sequence-split Shards (B, S/n, D): each position's previous
+    row before its block, the last row of the position before it (sent),
+    and ``first`` (B, D) before position 0: the halo of a token shift."""
+    g = xs.group
+    return PerPos(first.to(g.devices[0]) if m == 0 else
+                  send(xs[m - 1][:, -1], g.devices[m], "shift", "halo")
+                  for m in range(g.size))
+
+
 def broadcast(x, group: Group, site: str) -> PerPos:
     """The root's ``x`` on every position of the group."""
     return PerPos(x if p == 0 else send(x, d, site, "broadcast")
@@ -186,10 +264,22 @@ def row_parallel(x, w, out_dtype=None):
     x Shards (B, S, K/tp) (split on K), ``w`` PerPos (K/tp, N) row blocks.
     Each position's partial product is cast to the activation dtype and
     reduced on the wire in it, as the reference's; returns Shards (B,
-    S/tp, N) split on the sequence.  A plain ``x`` takes a plain ``w``:
-    the local matmul."""
+    S/tp, N) split on the sequence.  A sequence the group does not split
+    (``seq_splits``) takes GSPMD's form: the fp32 partial products
+    all-reduced, then cast, whole on every position.  An ``x`` whole on
+    every position (a split-T decode's attention output) gives each
+    position its block of K.  A plain ``x`` takes a plain ``w``: the
+    local matmul."""
     if not isinstance(x, Shards):
         return _matmul(x, w, out_dtype or x.dtype)
     out_dtype = out_dtype or x[0].dtype
-    parts = [_matmul(x[m], w[m], out_dtype) for m in range(x.group.size)]
-    return reduce_scatter(parts, x.group, 1, "row_parallel")
+    g = x.group
+    if x[0].shape[-1] != w[0].shape[0]:     # x whole, w in row blocks
+        x = Shards([own_cols(t, m, g.size) for m, t in enumerate(x)], g,
+                   x[0].ndim - 1)
+    if seq_splits(x[0].shape[1], g):
+        parts = [_matmul(x[m], w[m], out_dtype) for m in range(g.size)]
+        return reduce_scatter(parts, g, 1, "row_parallel")
+    parts = [x[m].float() @ w[m].float() for m in range(g.size)]
+    return Shards([t.to(out_dtype) for t in all_reduce(
+        parts, g, "row_parallel")], g, None)

@@ -5,7 +5,15 @@ Reference: ``repro/parallel/pipeline.py``.  A GPipe schedule of
 microbatches enter at stage 0, each tick's activations move to the next
 position (the reference's ``ppermute``), and they leave at stage n-1.
 The fill/drain bubble is the textbook (n_stages - 1) / (n_micro +
-n_stages - 1) overhead, reported by ``bubble_fraction``.  Forward only.
+n_stages - 1) overhead, reported by ``bubble_fraction``.
+
+It is differentiable, as the reference's is (it differentiates through
+the ``shard_map``, which transposes every ``ppermute``): each hand-on
+between positions is a ``collectives.send``, whose backward sends the
+gradient back to the position before (counted in ``WIRE`` under
+"pipeline ppermute"), and autograd runs each tick's backward on the
+stream its forward ran on, waiting for the gradient's producer as it
+does for any cross-stream use.
 
 The unit here is an arbitrary ``stage_fn(stage_params, x) -> x``.  The
 reference stacks the stages' parameters on a leading axis sharded over
@@ -24,6 +32,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from repro_torch.parallel import collectives as col
 from repro_torch.parallel.sharding import current_env
 
 
@@ -90,7 +99,8 @@ def pipeline_apply(stage_fn: Callable, stage_params: Sequence, x,
                     y, done = carry[s - 1]
                     if done is not None:
                         streams[s].wait_event(done)
-                    x_in = y.to(devices[s])
+                    x_in = col.send(y, devices[s], "pipeline",
+                                    "ppermute")
                     if streams[s] is not None:
                         x_in.record_stream(streams[s])
                 y = stage_fn(params[s], x_in)

@@ -203,6 +203,11 @@ PARAM_RULES: Sequence[Tuple[str, Tuple[Axis, ...]]] = (
     (r"bias$", (None,)),
     (r"mtp_proj$", ("fsdp_dense", "tp")),
 )
+# leaves that PARAM_RULES store in column blocks over "model" and whose
+# layer takes them in row blocks: the first match wins, so the RWKV-6
+# channel mix's wv takes the ``wv$`` rule, not its own, and its
+# ``row_parallel`` wants ("tp", None)
+ROW_CONSUMED = re.compile(r"rwkv_cm_wv$")
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -363,6 +368,100 @@ def gather(st: Sharded, device=None) -> torch.Tensor:
             seen.add(key)
             out[reg] = t.to(device)
     return out
+
+
+def model_block(st: Sharded, pos: int, shards=None, site: str = "fsdp"):
+    """Position ``pos``'s block of ``st`` under its spec with every axis
+    but "model" dropped: its own shard when the spec names no other axis;
+    else (a leaf stored over the data axes, the reference's "fsdp") the
+    blocks of the positions that differ from it on those axes, sent to
+    its device and concatenated in mesh order: the all-gather the
+    reference's MoE makes of its expert weights.  ``shards`` (default
+    ``st.shards``) are the tensors to read, e.g. each position's leaf
+    that requires grad."""
+    from repro_torch.parallel import collectives as col
+    shards = st.shards if shards is None else shards
+    mesh = st.mesh
+    dims = [i for i, e in enumerate(st.spec)
+            if any(a != "model" for a in _axes(e))]
+    if not dims:
+        return shards[pos]
+    if len(dims) > 1 or "model" in _axes(st.spec[dims[0]]):
+        raise NotImplementedError(f"gathering spec {st.spec} over its "
+                                  "non-model axes")
+    d = dims[0]
+    others = set(_axes(st.spec[d]))
+    src = [q for q in range(len(mesh.devices))
+           if all(_coord(mesh, q, a) == _coord(mesh, pos, a)
+                  for a in mesh.axis_names if a not in others)]
+    if len(src) == 1:            # the other axes have one position
+        return shards[pos]
+    src.sort(key=lambda q: region(st.shape, st.spec, mesh, q)[d].start)
+    dev = mesh.devices[pos]
+    return torch.cat([shards[q] if q == pos else
+                      col.send(shards[q], dev, site, "all_gather")
+                      for q in src], d)
+
+
+def row_block(st: Sharded, pos: int, shards=None, site: str = "reshard"):
+    """Position ``pos``'s row block (dim -2 split over "model") of a
+    matrix (or a stack of them) stored in column blocks over "model"
+    (spec (..., None, "model")):
+    row block m of every position's column block, sent to ``pos`` and
+    concatenated: the resharding the reference's ``row_parallel`` makes
+    of a weight whose stored spec is not its ``("tp", None)``."""
+    from repro_torch.parallel import collectives as col
+    shards = st.shards if shards is None else shards
+    mesh = st.mesh
+    src = [q for q in range(len(mesh.devices))
+           if all(_coord(mesh, q, a) == _coord(mesh, pos, a)
+                  for a in mesh.axis_names if a != "model")]
+    src.sort(key=lambda q: _coord(mesh, q, "model"))
+    m, n = _coord(mesh, pos, "model"), mesh.shape["model"]
+    rows = st.shape[-2] // n
+    dev = mesh.devices[pos]
+    pieces = [shards[q][..., m * rows:(m + 1) * rows, :] for q in src]
+    return torch.cat([t if q == pos else col.send(t, dev, site, "all_to_all")
+                      for q, t in zip(src, pieces)], -1)
+
+
+def consumer_block(st: Sharded, path: str, pos: int, shards=None):
+    """Position ``pos``'s block of the leaf at ``path`` as the layer that
+    consumes it takes it: ``row_block`` for a ROW_CONSUMED leaf stored
+    in column blocks over a model axis of more than one position, else
+    ``model_block``."""
+    if (ROW_CONSUMED.search(path) and st.spec[-2:] == (None, "model")
+            and st.mesh.shape.get("model", 1) > 1):
+        return row_block(st, pos, shards)
+    return model_block(st, pos, shards)
+
+
+def cache_specs(cfg, env: ShardingEnv):
+    """The reference's ``steps.cache_specs``: one spec per field of each
+    layer's decode cache, in the port's segment/cycle nesting (the
+    reference's stacked cycle axis is not there).  Attention and MLA
+    caches are time-split over "seq_sp" (split-T), the RG-LRU state over
+    "tp", the RWKV-6 state over "heads"."""
+    from repro_torch.configs.base import ATTN, LOCAL, MLA, RGLRU, RWKV6
+    from repro_torch.models import (attention, lm, mla, rglru, rwkv6)
+
+    def kind_spec(kind):
+        if kind in (ATTN, LOCAL):
+            s = env.spec("batch", "seq_sp", None)
+            return attention.AttnCache(k=s, v=s)
+        if kind == MLA:
+            s = env.spec("batch", "seq_sp", None)
+            return mla.MLACache(ckv=s, k_rope=s)
+        if kind == RGLRU:
+            return rglru.RGLRUCache(h=env.spec("batch", "tp"),
+                                    conv=env.spec("batch", None, "tp"))
+        if kind == RWKV6:
+            return rwkv6.RWKVCache(state=env.spec("batch", "heads", None,
+                                                  None),
+                                   x_tm=env.spec("batch", None),
+                                   x_cm=env.spec("batch", None))
+        raise ValueError(kind)
+    return lm._nest(cfg, lambda kind, key: kind_spec(kind))
 
 
 def sum_regions(parts: Sequence[torch.Tensor], shape, spec: Spec, mesh,

@@ -55,7 +55,6 @@ def run(cfg, shape, mesh=None, rules=None, job: TrainJobConfig = None,
     logged history, params (the port's nesting; on a mesh the
     reference-shaped tree of Sharded leaves), opt_state and the loop's
     wall time."""
-    steps_mod.check_mesh(cfg, mesh)
     device = mesh.devices[0] if mesh is not None \
         else weights.resolve_device(device)
     job = job or TrainJobConfig()
@@ -70,6 +69,7 @@ def run(cfg, shape, mesh=None, rules=None, job: TrainJobConfig = None,
     source = data_lib.make_source(data_cfg)
 
     with use_sharding(mesh, rules) as env:
+        steps_mod.check_mesh(cfg, mesh, env)
         return _run(cfg, job, adam_cfg, schedule, source, env, device,
                     failure_hook)
 
@@ -94,8 +94,7 @@ def _run(cfg, job, adam_cfg, schedule, source, env, device, failure_hook):
         gen = torch.Generator(device=device).manual_seed(job.seed)
         params = weights.init_params(cfg, generator=gen, device=device)
         if env is not None:
-            params = weights.shard_tree(weights.to_reference(params, cfg),
-                                        env.mesh)
+            params = weights.shard_params(params, cfg, env.mesh)
             opt_state = adam_lib.init(params, adam_cfg)
         else:
             opt_state = adam_lib.init(weights.to_reference(params, cfg),

@@ -6,46 +6,49 @@ shape-only parameter and optimizer state.
 Reference: ``repro/steps.py``.  The reference returns functions for
 ``jax.jit`` with the pools donated; PyTorch runs eagerly, so these are
 plain callables and the pools (and the speculative history rows) are
-updated in place.
+updated in place.  The train step runs on the current sharding
+environment's mesh, the dense prefill and serve steps on the mesh they
+are given (each data group's rows on its model group, the caches
+Sharded by ``sharding.cache_specs``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch import weights
-from repro_torch.configs.base import ATTN, LOCAL, ModelConfig
-from repro_torch.models import attention, lm
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, lm, mla as mla_mod
 from repro_torch.optim import adam as adam_lib
 from repro_torch.parallel import collectives as col
-from repro_torch.parallel.sharding import Sharded, current_env
+from repro_torch.parallel.sharding import (Sharded, _axis_size, cache_specs,
+                                           current_env, use_sharding)
 
 
-MESH_ITEM = "ROADMAP.md Queue A item 16"
-
-
-def check_mesh(cfg: ModelConfig, mesh):
-    """Refuse what the mesh trainer does not run, naming the ROADMAP item
-    that holds it: MoE on any mesh (the reference's MoE averages each
-    data shard's aux loss and sizes capacity from the local tokens), and
-    a "model" axis over anything but GQA attention with a dense FFN."""
+def check_mesh(cfg: ModelConfig, mesh, env=None):
+    """Refuse a model axis that does not divide what it splits, as the
+    reference's ``shard_map`` specs do: the heads (attention, MLA and
+    RWKV-6), the FFN width, the RG-LRU lanes, and each expert's FFN width
+    under expert-TP or the expert count under EP (``env``'s rules)."""
     if mesh is None:
         return
     tp = mesh.shape.get("model", 1)
-    odd = sorted({k for k in cfg.layer_kinds if k not in (ATTN, LOCAL)})
-    if tp > 1 and odd:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(odd)} layers on a model axis of {tp} "
-            f"are not ported ({MESH_ITEM}); train it on a data-only mesh")
+    if tp == 1:
+        return
+    kinds = set(cfg.layer_kinds)
+    need = [("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)]
+    if "rglru" in kinds:
+        need.append(("lru_width", cfg.lru_width or cfg.d_model))
     if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training on a mesh is not ported ({MESH_ITEM},"
-            " with the sharded MoE of item 7); train it on one device")
-    if tp > 1:
-        for what, n in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)):
-            if n % tp:
-                raise NotImplementedError(
-                    f"{cfg.name}: {what}={n} does not split over a model "
-                    f"axis of {tp}")
+        ep = env is not None and env.resolve("expert") is not None
+        need.append(("n_experts", cfg.moe.n_experts) if ep else
+                    ("d_ff_expert", cfg.moe.d_ff_expert))
+    for what, n in need:
+        if n % tp:
+            raise NotImplementedError(
+                f"{cfg.name}: {what}={n} does not split over a model "
+                f"axis of {tp}")
 
 
 def batch_specs(cfg: ModelConfig, env):
@@ -60,17 +63,6 @@ def batch_specs(cfg: ModelConfig, env):
     return b
 
 
-def model_groups(mesh):
-    """The model groups of a mesh (a :class:`collectives.Group` for each
-    index of the other axes, in mesh order: the order of the batch's
-    row blocks)."""
-    if "model" in mesh.axis_names:
-        groups = mesh.axis_groups("model")
-    else:
-        groups = [(p,) for p in range(len(mesh.devices))]
-    return [col.Group(g, tuple(mesh.devices[p] for p in g)) for g in groups]
-
-
 def _group_batch(batch, specs, n_groups, g, device):
     """Data group ``g``'s rows of every batch leaf, on ``device``."""
     out = {}
@@ -83,14 +75,20 @@ def _group_batch(batch, specs, n_groups, g, device):
 def mesh_loss_and_grads(cfg: ModelConfig, params, batch):
     """The loss of a batch on the current mesh and each leaf's gradient:
     every data group in turn (one group's activations alive at a time)
-    runs its rows' forward and backward on its model group, its loss the
-    group's NLL sum over the WHOLE batch's mask count (the reference's
-    ``_chunk_ce`` sums both over the batch axes).  ``params`` is the
-    reference-shaped tree of Sharded leaves; returns (metrics, gradients:
-    a tree of partial Sharded leaves, each position's share)."""
+    runs its rows' forward and backward on its model group.  Its share
+    of the loss is its NLL sum over the WHOLE batch's mask count (the
+    reference's ``_chunk_ce`` sums both over the batch axes), its MoE
+    load-balance loss over the number of groups (the reference's
+    ``pmean`` over the batch axes; the capacity is the group's tokens')
+    and its MTP NLL sum over the whole batch's MTP mask count.
+    ``params`` is the reference-shaped tree of Sharded leaves; a leaf
+    stored over the data axes (the MoE's "fsdp") is gathered for each
+    group and its gradient comes back to every position holding a block
+    of it.  Returns (metrics, gradients: a tree of partial Sharded
+    leaves, each position's share)."""
     env = current_env()
     mesh = env.mesh
-    groups = model_groups(mesh)
+    groups = col.model_groups(mesh)
     specs = batch_specs(cfg, env)
     B, S = batch["labels"].shape
     if B % len(groups) or S % groups[0].size:
@@ -98,37 +96,50 @@ def mesh_loss_and_grads(cfg: ModelConfig, params, batch):
             f"a batch of {B} x {S} does not split over {len(groups)} data "
             f"groups (rows) and {groups[0].size} model positions (sequence)")
     leaves = weights.tree_leaves(params)
-    cnt = batch["mask"].sum().to(groups[0].root)
-    grads = [[None] * len(mesh.devices) for _ in leaves]
-    tot = None
+    n_pos = len(mesh.devices)
+    mine = [[l.shards[p].detach().requires_grad_() for p in range(n_pos)]
+            for l in leaves]
+    flat = [t for ts in mine for t in ts]
+    root = groups[0].root
+    cnt = batch["mask"].sum().to(root)
+    mtp_cnt = batch["mask"][:, 1:].sum().to(root)
+    coef = cfg.moe.aux_loss_coef if cfg.moe is not None else 0.0
+    grads = [None] * len(flat)
+    tot = {}
     for g, group in enumerate(groups):
         rows = _group_batch(batch, specs, len(groups), g, group.root)
-        mine = {p: [l.shards[p].detach().requires_grad_() for l in leaves]
-                for p in group.positions}
-        trees = [weights.unstack(weights.tree_unflatten(params, mine[p]),
-                                 cfg) for p in group.positions]
         with torch.enable_grad():
-            if group.size == 1:
-                t, _ = lm.loss_sums(trees[0], cfg, rows)
-            else:
-                t, _ = lm.loss_sums(weights.group_view(trees), cfg, rows,
-                                    group=group)
-            flat = [x for p in group.positions for x in mine[p]]
-            gs = torch.autograd.grad(t / cnt.to(t.device), flat,
-                                     allow_unused=True)
-        for j, p in enumerate(group.positions):
-            for i, l in enumerate(leaves):
-                gi = gs[j * len(leaves) + i]
-                grads[i][p] = torch.zeros_like(l.shards[p]) if gi is None \
-                    else gi
-        t = t.detach().to(groups[0].root)
-        tot = t if tot is None else tot + t
-        del mine, trees, gs, flat
-    ce = tot / torch.clamp(cnt, min=1.0)
-    metrics = {"ce": ce, "moe_aux": torch.zeros_like(ce), "loss": ce}
-    return metrics, weights.tree_unflatten(params, [
-        Sharded(g, l.spec, l.shape, mesh, partial=True)
-        for g, l in zip(grads, leaves)])
+            view = weights.group_params(params, group, cfg, mine)
+            out = lm.loss_sums(view, cfg, rows,
+                               group=group if group.size > 1 else None)
+            obj = out["tot"] / cnt.to(out["tot"].device)
+            if cfg.moe is not None:
+                obj = obj + coef * out["aux"].to(obj.device) / len(groups)
+            if "mtp_tot" in out:
+                obj = obj + 0.3 * out["mtp_tot"].to(obj.device) \
+                    / mtp_cnt.to(obj.device)
+            gs = torch.autograd.grad(obj, flat, allow_unused=True)
+        grads = [a if b is None else b if a is None else a + b
+                 for a, b in zip(grads, gs)]
+        for k, v in out.items():
+            v = v.detach().to(root)
+            tot[k] = v if k not in tot else tot[k] + v
+        del view, out, gs
+    ce = tot["tot"] / torch.clamp(cnt, min=1.0)
+    aux = tot["aux"] / len(groups)
+    metrics = {"ce": ce, "moe_aux": aux}
+    loss = ce + coef * aux if cfg.moe is not None else ce
+    if "mtp_tot" in tot:
+        metrics["mtp_ce"] = tot["mtp_tot"] / torch.clamp(mtp_cnt, min=1.0)
+        loss = loss + 0.3 * metrics["mtp_ce"]
+    metrics["loss"] = loss
+    out = []
+    for i, l in enumerate(leaves):
+        gi = grads[i * n_pos:(i + 1) * n_pos]
+        out.append(Sharded([torch.zeros_like(l.shards[p]) if t is None
+                            else t for p, t in enumerate(gi)],
+                           l.spec, l.shape, mesh, partial=True))
+    return metrics, weights.tree_unflatten(params, out)
 
 
 def make_train_step(cfg: ModelConfig, adam_cfg: adam_lib.AdamConfig,
@@ -145,7 +156,7 @@ def make_train_step(cfg: ModelConfig, adam_cfg: adam_lib.AdamConfig,
 
     Under a sharding environment (``use_sharding(mesh)``) the step runs
     on the mesh: ``params`` is the reference-shaped tree of Sharded
-    leaves (``weights.shard_tree``), the batch is split over the
+    leaves (``weights.shard_params``), the batch is split over the
     ("pod", "data") axes (``batch_specs``), ``mesh_loss_and_grads`` takes
     the loss and the gradients and ``adam.update`` the ZeRO-1 step; the
     metrics are the whole batch's."""
@@ -162,7 +173,7 @@ def make_train_step(cfg: ModelConfig, adam_cfg: adam_lib.AdamConfig,
 
     def train_step(params, opt_state, batch):
         if current_env() is not None:
-            check_mesh(cfg, current_env().mesh)
+            check_mesh(cfg, current_env().mesh, current_env())
             return mesh_step(params, opt_state, batch)
         tree = weights.to_reference(params, cfg)
         leaves = [l.detach().requires_grad_() for l in
@@ -205,18 +216,153 @@ def abstract_opt_state(cfg: ModelConfig, adam_cfg: adam_lib.AdamConfig,
     return adam_lib.init(params_shape, adam_cfg)
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int):
-    def prefill_step(params, tokens):
-        return lm.prefill(params, cfg, tokens, max_len=max_len)
-    return prefill_step
+def _mesh_env(mesh):
+    """The current sharding environment when it is ``mesh``'s (its rules
+    kept), else ``mesh`` under the default rules."""
+    env = current_env()
+    if env is not None and env.mesh is mesh:
+        return contextlib.nullcontext(env)
+    return use_sharding(mesh)
 
 
-def make_serve_step(cfg: ModelConfig):
-    """One decode step: greedy-sample next token given the KV cache."""
-    def serve_step(params, tokens, caches, pos):
-        logits, caches = lm.decode_step(params, cfg, tokens, caches, pos)
-        return logits.argmax(-1).to(torch.int32), logits, caches
-    return serve_step
+class _GroupViews:
+    """Each model group's parameter view (``weights.group_params``) of the
+    last Sharded tree seen, built once per tree: a decode step reuses
+    them."""
+
+    def __init__(self, cfg, mesh):
+        self.cfg, self.groups = cfg, col.model_groups(mesh)
+        self.params, self.views = None, None
+
+    def __call__(self, params):
+        if params is not self.params:
+            self.params = params
+            self.views = [weights.group_params(params, g, self.cfg)
+                          for g in self.groups]
+        return self.views
+
+
+def _caches_of_group(caches, group):
+    """The caches of ``group``'s positions in the mesh's Sharded cache
+    nesting: one cache a layer on a one-position group, else each
+    position's (``attention.TimeShards`` for a time-split attention or
+    MLA cache)."""
+    def one(c):
+        per = [type(c)(*[f.shards[p] for f in c]) for p in group.positions]
+        if group.size == 1:
+            return per[0]
+        split = isinstance(c, (attention.AttnCache, mla_mod.MLACache)) \
+            and c[0].spec[1] is not None
+        return (attention.TimeShards if split else col.PerPos)(per)
+    return _map_caches(one, caches)
+
+
+def _map_caches(fn, caches):
+    return [[tuple(fn(c) for c in cyc) for cyc in seg] for seg in caches]
+
+
+def _sharded_caches(cfg, per_group, groups, env):
+    """The mesh's cache nesting of each data group's caches: every field
+    a Sharded by ``sharding.cache_specs``, whose time dim is whole when
+    the caches are (a length the model group does not divide)."""
+    mesh = env.mesh
+    specs = cache_specs(cfg, env)
+    out = []
+    for si, seg in enumerate(specs):
+        cycles = []
+        for ci, cyc in enumerate(seg):
+            layer = []
+            for j, spec_c in enumerate(cyc):
+                blocks = [per_group[g][si][ci][j] for g in range(len(groups))]
+                if groups[0].size == 1:
+                    blocks = [[b] for b in blocks]
+                split = isinstance(blocks[0], attention.TimeShards)
+                fields = []
+                for f, spec in enumerate(spec_c):
+                    if isinstance(spec_c, (attention.AttnCache,
+                                           mla_mod.MLACache)) and not split:
+                        spec = (spec[0], None) + tuple(spec[2:])
+                    shards = [None] * len(mesh.devices)
+                    for g, group in enumerate(groups):
+                        for m, p in enumerate(group.positions):
+                            shards[p] = blocks[g][m][f]
+                    blk = shards[0].shape
+                    shape = [d * _axis_size(env, e) for d, e in zip(
+                        blk, tuple(spec) + (None,) * (len(blk) - len(spec)))]
+                    fields.append(Sharded(shards, spec, shape, mesh))
+                layer.append(type(spec_c)(*fields))
+            cycles.append(tuple(layer))
+        out.append(cycles)
+    return out
+
+
+def _data_rows(t, n_groups, g, device):
+    return t.chunk(n_groups, 0)[g].to(device)
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int, mesh=None):
+    """(params, tokens (B,S)) -> (next-token logits (B,1,V), caches).
+
+    With ``mesh`` (the dense engine on a device mesh) ``params`` is the
+    reference-shaped tree of Sharded leaves (``weights.shard_params``),
+    the batch rows split over the data groups, each group's prefill runs
+    on its model group (``lm.prefill(group=)``), the logits come back to
+    the mesh's first device and the caches are Sharded by
+    ``sharding.cache_specs`` (split-T attention and MLA caches)."""
+    if mesh is None:
+        def prefill_step(params, tokens):
+            return lm.prefill(params, cfg, tokens, max_len=max_len)
+        return prefill_step
+    views = _GroupViews(cfg, mesh)
+
+    def prefill_mesh(params, tokens):
+        groups = views.groups
+        if tokens.shape[0] % len(groups):
+            raise ValueError(f"a batch of {tokens.shape[0]} does not split "
+                             f"over {len(groups)} data groups")
+        with _mesh_env(mesh) as env:
+            check_mesh(cfg, mesh, env)
+            logits, caches = [], []
+            for g, (group, view) in enumerate(zip(groups, views(params))):
+                lg, c = lm.prefill(
+                    view, cfg, _data_rows(tokens, len(groups), g, group.root),
+                    max_len=max_len, group=group if group.size > 1 else None)
+                logits.append(lg.to(mesh.devices[0]))
+                caches.append(c)
+            return torch.cat(logits, 0), _sharded_caches(cfg, caches,
+                                                         groups, env)
+    return prefill_mesh
+
+
+def make_serve_step(cfg: ModelConfig, mesh=None):
+    """One decode step: greedy-sample next token given the KV cache.
+    (params, tokens (B,1), caches, pos) -> (tokens (B,1), logits, caches).
+    With ``mesh`` each data group's rows step on its model group against
+    its positions' caches (``make_prefill_step``'s)."""
+    def greedy(logits):
+        return logits.argmax(-1).to(torch.int32)
+    if mesh is None:
+        def serve_step(params, tokens, caches, pos):
+            logits, caches = lm.decode_step(params, cfg, tokens, caches, pos)
+            return greedy(logits), logits, caches
+        return serve_step
+    views = _GroupViews(cfg, mesh)
+
+    def serve_mesh(params, tokens, caches, pos):
+        groups = views.groups
+        with _mesh_env(mesh) as env:
+            logits, new = [], []
+            for g, (group, view) in enumerate(zip(groups, views(params))):
+                lg, c = lm.decode_step(
+                    view, cfg, _data_rows(tokens, len(groups), g, group.root),
+                    _caches_of_group(caches, group), pos,
+                    group=group if group.size > 1 else None)
+                logits.append(lg.to(mesh.devices[0]))
+                new.append(c)
+            logits = torch.cat(logits, 0)
+            return greedy(logits), logits, _sharded_caches(cfg, new, groups,
+                                                           env)
+    return serve_mesh
 
 
 def make_paged_prefill_step(cfg: ModelConfig):

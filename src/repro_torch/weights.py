@@ -165,15 +165,67 @@ def unstack(tree, cfg):
 # ---------------------------------------------------------------------------
 # the reference-shaped tree on a mesh
 # ---------------------------------------------------------------------------
-def shard_tree(tree, mesh):
-    """A reference-shaped tree of logical tensors placed on ``mesh``: each
-    leaf a :class:`~repro_torch.parallel.sharding.Sharded` by its
-    ``sharding.param_specs`` entry under the current environment."""
+class _Path:
+    def __init__(self, path):
+        self.path = path
+
+
+def shard_params(params, cfg, mesh, consume: bool = False):
+    """The reference-shaped tree (``to_reference``) of the port's
+    ``params`` placed on ``mesh``: each leaf a
+    :class:`~repro_torch.parallel.sharding.Sharded` by its
+    ``sharding.param_specs`` entry under the current environment, built
+    leaf by leaf: each position's block of a scanned leaf is stacked from
+    the cycles' blocks, so the stacked leaf is never whole.  With
+    ``consume`` each of ``params``' tensors is dropped from its nesting
+    once placed, so that the peak memory is the parameters and one
+    leaf's blocks (a model that fills most of the card)."""
     from repro_torch.parallel import sharding
-    specs = sharding.param_specs(tree)
-    return tree_unflatten(tree, [
-        sharding.shard(t, s, mesh) for t, s in zip(
-            tree_leaves(tree), tree_leaves_specs(specs))])
+    meta = _tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                       device="meta"), params)
+    ref = to_reference(meta, cfg)
+    specs = sharding.param_specs(ref)
+    segs = lm.make_segments(cfg)
+
+    def sources(path):
+        """(the tensors of a reference leaf, stacked or not, and where
+        each lives: (container, key))."""
+        if path[0] != "segments":
+            node = params
+            for k in path[:-1]:
+                node = node[k]
+            return [(node, path[-1])], False
+        si, j, rest = path[1], path[2], path[3:]
+        seg = segs[si]
+        out = []
+        for c in range(seg.n_cycles if seg.scanned else 1):
+            node = params["segments"][si][c][j]
+            for k in rest[:-1]:
+                node = node[k]
+            out.append((node, rest[-1]))
+        return out, seg.scanned
+
+    leaves = []
+    paths = [b.path for b in tree_leaves(sharding._map_with_path(
+        lambda path, l: _Path(path), ref))]
+    for path, spec, leaf in zip(paths, tree_leaves_specs(specs),
+                                tree_leaves(ref)):
+        src, stacked = sources(path)
+        ts = [node[k] for node, k in src]
+        shards = []
+        for p, dev in enumerate(mesh.devices):
+            reg = sharding.region(leaf.shape, spec, mesh, p)
+            if stacked:
+                blk = torch.stack([t[reg[1:]].to(dev) for t in ts])
+            else:
+                blk = ts[0][reg].to(dev)
+            shards.append(blk.clone(memory_format=torch.contiguous_format))
+        leaves.append(sharding.Sharded(shards, spec, leaf.shape, mesh))
+        if consume:
+            del ts
+            for node, k in src:
+                node[k] = None
+    return tree_unflatten(ref, leaves)
 
 
 def tree_leaves_specs(specs) -> list:
@@ -198,6 +250,26 @@ def group_view(trees):
         return type(t0)(group_view([t[i] for t in trees])
                         for i in range(len(t0)))
     return PerPos(trees)
+
+
+def group_params(params, group, cfg, shards=None):
+    """The parameters of one model group as its forward takes them
+    (``group_view`` of its positions' port nestings): each leaf of the
+    reference-shaped Sharded tree ``params`` gives each position its
+    block as its consumer takes it (``sharding.consumer_block``).
+    ``shards`` (default each leaf's shards) is a list, per leaf in
+    ``tree_leaves`` order, of the tensors to read, e.g. leaves that
+    require grad."""
+    from repro_torch.parallel import sharding
+    leaves = tree_leaves(params)
+    paths = tree_leaves(sharding._map_with_path(
+        lambda path, leaf: sharding.path_str(path), params))
+    shards = shards or [l.shards for l in leaves]
+    trees = [unstack(tree_unflatten(params, [
+        sharding.consumer_block(l, path, p, s)
+        for l, path, s in zip(leaves, paths, shards)]), cfg)
+        for p in group.positions]
+    return trees[0] if group.size == 1 else group_view(trees)
 
 
 def init_params(cfg, generator: Optional[torch.Generator] = None,

@@ -15,6 +15,10 @@ CPU.
   grow into different spikes, so run on the same draws the port counts
   781 spikes against the reference's 785.  Totals are therefore held to
   ``TOTAL_TOL`` relative, never to equality.
+* batched serving (``examples/torch_serve_batch.py`` against
+  ``examples/serve_batch.py``): the script's served line is the
+  reference's; at fp32 activations its tokens on a 1x2 and a 2x2 mesh
+  are the one-device run's.
 * §X-B shared memory (``examples/torch_shared_memory.py`` against
   ``examples/shared_memory.py``): both run as scripts; every line they
   print but the timing lines is equal (the store semantics, the owner
@@ -40,6 +44,7 @@ from repro_torch.weights import from_reference
 sys.path.insert(0, os.path.join(ROOT, "examples"))
 import neuron_sim as jsim               # noqa: E402
 import torch_neuron_sim as tsim         # noqa: E402
+import torch_serve_batch as tserve     # noqa: E402
 import torch_shared_memory as tshm      # noqa: E402
 
 ULPS = 4            # fp32 units of the update's largest term
@@ -192,6 +197,26 @@ def test_neuron_sim_script_prints_the_reference_tables():
     p_lines, r_lines = port.stdout.splitlines(), ref.stdout.splitlines()
     assert p_lines[0].startswith("simulated 512 neurons x 200 ms: ")
     assert p_lines[1:] == r_lines[1:]       # Fig. 11 and the N=100k line
+
+
+# --- batched serving -------------------------------------------------------
+def test_serve_batch_script_prints_the_reference_line():
+    port = _run_script("torch_serve_batch.py", "--device", "cpu", "--mesh",
+                       "1x2")
+    assert port.returncode == 0, port.stderr[-2000:]
+    ref = run_example("serve_batch.py")
+    assert ref.returncode == 0, ref.stderr[-2000:]
+    assert port.stdout.split(" in ")[0] == ref.stdout.split(" in ")[0] \
+        == "served 12 requests x 16 tokens"
+    assert "on a 1x2 mesh" in port.stdout
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_serve_batch_on_a_mesh_serves_the_one_device_tokens(mesh):
+    one = tserve.main(["--device", "cpu", "--fp32"])
+    got = tserve.main(["--device", "cpu", "--fp32", "--mesh", mesh])
+    assert len(one) == 12 and all(len(t) == 16 for t in one)
+    assert got == one
 
 
 # --- §X-B ------------------------------------------------------------------

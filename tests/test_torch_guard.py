@@ -97,6 +97,20 @@ def test_trainer_cli_and_examples_without_device_raise_without_cuda():
             make()
 
 
+@pytest.mark.parametrize("argv", [
+    ["--engine", "dense", "--model", "2"],
+    ["--engine", "dense", "--devices", "4", "--layout", "auto"],
+    ["--engine", "paged", "--model", "2"],
+    ["--engine", "paged", "--devices", "4", "--layout", "auto"]])
+def test_serve_cli_mesh_without_device_raises_without_cuda(argv):
+    """A mesh's positions lie on the CPU only when the caller asks."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--tiny", "--requests", "2", "--gen", "2"] + argv)
+
+
 def test_chip_smoke_fails_clearly_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")

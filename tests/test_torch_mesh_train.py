@@ -274,8 +274,7 @@ def _mesh_run(arch, mesh, state_dtype):
     c = adam.AdamConfig(state_dtype=state_dtype)
     step = steps.make_train_step(cfg, c, lambda s: LR)
     with use_sharding(mesh):
-        tree = weights.shard_tree(weights.to_reference(_init(cfg), cfg),
-                                  mesh)
+        tree = weights.shard_params(_init(cfg), cfg, mesh)
         _, g = steps.mesh_loss_and_grads(cfg, tree, _batch(cfg, 0))
         grads = [sum_regions(t.shards, t.shape, t.spec, mesh, "cpu")
                  for t in weights.tree_leaves(g)]
@@ -350,8 +349,7 @@ def test_a_batch_that_does_not_split_is_refused():
     mesh = make_test_mesh(2, 2, devices="cpu")
     batch = {k: v[:3] for k, v in _batch(cfg, 0).items()}
     with use_sharding(mesh):
-        tree = weights.shard_tree(weights.to_reference(_init(cfg), cfg),
-                                  mesh)
+        tree = weights.shard_params(_init(cfg), cfg, mesh)
         with pytest.raises(ValueError, match="does not split"):
             steps.mesh_loss_and_grads(cfg, tree, batch)
 
@@ -374,7 +372,7 @@ def test_mesh_loss_matches_the_reference_loss():
                                     device="cpu")
     mesh = make_test_mesh(2, 2, devices="cpu")
     with use_sharding(mesh):
-        tree = weights.shard_tree(weights.to_reference(params, cfg), mesh)
+        tree = weights.shard_params(params, cfg, mesh)
         m, g = steps.mesh_loss_and_grads(cfg, tree, batch)
     assert abs(float(m["loss"]) - float(want)) <= 1e-5 * abs(float(want))
     got = [sum_regions(t.shards, t.shape, t.spec, mesh, "cpu")

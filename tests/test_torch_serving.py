@@ -231,8 +231,8 @@ def test_engine_rejects_unported_features(tiny, flag):
                                   ["--data", "2"],
                                   ["--devices", "2", "--model", "2"]])
 def test_serve_cli_paged_engine_takes_mesh_flags(argv, capsys):
-    """The flags that build a device mesh exit 2 with the dense engine
-    (above) and serve with the paged engine: ``--layout auto`` on the one
+    """The flags that build a device mesh serve with the dense engine
+    (above) and with the paged engine: ``--layout auto`` on the one
     position the CPU has, ``--devices 2`` and ``--data 2`` without a
     model axis to stripe over, and a 1x2 mesh."""
     serve.main(["--tiny", "--device", "cpu", "--engine", "paged",
@@ -252,12 +252,26 @@ def test_serve_cli_paged_engine_takes_mesh_flags(argv, capsys):
                                   ["--prompt-len", "0"],
                                   ["--data", "2"]])
 def test_serve_cli_rejects_unported_flags_with_exit_2(argv, capsys):
-    """Flags that need a device mesh, a chaos plan on a 1-node pool (node
-    0 never fails, as in the reference) and an empty prompt exit 2."""
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--tiny", "--device", "cpu"] + argv)
-    assert e.value.code == 2
-    assert argv[-2] in capsys.readouterr().err
+    """A chaos plan on a 1-node pool (node 0 never fails, as in the
+    reference) and an empty prompt exit 2.  The flags that build a device
+    mesh, which exited 2 here while the dense engine's mesh was not
+    ported, now serve on one: the dense engine on a 1x2 mesh (``--model
+    2``), a 2x1 mesh (``--data 2``), ``--layout auto`` over the CPU's one
+    position and ``--devices 4`` with no mesh asked for."""
+    if argv[-2] in ("--fault-plan", "--prompt-len"):
+        with pytest.raises(SystemExit) as e:
+            serve.main(["--tiny", "--device", "cpu"] + argv)
+        assert e.value.code == 2
+        assert argv[-2] in capsys.readouterr().err
+        return
+    serve.main(["--tiny", "--device", "cpu", "--requests", "2",
+                "--prompt-len", "8", "--gen", "4", "--batch", "2"] + argv)
+    out = capsys.readouterr().out
+    assert "[dense] tiny-100m: served 2 requests, 8 tokens" in out
+    if "--model" in argv or "--data" in argv:
+        assert "[dense] mesh {" in out
+    if "--layout" in argv:
+        assert "[cost-engine]" in out
 
 
 CHAOS_ARGV = ["--tiny", "--engine", "paged", "--model", "3", "--fault-plan",

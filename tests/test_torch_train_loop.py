@@ -246,12 +246,20 @@ def test_loss_falls_over_thirty_steps(tmp_path):
 
 
 def test_mesh_training_is_refused():
-    """MoE on a mesh raises before any state is made, naming the ROADMAP
-    item that holds it."""
+    """MoE on a mesh, which raised here while the sharded MoE was not
+    ported, now trains: grok on a 2x1 mesh (each data group's capacity
+    and load-balance loss) takes its steps to a finite loss.  What is
+    still refused is a model axis that does not divide the heads."""
     from repro_torch.launch.mesh import make_test_mesh
-    with pytest.raises(NotImplementedError, match="item 16"):
+    out = train_loop.run(get_tiny_config("grok-1-314b"), TINY_SHAPE,
+                         mesh=make_test_mesh(2, 1, devices="cpu"),
+                         job=train_loop.TrainJobConfig(steps=2),
+                         device="cpu")
+    assert np.isfinite(out["final_metrics"]["loss"])
+    assert out["final_metrics"]["moe_aux"] > 0
+    with pytest.raises(NotImplementedError, match="does not split"):
         train_loop.run(get_tiny_config("grok-1-314b"), TINY_SHAPE,
-                       mesh=make_test_mesh(2, 1, devices="cpu"),
+                       mesh=make_test_mesh(1, 3, devices="cpu"),
                        device="cpu")
 
 
@@ -289,8 +297,19 @@ def test_train_cli_trains_on_a_mesh(flags, capsys):
     ("rwkv6-1.6b", ["--model", "2"], "item 16"),
     ("tiny-100m", ["--impl", "pallas"], "no backward")])
 def test_train_cli_refuses_what_it_cannot_train(arch, flags, why, capsys):
+    """``--impl pallas`` exits 2: the kernels have no backward.  The
+    "item 16" cases (MoE on a data axis, MLA, RG-LRU and RWKV-6 on a model
+    axis), which exited 2 while the mesh trainer refused them, now
+    train on the mesh to a finite loss."""
+    argv = ["--tiny", "--device", "cpu", "--arch", arch] + flags
+    if why == "item 16":
+        out = train_cli.main(argv + ["--steps", "2", "--seq", "32",
+                                     "--batch", "4"])
+        assert "mesh {" in capsys.readouterr().out
+        assert np.isfinite(out["final_metrics"]["loss"])
+        return
     with pytest.raises(SystemExit) as e:
-        train_cli.main(["--tiny", "--device", "cpu", "--arch", arch] + flags)
+        train_cli.main(argv)
     assert e.value.code == 2
     assert why in capsys.readouterr().err
 
