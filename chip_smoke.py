@@ -36,7 +36,7 @@ steps on the CPU (fp32 moments, and int8 ones at a vocabulary cut to
 16,384), the served model's loss under
 impl="pallas" against impl="blocked" with the kernels' launches (and a
 train step under impl="pallas", which must raise: the kernels have no
-backward), and ``train_loop.run`` at full width (8 of its 28 layers,
+backward), and ``train_loop.run`` at full width (4 of its 28 layers,
 B=4, S=2048, 6 steps) with a checkpoint at step 3, the restart from it
 (steps 3 to 5 must repeat), and again with int8 moments (its final
 checkpoint must restore bit for bit), reporting step time, tokens/s,
@@ -44,7 +44,7 @@ peak memory, a profiled step and the checkpoint times.  Phase 7
 ("mesh") trains on device meshes whose positions all share the one
 card: the mesh trainer at 2 layers on a 2x2 and a 1x2 mesh against the
 one-device trainer (fp32 and int8 moments), ``train_loop.run`` at full
-width, 8 layers, on a 2x2 mesh (6 steps, a checkpoint at step 3) with its step
+width, 4 layers, on a 2x2 mesh (6 steps, a checkpoint at step 3) with its step
 time, peak memory, a profiled step and each position's bytes on the
 wire beside ``core/costs.comm_events``, the step-3 checkpoint restored
 onto a 1x4 and a 4x1 mesh bit for bit and one more step on the 1x4
@@ -63,12 +63,20 @@ trainer for grok-1 (expert-TP, EP, and a data axis against the same mesh
 on the CPU), DeepSeek-V3, recurrentgemma-2b and rwkv6-1.6b against one
 device; the pipeline's backward on four streams against the stages run
 in order; and the serve CLI's dense engine on a 1x2 mesh in a process of
-its own.
+its own.  Phase 9 ("dryrun") holds the dry run (``launch/dryrun.py``, on
+a mesh of meta positions) against the card: phase 7's full-width trainer
+predicted at its config, batch and 2x2 mesh (the wire bytes of each
+collective site equal to the measured step's, the placed parameters and
+moments equal to the predicted arguments less the batch shards, the
+peak and the step time beside the prediction and the H100 roofline),
+and a qwen3-1.7b prefill and decode step on a 1x4 mesh under
+impl="pallas" (each kernel's dry calls equal to its launches).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only-train     # the build and phase 6 alone
     python3 chip_smoke.py --only-mesh      # the build and phase 7 alone
     python3 chip_smoke.py --only-dense-mesh  # the build and phase 8 alone
+    python3 chip_smoke.py --only-dryrun    # phase 7's trainer and phase 9
 
 Needs one CUDA card with 80 GB (the kernels target Hopper, sm_90a;
 DeepSeek's five layers hold 53.3 GB of bf16 parameters), the CUDA
@@ -4072,8 +4080,9 @@ LOSS_TOL = 1e-5
 # qwen3-1.7b's 28 layers: at 28 the two phases took 262 and 248 s of a
 # script that ran 960 to 1,120 s on an H100 host and past its 1,200 s
 # limit on another (the steps are host-bound, and the checkpoints'
-# writes and restores scale with the layers)
-TRAIN_DEPTH = 8
+# writes and restores scale with the layers); at 8, 198 and 173 s of a
+# 953 s run on an H100 host 1.4x slower in every phase (with phase 9)
+TRAIN_DEPTH = 4
 # the trainer: fp32 parameters, bf16 activations, remat; 6 steps with a
 # checkpoint at step 3 (8 and 4 until phase 7 came: the cut, and the
 # step-6 checkpoints that nothing reads not being written, give phase 7
@@ -4809,6 +4818,12 @@ def mesh_trainer(ops, problems, tmp):
     step = steps.make_train_step(cfg, c, lambda s: R["peak_lr"])
     batch = _on(_train_batches(cfg, R["batch"], R["seq"], 1)[0], DEVICE)
     params, opt = out.pop("params"), out.pop("opt_state")
+    # for phase 9: the placed state (the step below consumes the moments)
+    from repro_torch.launch.dryrun import position_bytes
+    rec["state_bytes"] = sum(position_bytes((params, opt), p)
+                             for p in range(len(mesh.devices)))
+    rec["state_tensors"] = sum(
+        len(l.shards) for l in _leaves((params, opt)) if hasattr(l, "shards"))
     col.WIRE.clear()
 
     def one():
@@ -4821,6 +4836,7 @@ def mesh_trainer(ops, problems, tmp):
     rec["profile"] = _profile(one, cpu=False)
     rec["profile_s"] = time.time() - t1
     rec["wire"] = _mesh_wire(cfg, dict(col.WIRE), len(mesh.devices))
+    rec["wire_sites"] = dict(col.WIRE)     # phase 9: the step's by site
     del params, opt, out, batch
     torch.cuda.empty_cache()
     losses = rec["losses"]
@@ -5585,6 +5601,179 @@ def dense_mesh_phase(ops):
     return recs, launches, lines
 
 
+# ---------------------------------------------------------------------------
+# phase 9 — the dry run (``launch/dryrun.py``) held against the card
+# ---------------------------------------------------------------------------
+# (b): qwen3-1.7b at full width under impl="pallas" on a 1x4 mesh: a
+# prefill of 64 tokens into caches of 74 slots, which do not split over 4
+# (every position keeps the whole cache: the decode kernel's path), and
+# one decode step
+DRY_SERVE = dict(arch="qwen3-1.7b", data=1, model=4, batch=4, prompt_len=64,
+                 max_len=74)
+
+
+def dry_trainer(trainer, problems):
+    """(a): the dry run of phase 7's trainer (its config, B, S and 2x2
+    mesh, on meta positions, every data group at full depth) against the
+    measured step: the wire bytes
+    by site equal, the placed state equal to the positions' predicted
+    arguments less their batch shards (within the allocator's 512 bytes
+    a block), the peak and the step time beside the prediction and the
+    H100 roofline.  Returns (record, line)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    R = MESH_RUN
+    cfg = _trainer_cfg()
+    shape = ShapeConfig("train", R["seq"], R["batch"], "train")
+    mesh = make_test_mesh(R["data"], R["model"], devices="meta")
+    n = len(mesh.devices)
+    t1 = time.time()
+    # every group at full depth: the whole mesh's peak, which one card
+    # holding all the positions is held against
+    pred = dryrun.dry_step(cfg, shape, mesh, symmetry=False)
+    dry_s = time.time() - t1
+    got, want = trainer["wire_sites"], pred["wire_bytes_by_site"]
+    sites = sorted(set(got) | set(want))
+    off = {k: (got.get(k, 0), want.get(k, 0)) for k in sites
+           if got.get(k, 0) != want.get(k, 0)}
+    if off or not sites:
+        problems.append(f"dry run: wire bytes by site differ {off}")
+    # the batch shard a position: tokens and labels int32, mask fp32
+    batch_pos = R["batch"] // R["data"] * R["seq"] * 12
+    state_pred = n * (pred["memory"]["argument_size_in_bytes"] - batch_pos)
+    slack = 512 * trainer["state_tensors"]
+    if not abs(trainer["state_bytes"] - state_pred) <= slack:
+        problems.append(f"dry run: placed state {trainer['state_bytes']} B, "
+                        f"predicted {state_pred} B")
+    peak_pred = pred["memory"]["peak_bytes_mesh"]
+    rl = roofline.analyze(cfg, shape, f"{R['data']}x{R['model']}", n,
+                          R["model"], collectives=pred["collectives"],
+                          cost_analysis=pred["cost_analysis"])
+    t_model = rl.model_flops / (n * roofline.H100.peak_flops_bf16)
+    rec = dict(predicted=pred, dry_s=dry_s, wire_sites=got,
+               state_bytes=trainer["state_bytes"], state_predicted=state_pred,
+               peak_bytes=trainer["peak_gb"] * 1e9, peak_predicted=peak_pred,
+               peak_ratio=trainer["peak_gb"] * 1e9 / peak_pred,
+               step_s=trainer["step_s"], roofline=rl.to_dict(),
+               measured_fraction=rl.step_time_bound / trainer["step_s"],
+               model_fraction=t_model / trainer["step_s"])
+    line = (f"(a) {TRAIN_ARCH} trainer ({cfg.n_layers} layers, B="
+            f"{R['batch']}, S={R['seq']}, {R['data']}x{R['model']}) dry run "
+            f"in {dry_s:.1f} s ({pred['symmetry']}): wire by site "
+            + ("equal at all " if not off else "DIFFERENT at ")
+            + f"{len(sites)} sites ({sum(got.values()) / 1e9:.6f} GB a "
+            f"step); placed state {trainer['state_bytes']} B, predicted "
+            f"{state_pred} B ({n} x (argument_size_in_bytes "
+            f"{pred['memory']['argument_size_in_bytes']} - batch shard "
+            f"{batch_pos})); peak {rec['peak_bytes'] / 1e9:.3f} GB measured "
+            f"(the run's max_memory_allocated), {peak_pred / 1e9:.3f} GB "
+            f"predicted (ratio {rec['peak_ratio']:.3f}); a position on a "
+            f"card of its own: arguments "
+            f"{pred['memory']['argument_size_in_bytes'] / 1e9:.3f} + temp "
+            f"{pred['memory']['temp_size_in_bytes'] / 1e9:.3f} GB predicted "
+            f"(not measured: one card); FLOPs counted "
+            f"{pred['cost_analysis']['flops']:.6g} (model "
+            f"{rl.model_flops:.6g}); H100 roofline ({n} chips): compute "
+            f"{rl.t_compute:.4f} s, memory {rl.t_memory:.4f} s, collective "
+            f"{rl.t_collective:.4f} s, bound {rl.step_time_bound:.4f} s "
+            f"({rl.dominant}); measured step {trainer['step_s']:.4f} s on "
+            f"one card holding all {n} positions: measured roofline "
+            f"fraction {rec['measured_fraction']:.4f} (bound / step), "
+            f"model FLOPs {rec['model_fraction']:.4f}; {gpu_info()}")
+    return rec, line
+
+
+def dry_serve(ops, problems):
+    """(b): the kernels' dry calls of a prefill and of a decode step on
+    a meta 1x4 mesh (DRY_SERVE) against the launches of the same prefill
+    and step on the card.  Returns (record, {path: launches}, line)."""
+    from repro_torch import steps, weights
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import use_sharding
+    D = DRY_SERVE
+    cfg, params = full_width_params(D["arch"])
+    mesh = make_test_mesh(D["data"], D["model"])
+    with use_sharding(mesh):
+        placed = weights.shard_params(params, cfg, mesh, consume=True)
+    del params
+    tok = torch.tensor(np.random.default_rng(SEED).integers(
+        2, cfg.vocab_size, (D["batch"], D["prompt_len"])), dtype=torch.int32,
+        device=DEVICE)
+    prefill = steps.make_prefill_step(cfg, D["max_len"], mesh=mesh)
+    serve = steps.make_serve_step(cfg, mesh=mesh)
+    with torch.no_grad(), use_sharding(mesh):
+        ops.reset_launches()
+        lg, caches = prefill(placed, tok)
+        torch.cuda.synchronize()
+        got = {"prefill": _launches(ops)}
+        ops.reset_launches()
+        _, lg, caches = serve(placed, lg.argmax(-1).to(torch.int32), caches,
+                              D["prompt_len"])
+        torch.cuda.synchronize()
+        got["decode"] = _launches(ops)
+    finite = bool(torch.isfinite(lg).all())
+    del placed, caches, lg
+    torch.cuda.empty_cache()
+    meta = make_test_mesh(D["data"], D["model"], devices="meta")
+    t1 = time.time()
+    want = {"prefill": dryrun.dry_step(cfg, ShapeConfig(
+                "prefill", D["prompt_len"], D["batch"], "prefill"),
+                meta)["kernel_dry_calls"],
+            "decode": dryrun.dry_step(cfg, ShapeConfig(
+                "decode", D["max_len"], D["batch"], "decode"),
+                meta)["kernel_dry_calls"]}
+    dry_s = time.time() - t1
+    for what in ("prefill", "decode"):
+        if got[what] != want[what]:
+            problems.append(f"dry run: {what} launches {got[what]}, dry "
+                            f"calls {want[what]}")
+    if not got["decode"]["decode_attention"]:
+        problems.append("dry run: the decode step launched no "
+                        "decode_attention")
+    if not finite:
+        problems.append("dry run: the decode step's logits are not finite")
+    line = (f"(b) {D['arch']} (impl=pallas, {cfg.n_layers} layers, "
+            f"{D['data']}x{D['model']}, B={D['batch']}, prompt "
+            f"{D['prompt_len']}, caches of {D['max_len']} slots): launches "
+            f"on the card = dry calls on the meta mesh for the prefill "
+            f"{got['prefill']} and the decode step {got['decode']}"
+            + ("" if got == want else f" (dry calls {want})")
+            + f"; the dry runs {dry_s:.1f} s")
+    return dict(launches=got, dry_calls=want, dry_s=dry_s), \
+        {f"dry run check: {D['arch']} 1x4": {
+            k: got["prefill"][k] + got["decode"][k] for k in got["decode"]}}, \
+        line
+
+
+def dryrun_phase(ops, trainer):
+    """Phase 9: the dry run against phase 7's trainer (``trainer``, its
+    record) and against a served prefill and decode step.  Returns
+    (records, {path: launches}, lines)."""
+    t0 = time.time()
+    recs, lines, problems, clock = {}, [], [], {}
+    t1 = time.time()
+    recs["trainer"], line = dry_trainer(trainer, problems)
+    clock["trainer"] = time.time() - t1
+    lines.append(line)
+    t1 = time.time()
+    recs["serve"], launches, line = dry_serve(ops, problems)
+    clock["serve"] = time.time() - t1
+    lines.append(line)
+    recs["seconds"] = time.time() - t0
+    recs["section_s"] = clock
+    lines.append(f"phase 9 took {recs['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in clock.items()) + ")")
+    if problems:
+        for line in lines:
+            print(f"[dryrun] {line}")
+        fail("phase 9: " + "; ".join(problems))
+    return recs, launches, lines
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -5641,6 +5830,22 @@ def main():
             dict(gpu=info, mesh=mesh, launches=launches), indent=2,
             default=str))
         print(gpu_info())
+        return
+    if sys.argv[1:] == ["--only-dryrun"]:  # phase 7's trainer, phase 9
+        import shutil
+        import tempfile
+        tmp = tempfile.mkdtemp(prefix="mesh_ckpt_")
+        try:
+            trainer = mesh_trainer(ops, [], tmp)[0]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        dry, launches, dry_lines = dryrun_phase(ops, trainer)
+        for line in dry_lines:
+            print(f"[dryrun] {line}")
+        OUT.mkdir(exist_ok=True)
+        (OUT / "chip_smoke_dryrun.json").write_text(json.dumps(
+            dict(gpu=info, dryrun=dry, launches=launches), indent=2,
+            default=str))
         return
     if sys.argv[1:] == ["--only-dense-mesh"]:  # phase 8 alone, no verdict
         dmesh, launches, dmesh_lines = dense_mesh_phase(ops)
@@ -5829,6 +6034,12 @@ def main():
         print(f"[dense-mesh] {line}")
     lap("phase 8")
 
+    dry, dry_launches, dry_lines = dryrun_phase(ops, mesh["trainer"])
+    path_launches.update(dry_launches)
+    for line in dry_lines:
+        print(f"[dryrun] {line}")
+    lap("phase 9")
+
     for name, rec in recs.items():
         rec["launches"] = sum(l[w] for l in path_launches.values()
                               for w, k in ops.KERNEL_OF.items() if k == name)
@@ -5848,7 +6059,7 @@ def main():
              flash_local=flash_local,
              path_launches=path_launches, serve=serve_stats, parity=parity,
              paper=paper, train=train, mesh=mesh, dense_mesh=dmesh,
-             section_s=laps),
+             dryrun=dry, section_s=laps),
         indent=2, default=str))
     print(f"[done] {time.time() - t0:.1f} s after the build started ("
           + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ")")

@@ -7,7 +7,8 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      cell_is_runnable)
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
@@ -22,6 +23,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     "tiny-100m": "repro_torch.configs.tiny_100m",
 }
+
+ASSIGNED_ARCHS: List[str] = [a for a in _ARCH_MODULES if a != "tiny-100m"]
 
 
 def _module(name: str):
@@ -44,5 +47,16 @@ def list_archs() -> List[str]:
     return list(_ARCH_MODULES)
 
 
-__all__ = ["ModelConfig", "ShapeConfig", "get_config", "get_tiny_config",
-           "list_archs"]
+def runnable_cells():
+    """Yield (arch_name, shape) for every runnable dry-run cell."""
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            ok, _ = cell_is_runnable(cfg, shape)
+            if ok:
+                yield arch, shape.name
+
+
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "get_config",
+           "get_tiny_config", "list_archs", "runnable_cells",
+           "cell_is_runnable", "ASSIGNED_ARCHS"]

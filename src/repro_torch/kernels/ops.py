@@ -8,6 +8,13 @@ wrapper raises.  There is no fallback from the kernel to the plain version.
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` (plain
 calls on CPU tensors do not count), so a run can show that its main path
 went through the kernels.
+
+A ``meta`` tensor (the dry run, ``launch/dryrun.py``) runs the same
+checks as a CUDA tensor and returns empty outputs of the kernel's shapes
+and dtypes, counted in ``<wrapper>.dry_calls`` and never in
+``launches``: the counterpart of a Pallas custom call in the reference's
+lowered program, whose work its cost analysis leaves out, as the dry
+run's FLOP count does.
 """
 from __future__ import annotations
 
@@ -80,9 +87,10 @@ def _check(name, device, tensors, float_names, int_names=(), fp32_names=(),
                     "like the reference's Pallas calls, have no backward; "
                     "train with impl='blocked' (or run under "
                     "torch.no_grad())")
-    if device.type != "cuda":
+    if device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: no kernel for device {device}")
-    build.check_device(device)
+    if device.type == "cuda":
+        build.check_device(device)
     dtype = tensors[float_names[0]].dtype if float_names else None
     if float_names and dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: float32 or bfloat16 only, got {dtype}")
@@ -95,13 +103,20 @@ def _check(name, device, tensors, float_names, int_names=(), fp32_names=(),
                             f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-        if t.data_ptr() % 16:
+        if device.type == "cuda" and t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
         want = dtype if key in float_names else \
             torch.float32 if key in fp32_names else torch.int32
         if key in float_names + tuple(int_names) + tuple(fp32_names) \
                 and t.dtype != want:
             raise TypeError(f"{name}: {key} is {t.dtype}, expected {want}")
+
+
+def _dry(fn, out):
+    """A meta call's outputs (the kernel's shapes, no launch), counted in
+    ``fn.dry_calls``."""
+    fn.dry_calls += 1
+    return out
 
 
 def _launch(name, device, *args):
@@ -132,6 +147,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
                          "multiple of 16 and at most 256")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} must be >= 1")
+    if q.device.type == "meta":
+        return _dry(flash_attention, torch.empty_like(q))
     scale = hd ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
@@ -228,6 +245,11 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
                          "multiple of 16 and at most 256")
     scale = hd ** -0.5 if scale is None else scale
     G = H // Kv
+    if q.device.type == "meta":
+        m = torch.empty((B, Kv, G), dtype=torch.float32, device="meta")
+        return _dry(paged_decode_attention, (
+            torch.empty((B, Kv, G, hd), dtype=torch.float32, device="meta"),
+            m, torch.empty_like(m)) if partials else torch.empty_like(q))
     ns, tps, scratch = _decode_launch_args(q, Kv, nmax * ps)
     if partials:
         out = torch.empty((B, Kv, G, hd), dtype=torch.float32,
@@ -274,6 +296,8 @@ def decode_attention(q, k, v, pos, *, scale=None, softcap=None):
     if not 0 <= pos < T:
         raise ValueError(f"decode_attention: pos {pos} outside the cache "
                          f"of {T} slots")
+    if q.device.type == "meta":
+        return _dry(decode_attention, torch.empty_like(q))
     scale = hd ** -0.5 if scale is None else scale
     ns, tps, scratch = _decode_launch_args(q, Kv, pos + 1)
     out = torch.empty_like(q)
@@ -379,6 +403,8 @@ def moe_gemm(x, w, *, out_dtype=None):
         raise TypeError(f"moe_gemm: out_dtype float32 or bfloat16 only, "
                         f"got {out_dtype}")
     out = torch.empty((E, C, F), dtype=out_dtype, device=x.device)
+    if x.device.type == "meta":
+        return _dry(moe_gemm, out)
     bf16 = torch.bfloat16
     _moe_launch(x, w, out, _moe_plan(x.device, E, C, D, F, x.dtype == bf16,
                                      w.dtype == bf16))
@@ -423,6 +449,8 @@ def rmsnorm(x, scale, *, eps=1e-6):
            fp32_names=("scale",))
     D = _rms_width("rmsnorm", x, scale)
     out = torch.empty_like(x)
+    if x.device.type == "meta":
+        return _dry(rmsnorm, out)
     _launch("rmsnorm", x.device, x.data_ptr(), scale.data_ptr(),
             out.data_ptr(), x.numel() // D, D, eps,
             int(x.dtype == torch.bfloat16))
@@ -444,6 +472,8 @@ def add_rmsnorm(x, delta, scale, *, eps=1e-6):
                          f"{tuple(delta.shape)} differ")
     D = _rms_width("add_rmsnorm", x, scale)
     s, out = torch.empty_like(x), torch.empty_like(x)
+    if x.device.type == "meta":
+        return _dry(add_rmsnorm, (s, out))
     _launch("add_rmsnorm", x.device, x.data_ptr(), delta.data_ptr(),
             scale.data_ptr(), s.data_ptr(), out.data_ptr(), x.numel() // D,
             D, eps, int(x.dtype == torch.bfloat16))
@@ -465,6 +495,8 @@ def qk_rmsnorm(q, k, q_scale, k_scale, *, eps=1e-6):
                          f"{tuple(k.shape)} differ in width")
     D = _rms_width("qk_rmsnorm", q, q_scale, k_scale)
     qo, ko = torch.empty_like(q), torch.empty_like(k)
+    if q.device.type == "meta":
+        return _dry(qk_rmsnorm, (qo, ko))
     _launch("qk_rmsnorm", q.device, q.data_ptr(), q_scale.data_ptr(),
             qo.data_ptr(), q.numel() // D, k.data_ptr(), k_scale.data_ptr(),
             ko.data_ptr(), k.numel() // D, D, eps,
@@ -529,6 +561,8 @@ def rwkv6_scan(r, k, v, lw, u, S0):
                          f"at most {RWKV_MAX_HEAD}")
     o = torch.empty((B, S, H, V), dtype=torch.float32, device=r.device)
     S_T = torch.empty_like(S0)
+    if r.device.type == "meta":
+        return _dry(rwkv6_scan, (o, S_T))
     _launch("rwkv6_scan", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
             lw.data_ptr(), u.data_ptr(), S0.data_ptr(), o.data_ptr(),
             S_T.data_ptr(), B, S, H, K, V, int(r.dtype == torch.bfloat16),
@@ -550,6 +584,8 @@ def rglru_scan(a, b, h0):
                          f"{tuple(b.shape)}, h0 {tuple(h0.shape)}")
     hs = torch.empty_like(a)
     hT = torch.empty_like(h0)
+    if a.device.type == "meta":
+        return _dry(rglru_scan, (hs, hT))
     _launch("rglru_scan", a.device, a.data_ptr(), b.data_ptr(),
             h0.data_ptr(), hs.data_ptr(), hT.data_ptr(), B, S, W)
     rglru_scan.launches += 1
@@ -571,4 +607,15 @@ def reset_launches() -> None:
     paged_decode_attention.masked_launches = 0
 
 
+def reset_dry_calls() -> None:
+    for fn in WRAPPERS:
+        fn.dry_calls = 0
+
+
+def dry_calls() -> dict:
+    """Each wrapper's meta calls since ``reset_dry_calls``."""
+    return {fn.__name__: fn.dry_calls for fn in WRAPPERS}
+
+
 reset_launches()
+reset_dry_calls()

@@ -85,6 +85,17 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
                       tuple(pool[i % len(pool)] for i in range(n_pos)))
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices="meta") -> DeviceMesh:
+    """The reference's production meshes: 16 x 16 ("data", "model"), or
+    2 x 16 x 16 ("pod", "data", "model") with ``multi_pod``, on
+    ``devices`` (``meta`` by default: the dry run's shapes, no
+    storage)."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), devices)
+    return make_mesh((16, 16), ("data", "model"), devices)
+
+
 def make_test_mesh(data: int = 2, model: int = 4, pod: int = 1,
                    devices=None) -> DeviceMesh:
     """A ``(data, model)`` mesh (``(pod, data, model)`` when ``pod > 1``)

@@ -93,10 +93,12 @@ def _qkv_tp(p, cfg, x, angles, whole_q: bool = False):
     split on heads (H/tp a position), k and v all-gathered to every kv
     head on every position, so that any kv-head count works; ``angles``
     a PerPos of the full sequence's.  ``whole_q`` gathers q to every
-    head too (a split-T decode step)."""
+    head too (a split-T decode step, or a head count the group does not
+    divide: ``_apply_tp``)."""
     from repro_torch.parallel import collectives as col
     qf, kf, vf = col.column_parallel(x, [p["wq"], p["wk"], p["wv"]])
     hd, kv = cfg.head_dim, cfg.n_kv_heads
+    whole_q = whole_q or cfg.n_heads % x.group.size != 0
     kf = col.full_cols(kf, kv * hd, "kv")   # column blocks: every head
     vf = col.full_cols(vf, kv * hd, "kv")
     if whole_q:
@@ -756,17 +758,31 @@ def _apply_tp(p, cfg, x, *, kind: str, angles):
     each position's heads through the core (ref, blocked, or the flash
     kernel under impl "pallas", which has no backward) against the kv
     heads they read, then ``row_parallel`` of wo back to the residual
-    stream's layout.  Returns (out, (k, v): Shards of every kv head of
+    stream's layout.  A head count the group does not divide (40 heads
+    over 16 positions) takes q whole on every position, and position m
+    computes the heads that cover its row block of wo (m * H * hd / n
+    onwards), a head shared with a neighbour on both, and keeps that
+    block's columns.  Returns (out, (k, v): Shards of every kv head of
     the whole sequence)."""
     from repro_torch.parallel import collectives as col
     q, k, v = _qkv_tp(p, cfg, x, angles)
     window = cfg.sliding_window if kind == "local" else None
     kw = dict(causal=cfg.causal, window=window, scale=_scale(cfg),
               softcap=cfg.attn_softcap)
+    hd, n = cfg.head_dim, x.group.size
 
     def core(m, q_m, k_m, v_m):
+        cols = None
+        if cfg.n_heads % n:
+            c = cfg.n_heads * hd // n          # wo's rows a position
+            h0, h1 = m * c // hd, -(-(m + 1) * c // hd)
+            heads, cols = slice(h0, h1), slice(m * c - h0 * hd,
+                                               (m + 1) * c - h0 * hd)
+            q_m = q_m[:, :, heads]
+        else:
+            hl = q_m.shape[2]
+            heads = slice(m * hl, (m + 1) * hl)
         hl = q_m.shape[2]
-        heads = slice(m * hl, (m + 1) * hl)
         kh = expand_kv(k_m, cfg.n_heads)[:, :, heads]
         vh = expand_kv(v_m, cfg.n_heads)[:, :, heads]
         if cfg.impl == "ref":
@@ -780,7 +796,8 @@ def _apply_tp(p, cfg, x, *, kind: str, angles):
                                      vh.contiguous(), **kw)
         else:
             raise ValueError(cfg.impl)
-        return o.reshape(*o.shape[:2], hl * cfg.head_dim)
+        o = o.reshape(*o.shape[:2], hl * hd)
+        return o if cols is None else o[..., cols]
     o = col.local(core, q, k, v, index=True)
     return col.row_parallel(o, p["wo"]), (k, v)
 

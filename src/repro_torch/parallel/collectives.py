@@ -30,15 +30,55 @@ reduce-scattering them, as GSPMD's partitioned dot does.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 # bytes received by every position together, by collective; the caller
 # zeroes it (``WIRE.clear()``) and reads it
 WIRE: Counter = Counter()
+
+
+class Event(NamedTuple):
+    """One collective as the reference's HLO would hold it: ``op`` its
+    HLO name, each of ``group_size`` positions sending ``operand_bytes``
+    and receiving ``result_bytes``; a point-to-point transfer is a
+    ``collective-permute`` of one sender (``group_size`` 1).  ``site`` is
+    its ``WIRE`` key."""
+    site: str
+    op: str
+    group_size: int
+    operand_bytes: int
+    result_bytes: int
+
+
+# every collective in call order; the caller clears it with WIRE
+EVENTS: List[Event] = []
+_HLO = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
+        "all_reduce": "all-reduce"}
+_in_collective = 0      # > 0 inside a call recorded as one Event
+
+
+@contextlib.contextmanager
+def _collective(site, kind, group_size, operand_bytes, result_bytes):
+    """Record one Event for the collective called inside, whose own
+    forward sends then record none."""
+    global _in_collective
+    if group_size > 1:
+        EVENTS.append(Event(f"{site} {kind}", _HLO[kind], group_size,
+                            operand_bytes, result_bytes))
+    _in_collective += 1
+    try:
+        yield
+    finally:
+        _in_collective -= 1
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
 
 _TRANSPOSE = {"all_gather": "reduce_scatter", "reduce_scatter": "all_gather",
               "all_reduce": "all_reduce", "broadcast": "reduce",
@@ -79,25 +119,36 @@ class PerPos(tuple):
     constant placed on each device): ``local`` indexes it by position."""
 
 
+def _count(key: str, x, in_collective: bool = False):
+    n = _nbytes(x)
+    WIRE[key] += n
+    if not in_collective:
+        EVENTS.append(Event(key, "collective-permute", 1, n, n))
+
+
 class _Send(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, device, site, kind):
         ctx.src, ctx.site, ctx.kind = x.device, site, kind
-        WIRE[f"{site} {kind}"] += x.numel() * x.element_size()
+        _count(f"{site} {kind}", x, _in_collective > 0)
         y = x.to(device)
         return y.view_as(y) if y is x else y
 
     @staticmethod
     def backward(ctx, g):
-        WIRE[f"{ctx.site} {_TRANSPOSE[ctx.kind]}"] += \
-            g.numel() * g.element_size()
+        _count(f"{ctx.site} {_TRANSPOSE[ctx.kind]}", g)
         return g.to(ctx.src), None, None, None
 
 
 def send(x, device, site: str, kind: str):
     """``x`` from one position to another's ``device``, its bytes counted
-    under ``site`` and ``kind`` (the backward's under the transpose)."""
-    return _Send.apply(x, device, site, kind)
+    under ``site`` and ``kind`` (the backward's under the transpose); a
+    tensor that needs no gradient is copied without the autograd
+    node."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Send.apply(x, device, site, kind)
+    _count(f"{site} {kind}", x, _in_collective > 0)
+    return x.to(device)
 
 
 def at(tree, m: int):
@@ -135,10 +186,12 @@ def all_gather(xs: Shards, dim: int, site: str) -> Shards:
     """Every position gets the concatenation along ``dim`` of the group's
     blocks, in group order."""
     g = xs.group
-    out = [torch.cat([x if q == p else send(x, g.devices[p], site,
-                                            "all_gather")
-                      for q, x in enumerate(xs)], dim)
-           for p in range(g.size)]
+    with _collective(site, "all_gather", g.size, _nbytes(xs[0]),
+                     sum(_nbytes(x) for x in xs)):
+        out = [torch.cat([x if q == p else send(x, g.devices[p], site,
+                                                "all_gather")
+                          for q, x in enumerate(xs)], dim)
+               for p in range(g.size)]
     return Shards(out, g, None)
 
 
@@ -148,14 +201,16 @@ def reduce_scatter(parts: Sequence[torch.Tensor], group: Group, dim: int,
     of every position's p-th 1/size chunk along ``dim``."""
     n = group.size
     out = []
-    for p in range(n):
-        acc = None
-        for q, t in enumerate(parts):
-            c = t.chunk(n, dim)[p]
-            c = c if q == p else send(c, group.devices[p], site,
-                                      "reduce_scatter")
-            acc = c if acc is None else acc + c
-        out.append(acc)
+    with _collective(site, "reduce_scatter", n, _nbytes(parts[0]),
+                     _nbytes(parts[0].chunk(n, dim)[0])):
+        for p in range(n):
+            acc = None
+            for q, t in enumerate(parts):
+                c = t.chunk(n, dim)[p]
+                c = c if q == p else send(c, group.devices[p], site,
+                                          "reduce_scatter")
+                acc = c if acc is None else acc + c
+            out.append(acc)
     return Shards(out, group, dim % parts[0].ndim)
 
 
@@ -175,9 +230,11 @@ def all_reduce(parts: Sequence[torch.Tensor], group: Group, site: str,
                op: str = "sum") -> "Shards":
     """The sum (or max) of the group's tensors, in group order, on every
     position: reduced on the root, then sent back to each position."""
-    acc = all_reduce_to_root(parts, group, site, op)
-    return Shards([acc if p == 0 else send(acc, d, site, "all_reduce")
-                   for p, d in enumerate(group.devices)], group, None)
+    with _collective(site, "all_reduce", group.size, _nbytes(parts[0]),
+                     _nbytes(parts[0])):
+        acc = all_reduce_to_root(parts, group, site, op)
+        return Shards([acc if p == 0 else send(acc, d, site, "all_reduce")
+                       for p, d in enumerate(group.devices)], group, None)
 
 
 def seq_splits(S: int, group: Group) -> bool:

@@ -9,35 +9,44 @@ plain callables and the pools (and the speculative history rows) are
 updated in place.  The train step runs on the current sharding
 environment's mesh, the dense prefill and serve steps on the mesh they
 are given (each data group's rows on its model group, the caches
-Sharded by ``sharding.cache_specs``).
+Sharded by ``sharding.cache_specs``).  ``make_state_structs``,
+``make_batch_struct`` and ``make_decode_structs`` give a step's
+arguments on a ``meta`` mesh (the dry run's, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 
 from repro_torch import weights
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, lm, mla as mla_mod
+from repro_torch.models import attention, lm, mla as mla_mod, modules as nn
 from repro_torch.optim import adam as adam_lib
 from repro_torch.parallel import collectives as col
-from repro_torch.parallel.sharding import (Sharded, _axis_size, cache_specs,
-                                           current_env, use_sharding)
-
+from repro_torch.parallel.sharding import (Sharded, _axis_size,
+                                           cache_specs, current_env, shard,
+                                           use_sharding)
 
 def check_mesh(cfg: ModelConfig, mesh, env=None):
     """Refuse a model axis that does not divide what it splits, as the
-    reference's ``shard_map`` specs do: the heads (attention, MLA and
-    RWKV-6), the FFN width, the RG-LRU lanes, and each expert's FFN width
-    under expert-TP or the expert count under EP (``env``'s rules)."""
+    reference's ``shard_map`` specs do: the heads of MLA and RWKV-6, the
+    attention's q columns (a head count it does not divide is split by
+    columns, ``attention._apply_tp``), the FFN width, the RG-LRU lanes,
+    and each expert's FFN width under expert-TP or the expert count
+    under EP (``env``'s rules)."""
     if mesh is None:
         return
     tp = mesh.shape.get("model", 1)
     if tp == 1:
         return
     kinds = set(cfg.layer_kinds)
-    need = [("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)]
+    need = [("d_ff", cfg.d_ff)]
+    if kinds & {"mla", "rwkv6"}:
+        need.append(("n_heads", cfg.n_heads))
+    if kinds & {"attn", "local"}:
+        need.append(("n_heads * head_dim", cfg.n_heads * cfg.head_dim))
     if "rglru" in kinds:
         need.append(("lru_width", cfg.lru_width or cfg.d_model))
     if cfg.moe is not None:
@@ -72,7 +81,8 @@ def _group_batch(batch, specs, n_groups, g, device):
     return out
 
 
-def mesh_loss_and_grads(cfg: ModelConfig, params, batch):
+def mesh_loss_and_grads(cfg: ModelConfig, params, batch,
+                        groups_run: Optional[int] = None):
     """The loss of a batch on the current mesh and each leaf's gradient:
     every data group in turn (one group's activations alive at a time)
     runs its rows' forward and backward on its model group.  Its share
@@ -85,7 +95,12 @@ def mesh_loss_and_grads(cfg: ModelConfig, params, batch):
     stored over the data axes (the MoE's "fsdp") is gathered for each
     group and its gradient comes back to every position holding a block
     of it.  Returns (metrics, gradients: a tree of partial Sharded
-    leaves, each position's share)."""
+    leaves, each position's share).
+
+    ``groups_run`` (at least 1) runs only the first that many data
+    groups, as the dry run does (``launch/dryrun.py``: every group has
+    the same shapes): the metrics are then theirs, and a position none
+    of them reached has no gradient (None in its leaves' shards)."""
     env = current_env()
     mesh = env.mesh
     groups = col.model_groups(mesh)
@@ -106,7 +121,7 @@ def mesh_loss_and_grads(cfg: ModelConfig, params, batch):
     coef = cfg.moe.aux_loss_coef if cfg.moe is not None else 0.0
     grads = [None] * len(flat)
     tot = {}
-    for g, group in enumerate(groups):
+    for g, group in enumerate(groups[:groups_run]):
         rows = _group_batch(batch, specs, len(groups), g, group.root)
         with torch.enable_grad():
             view = weights.group_params(params, group, cfg, mine)
@@ -124,7 +139,7 @@ def mesh_loss_and_grads(cfg: ModelConfig, params, batch):
         for k, v in out.items():
             v = v.detach().to(root)
             tot[k] = v if k not in tot else tot[k] + v
-        del view, out, gs
+        del view, out, gs, obj, v
     ce = tot["tot"] / torch.clamp(cnt, min=1.0)
     aux = tot["aux"] / len(groups)
     metrics = {"ce": ce, "moe_aux": aux}
@@ -136,10 +151,24 @@ def mesh_loss_and_grads(cfg: ModelConfig, params, batch):
     out = []
     for i, l in enumerate(leaves):
         gi = grads[i * n_pos:(i + 1) * n_pos]
-        out.append(Sharded([torch.zeros_like(l.shards[p]) if t is None
-                            else t for p, t in enumerate(gi)],
+        out.append(Sharded([torch.zeros_like(l.shards[p])
+                            if t is None and groups_run is None else t
+                            for p, t in enumerate(gi)],
                            l.spec, l.shape, mesh, partial=True))
     return metrics, weights.tree_unflatten(params, out)
+
+
+def apply_update(params, opt_state, grads, metrics,
+                 adam_cfg: adam_lib.AdamConfig, schedule=None):
+    """The optimizer's half of a mesh train step: ``adam.update`` (the
+    ZeRO-1 step) of the gradients of ``mesh_loss_and_grads`` at ``lr =
+    schedule(opt_state.step)``; (params, opt_state, metrics)."""
+    lr = (schedule or (lambda s: 3e-4))(opt_state.step)
+    new, opt_state2, om = adam_lib.update(grads, opt_state, params, lr=lr,
+                                          cfg=adam_cfg)
+    metrics.update(om)
+    metrics["lr"] = lr
+    return new, opt_state2, metrics
 
 
 def make_train_step(cfg: ModelConfig, adam_cfg: adam_lib.AdamConfig,
@@ -164,12 +193,8 @@ def make_train_step(cfg: ModelConfig, adam_cfg: adam_lib.AdamConfig,
 
     def mesh_step(params, opt_state, batch):
         metrics, grads = mesh_loss_and_grads(cfg, params, batch)
-        lr = schedule(opt_state.step)
-        new, opt_state2, om = adam_lib.update(grads, opt_state, params,
-                                              lr=lr, cfg=adam_cfg)
-        metrics.update(om)
-        metrics["lr"] = lr
-        return new, opt_state2, metrics
+        return apply_update(params, opt_state, grads, metrics, adam_cfg,
+                            schedule)
 
     def train_step(params, opt_state, batch):
         if current_env() is not None:
@@ -216,6 +241,79 @@ def abstract_opt_state(cfg: ModelConfig, adam_cfg: adam_lib.AdamConfig,
     return adam_lib.init(params_shape, adam_cfg)
 
 
+def with_shardings(tree, spec_tree, mesh):
+    """Each tensor of ``tree`` placed on ``mesh`` by its spec in
+    ``spec_tree`` (the same nesting): a Sharded of its blocks, as the
+    reference attaches a NamedSharding to each ShapeDtypeStruct."""
+    if isinstance(tree, torch.Tensor):
+        return shard(tree, spec_tree, mesh)
+    if isinstance(tree, dict):
+        return {k: with_shardings(v, spec_tree[k], mesh)
+                for k, v in tree.items()}
+    items = [with_shardings(v, sp, mesh) for v, sp in zip(tree, spec_tree)]
+    if isinstance(tree, list):
+        return items
+    return type(tree)(*items) if hasattr(tree, "_fields") \
+        else type(tree)(items)
+
+
+def make_state_structs(cfg: ModelConfig, adam_cfg, mesh, env):
+    """(params, opt_state) on ``mesh`` (a meta mesh: no storage): the
+    reference-shaped Sharded parameter tree by ``env``'s parameter specs
+    and its ZeRO-1 optimizer state."""
+    with _mesh_env(mesh):
+        params = weights.shard_params(
+            weights.init_params(cfg, device=mesh.devices[0]), cfg, mesh)
+        return params, adam_lib.init(params, adam_cfg)
+
+
+def make_batch_struct(cfg: ModelConfig, shape, mesh, env):
+    """A train or prefill step's batch of ``shape`` on the mesh's first
+    device, whole: the step splits it over the data groups
+    (``batch_specs``)."""
+    B, S = shape.global_batch, shape.seq_len
+    dev = mesh.devices[0]
+    tok = torch.empty((B, S), dtype=torch.int32, device=dev) \
+        if cfg.embed_inputs else torch.empty(
+            (B, S, cfg.d_model), dtype=nn.dt(cfg.activation_dtype), device=dev)
+    batch = {"tokens": tok,
+             "labels": torch.empty((B, S), dtype=torch.int32, device=dev),
+             "mask": torch.empty((B, S), dtype=torch.float32, device=dev)}
+    if cfg.mrope_sections is not None:
+        batch["positions"] = torch.empty((3, B, S), dtype=torch.int32,
+                                         device=dev)
+    return batch
+
+
+def decode_cache_specs(cfg: ModelConfig, env, max_len: int):
+    """``sharding.cache_specs``, with the time dim whole where the model
+    group does not divide ``max_len`` (``_sharded_caches``)."""
+    tp = _axis_size(env, env.resolve("seq_sp"))
+
+    def fix(c):
+        if isinstance(c, (attention.AttnCache, mla_mod.MLACache)) \
+                and max_len % tp:
+            return type(c)(*[(sp[0], None) + tuple(sp[2:]) for sp in c])
+        return c
+    return _map_caches(fix, cache_specs(cfg, env))
+
+
+def make_decode_structs(cfg: ModelConfig, shape, mesh, env):
+    """(tokens, caches, pos) of a serve step on ``mesh``: the tokens of
+    ``shape.global_batch`` sequences on the first device, each layer's
+    cache of ``shape.seq_len`` slots Sharded by
+    ``sharding.cache_specs``, and ``pos`` the last slot (the reference's
+    traced ``pos`` makes its program read the whole cache)."""
+    B, T = shape.global_batch, shape.seq_len
+    dev = mesh.devices[0]
+    tok = torch.empty((B, 1), dtype=torch.int32, device=dev) \
+        if cfg.embed_inputs else torch.empty(
+            (B, 1, cfg.d_model), dtype=nn.dt(cfg.activation_dtype), device=dev)
+    caches = with_shardings(lm.init_caches(cfg, B, T, dev),
+                            decode_cache_specs(cfg, env, T), mesh)
+    return tok, caches, T - 1
+
+
 def _mesh_env(mesh):
     """The current sharding environment when it is ``mesh``'s (its rules
     kept), else ``mesh`` under the default rules."""
@@ -227,19 +325,20 @@ def _mesh_env(mesh):
 
 class _GroupViews:
     """Each model group's parameter view (``weights.group_params``) of the
-    last Sharded tree seen, built once per tree: a decode step reuses
-    them."""
+    last Sharded tree seen, built when the group first runs on it: a
+    decode step reuses them."""
 
     def __init__(self, cfg, mesh):
         self.cfg, self.groups = cfg, col.model_groups(mesh)
         self.params, self.views = None, None
 
-    def __call__(self, params):
+    def __call__(self, params, g: int):
         if params is not self.params:
-            self.params = params
-            self.views = [weights.group_params(params, g, self.cfg)
-                          for g in self.groups]
-        return self.views
+            self.params, self.views = params, [None] * len(self.groups)
+        if self.views[g] is None:
+            self.views[g] = weights.group_params(params, self.groups[g],
+                                                 self.cfg)
+        return self.views[g]
 
 
 def _caches_of_group(caches, group):
@@ -296,11 +395,24 @@ def _sharded_caches(cfg, per_group, groups, env):
     return out
 
 
-def _data_rows(t, n_groups, g, device):
+def _data_rows(t, n_groups, g, device, env):
+    """Data group g's rows of t, or all of them where the batch is not
+    split (a batch rule of None: a batch of one sequence)."""
+    if env.resolve("batch") is None:
+        return t.to(device)
     return t.chunk(n_groups, 0)[g].to(device)
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int, mesh=None):
+def _mesh_logits(logits, env):
+    """The data groups' logits as the step's: their rows in order, or
+    the first group's where the batch is not split (every group ran the
+    same rows)."""
+    return torch.cat(logits, 0) if env.resolve("batch") is not None \
+        else logits[0]
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int, mesh=None,
+                      groups_run: Optional[int] = None):
     """(params, tokens (B,S)) -> (next-token logits (B,1,V), caches).
 
     With ``mesh`` (the dense engine on a device mesh) ``params`` is the
@@ -308,7 +420,12 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, mesh=None):
     the batch rows split over the data groups, each group's prefill runs
     on its model group (``lm.prefill(group=)``), the logits come back to
     the mesh's first device and the caches are Sharded by
-    ``sharding.cache_specs`` (split-T attention and MLA caches)."""
+    ``sharding.cache_specs`` (split-T attention and MLA caches).  Where
+    the rules leave the batch unsplit (a batch rule of None) every group
+    runs all the rows, and the logits are the first group's.
+    ``groups_run`` runs only the first that many data groups (the dry
+    run's, as ``mesh_loss_and_grads``): the logits are their rows and
+    the caches' other positions hold None."""
     if mesh is None:
         def prefill_step(params, tokens):
             return lm.prefill(params, cfg, tokens, max_len=max_len)
@@ -317,28 +434,33 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, mesh=None):
 
     def prefill_mesh(params, tokens):
         groups = views.groups
-        if tokens.shape[0] % len(groups):
-            raise ValueError(f"a batch of {tokens.shape[0]} does not split "
-                             f"over {len(groups)} data groups")
         with _mesh_env(mesh) as env:
+            if tokens.shape[0] % len(groups) and \
+                    env.resolve("batch") is not None:
+                raise ValueError(f"a batch of {tokens.shape[0]} does not "
+                                 f"split over {len(groups)} data groups")
             check_mesh(cfg, mesh, env)
             logits, caches = [], []
-            for g, (group, view) in enumerate(zip(groups, views(params))):
+            run = groups[:groups_run]
+            for g, group in enumerate(run):
                 lg, c = lm.prefill(
-                    view, cfg, _data_rows(tokens, len(groups), g, group.root),
+                    views(params, g), cfg,
+                    _data_rows(tokens, len(groups), g, group.root, env),
                     max_len=max_len, group=group if group.size > 1 else None)
                 logits.append(lg.to(mesh.devices[0]))
                 caches.append(c)
-            return torch.cat(logits, 0), _sharded_caches(cfg, caches,
-                                                         groups, env)
+            return _mesh_logits(logits, env), _sharded_caches(cfg, caches,
+                                                              run, env)
     return prefill_mesh
 
 
-def make_serve_step(cfg: ModelConfig, mesh=None):
+def make_serve_step(cfg: ModelConfig, mesh=None,
+                    groups_run: Optional[int] = None):
     """One decode step: greedy-sample next token given the KV cache.
     (params, tokens (B,1), caches, pos) -> (tokens (B,1), logits, caches).
     With ``mesh`` each data group's rows step on its model group against
-    its positions' caches (``make_prefill_step``'s)."""
+    its positions' caches (``make_prefill_step``'s, and its
+    ``groups_run``)."""
     def greedy(logits):
         return logits.argmax(-1).to(torch.int32)
     if mesh is None:
@@ -352,15 +474,17 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
         groups = views.groups
         with _mesh_env(mesh) as env:
             logits, new = [], []
-            for g, (group, view) in enumerate(zip(groups, views(params))):
+            run = groups[:groups_run]
+            for g, group in enumerate(run):
                 lg, c = lm.decode_step(
-                    view, cfg, _data_rows(tokens, len(groups), g, group.root),
+                    views(params, g), cfg,
+                    _data_rows(tokens, len(groups), g, group.root, env),
                     _caches_of_group(caches, group), pos,
                     group=group if group.size > 1 else None)
                 logits.append(lg.to(mesh.devices[0]))
                 new.append(c)
-            logits = torch.cat(logits, 0)
-            return greedy(logits), logits, _sharded_caches(cfg, new, groups,
+            logits = _mesh_logits(logits, env)
+            return greedy(logits), logits, _sharded_caches(cfg, new, run,
                                                            env)
     return serve_mesh
 

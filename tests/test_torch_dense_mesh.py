@@ -181,6 +181,31 @@ def test_data_axis_sizes_moe_capacity_per_data_group():
     assert float(np.abs(run((2, 2)) - one).max()) > 1e3 * LOGIT_TOL
 
 
+def test_prefill_with_an_unsplit_batch_gives_one_groups_logits():
+    """Where the rules leave the batch unsplit (a batch rule of None, as
+    the dry run's long_500k cells), every data group of a 2x2 mesh runs
+    all the rows: the prefill's logits are the first group's, (B, 1, V),
+    and equal one device's, as do the next decode step's."""
+    cfg = _cfg("qwen3-14b")
+    params = weights.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+    tokens = torch.tensor(np.random.default_rng(3).integers(
+        2, cfg.vocab_size, (B, S)), dtype=torch.int32)
+    lg1, c1 = steps.make_prefill_step(cfg, S + GEN)(params, tokens)
+    nxt = lg1.argmax(-1).to(torch.int32)
+    _, d1, _ = steps.make_serve_step(cfg)(params, nxt, c1, S)
+    mesh = make_test_mesh(2, 2, devices="cpu")
+    with use_sharding(mesh, {"batch": None}):
+        placed = weights.shard_params(params, cfg, mesh)
+        lg, c = steps.make_prefill_step(cfg, S + GEN, mesh=mesh)(placed,
+                                                                 tokens)
+        _, d, _ = steps.make_serve_step(cfg, mesh=mesh)(placed, nxt, c, S)
+    assert lg.shape == lg1.shape == (B, 1, cfg.vocab_size)
+    assert d.shape == d1.shape
+    assert float((lg - lg1).abs().max()) <= LOGIT_TOL
+    assert float((d - d1).abs().max()) <= LOGIT_TOL
+
+
 @pytest.mark.parametrize("arch,shape,split", [
     ("qwen3-14b", (1, 2), True), ("qwen3-14b", (1, 4), False),
     ("deepseek-v3-671b", (1, 2), True), ("recurrentgemma-2b", (2, 2), True),

@@ -621,34 +621,36 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     assert [fn.launches for fn in ops.WRAPPERS] == [0] * len(ops.WRAPPERS)
 
 
-def test_non_cpu_tensor_without_a_kernel_raises():
-    """A tensor off the CPU goes to the kernel or raises: never to the
-    plain version."""
+def test_non_cpu_tensor_without_a_kernel_raises(monkeypatch):
+    """A tensor off the CPU goes to the kernel, or to the meta branch
+    (shapes only: the dry run's), or raises: never to the plain
+    version."""
+    for name in ("flash_attention", "paged_decode_attention",
+                 "decode_attention", "moe_gemm", "rmsnorm", "add_rmsnorm",
+                 "rwkv6_scan", "rglru_scan"):
+        monkeypatch.setattr(ref, name, lambda *a, **k: pytest.fail(
+            "a meta tensor reached the plain version"))
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        ops._check("flash_attention", torch.device("xpu"), {}, ())
     q = torch.empty((1, 16, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.flash_attention(q, q, q)
+    assert ops.flash_attention(q, q, q).device.type == "meta"
     qd = torch.empty((2, 4, 16), device="meta")
     pages = torch.empty((5, 4, 2, 16), device="meta")
     idx = torch.empty((2, 2), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.paged_decode_attention(qd, pages, pages, idx, idx[:, 0])
+    assert ops.paged_decode_attention(qd, pages, pages, idx,
+                                      idx[:, 0].contiguous()).is_meta
     a = torch.empty((2, 5, 8), device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.rglru_scan(a, a, a[:, 0])
+    assert all(t.is_meta for t in ops.rglru_scan(a, a, a[:, 0].contiguous()))
     r = torch.empty((2, 5, 2, 8), device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.rwkv6_scan(r, r, r, r, r[0, 0], r[:, 0, :, :, None].expand(
-            2, 2, 8, 8))
+    assert all(t.is_meta for t in ops.rwkv6_scan(
+        r, r, r, r, torch.empty((2, 8), device="meta"),
+        torch.empty((2, 2, 8, 8), device="meta")))
     kc = torch.empty((2, 9, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.decode_attention(qd, kc, kc, 3)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.moe_gemm(a, a.transpose(1, 2))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.rmsnorm(a, a[0, 0])
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.add_rmsnorm(a, a, a[0, 0])
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.qk_rmsnorm(a, a, a[0, 0], a[0, 0])
+    assert ops.decode_attention(qd, kc, kc, 3).is_meta
+    assert ops.moe_gemm(a, a.transpose(1, 2).contiguous()).is_meta
+    s8 = torch.empty((8,), device="meta")
+    assert ops.rmsnorm(a, s8).is_meta
+    assert all(t.is_meta for t in ops.add_rmsnorm(a, a, s8))
+    assert all(t.is_meta for t in ops.qk_rmsnorm(a, a, s8, s8))
     assert [fn.launches for fn in ops.KERNELS] == [0] * len(ops.KERNELS)
     assert [fn.launches for fn in ops.WRAPPERS] == [0] * len(ops.WRAPPERS)
