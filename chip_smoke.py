@@ -70,13 +70,22 @@ collective site equal to the measured step's, the placed parameters and
 moments equal to the predicted arguments less the batch shards, the
 peak and the step time beside the prediction and the H100 roofline),
 and a qwen3-1.7b prefill and decode step on a 1x4 mesh under
-impl="pallas" (each kernel's dry calls equal to its launches).
+impl="pallas" (each kernel's dry calls equal to its launches).  Phase
+10 ("cards") runs only where two or more cards are visible (on one card
+it prints one line saying so): the mesh trainer with one position a
+card, qwen3-1.7b at 2 layers on a 1x2 mesh, grok-1 at phase 8's trainer
+widths on a 2x1 mesh (its experts' gathers cross the cards) and, with
+four cards, qwen3-1.7b on a 2x2 mesh, each against the same mesh on one
+card; then phase 7's full-width trainer on a 2x2 mesh with one position
+a card, each card's peak beside the dry run's arguments + temp of a
+position, its wire at every site equal to the prediction.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only-train     # the build and phase 6 alone
     python3 chip_smoke.py --only-mesh      # the build and phase 7 alone
     python3 chip_smoke.py --only-dense-mesh  # the build and phase 8 alone
     python3 chip_smoke.py --only-dryrun    # phase 7's trainer and phase 9
+    python3 chip_smoke.py --only-cards     # the build and phase 10 alone
 
 Needs one CUDA card with 80 GB (the kernels target Hopper, sm_90a;
 DeepSeek's five layers hold 53.3 GB of bf16 parameters), the CUDA
@@ -4766,8 +4775,23 @@ def _mesh_wire(cfg, wire, n_pos):
                 comm_events=events)
 
 
-def mesh_trainer(ops, problems, tmp):
-    """``train_loop.run`` at full width on a 2x2 mesh (MESH_RUN) with a
+def _cards_of(mesh):
+    return sorted(set(mesh.devices), key=lambda d: d.index or 0)
+
+
+def _reset_peaks(mesh):
+    for d in _cards_of(mesh):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def _card_peaks(mesh):
+    """Each card's peak (GB) since ``_reset_peaks``, in card order."""
+    return [torch.cuda.max_memory_allocated(d) / 1e9 for d in _cards_of(mesh)]
+
+
+def mesh_trainer(ops, problems, tmp, mesh=None):
+    """``train_loop.run`` at full width on a 2x2 mesh (MESH_RUN; ``mesh``,
+    default every position on the visible cards round-robin) with a
     step-3 checkpoint, then one profiled step.  Returns (record, the
     kernels' launches over the run, the step-3 snapshot, line)."""
     import contextlib
@@ -4780,12 +4804,12 @@ def mesh_trainer(ops, problems, tmp):
     from repro_torch.runtime import checkpoint as ckpt_lib, train_loop
     R = MESH_RUN
     cfg = _trainer_cfg()
-    mesh = make_test_mesh(R["data"], R["model"])
+    mesh = mesh or make_test_mesh(R["data"], R["model"])
     job = train_loop.TrainJobConfig(
         steps=R["steps"], log_every=1, ckpt_every=R["ckpt_every"],
         ckpt_dir=tmp, peak_lr=R["peak_lr"], warmup=R["warmup"], seed=SEED)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peaks(mesh)
     skip = _SkipSave(ckpt_lib, skip={R["steps"]}, keep=R["ckpt_every"])
     for fn in ops.WRAPPERS:
         fn.launches = 0
@@ -4805,12 +4829,14 @@ def mesh_trainer(ops, problems, tmp):
     torch.cuda.synchronize()
     launches = _launches(ops)
     peak = _peak_gb()
+    card_peaks = _card_peaks(mesh)
     hist = out["history"]
     times = [h["sec_per_step"] for h in hist if 2 <= h["step"] <= 5]
     step_s = float(np.median(times))
     rec = dict(losses=[h["loss"] for h in hist], step_times=times,
                step_s=step_s, tokens_per_s=R["batch"] * R["seq"] / step_s,
-               peak_gb=peak, positions=len(mesh.devices),
+               peak_gb=peak, card_peaks_gb=card_peaks,
+               positions=len(mesh.devices),
                distinct_devices=mesh.distinct_devices, run_s=run_s,
                checkpoint_s={n: c_.s for n, c_ in clocks.items()})
     # one more step under the profiler, its bytes on the wire counted
@@ -4851,11 +4877,16 @@ def mesh_trainer(ops, problems, tmp):
         param=w["param_measured"] / ev.get("param_all_gather", float("nan")))
     rec["wire_ratios"] = ratios
     pr = rec["profile"]
-    line = (f"{TRAIN_ARCH} mesh trainer, 2x2 mesh on one card "
-            f"({cfg.n_layers} layers, fp32 params and moments, bf16 activations, remat, "
+    cards = mesh.distinct_devices
+    line = (f"{TRAIN_ARCH} mesh trainer, 2x2 mesh on "
+            + ("one card " if cards == 1 else f"{cards} cards ")
+            + f"({cfg.n_layers} layers, fp32 params and moments, bf16 "
+            f"activations, remat, "
             f"B={R['batch']}, S={R['seq']}): step {step_s * 1e3:.1f} ms "
             f"(median of steps 2-5), {rec['tokens_per_s']:.0f} tokens/s, "
-            f"peak {peak:.2f} GB; losses "
+            + (f"peak {peak:.2f} GB; losses " if cards == 1 else
+               "peaks " + ", ".join(f"{g:.2f}" for g in card_peaks)
+               + " GB; losses ")
             + ", ".join(f"{l:.4f}" for l in losses)
             + f"; a profiled step {pr['wall_ms']:.1f} ms, busy "
             f"{pr['busy_share']:.3f}, {pr['launches_per_step']:.0f} "
@@ -5614,12 +5645,14 @@ DRY_SERVE = dict(arch="qwen3-1.7b", data=1, model=4, batch=4, prompt_len=64,
 
 def dry_trainer(trainer, problems):
     """(a): the dry run of phase 7's trainer (its config, B, S and 2x2
-    mesh, on meta positions, every data group at full depth) against the
-    measured step: the wire bytes
-    by site equal, the placed state equal to the positions' predicted
-    arguments less their batch shards (within the allocator's 512 bytes
-    a block), the peak and the step time beside the prediction and the
-    H100 roofline.  Returns (record, line)."""
+    mesh, on meta positions, every data group at full depth, sends as
+    views: the positions share the one card) against the measured step:
+    the wire bytes by site equal, the placed state equal to the
+    positions' predicted arguments less their batch shards (within the
+    allocator's 512 bytes a block), the peak and the step time beside
+    the prediction and the H100 roofline; and a position's arguments +
+    temp with received blocks (a card of its own), printed.  Returns
+    (record, line)."""
     from repro_torch.analysis import roofline
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
@@ -5631,8 +5664,10 @@ def dry_trainer(trainer, problems):
     n = len(mesh.devices)
     t1 = time.time()
     # every group at full depth: the whole mesh's peak, which one card
-    # holding all the positions is held against
-    pred = dryrun.dry_step(cfg, shape, mesh, symmetry=False)
+    # holding all the positions is held against (received blocks left
+    # out: a send between positions that share a card is a view)
+    pred = dryrun.dry_step(cfg, shape, mesh, symmetry=False, received=False)
+    own = dryrun.dry_step(cfg, shape, mesh)["memory"]
     dry_s = time.time() - t1
     got, want = trainer["wire_sites"], pred["wire_bytes_by_site"]
     sites = sorted(set(got) | set(want))
@@ -5652,7 +5687,7 @@ def dry_trainer(trainer, problems):
                           R["model"], collectives=pred["collectives"],
                           cost_analysis=pred["cost_analysis"])
     t_model = rl.model_flops / (n * roofline.H100.peak_flops_bf16)
-    rec = dict(predicted=pred, dry_s=dry_s, wire_sites=got,
+    rec = dict(predicted=pred, position=own, dry_s=dry_s, wire_sites=got,
                state_bytes=trainer["state_bytes"], state_predicted=state_pred,
                peak_bytes=trainer["peak_gb"] * 1e9, peak_predicted=peak_pred,
                peak_ratio=trainer["peak_gb"] * 1e9 / peak_pred,
@@ -5669,11 +5704,12 @@ def dry_trainer(trainer, problems):
             f"{pred['memory']['argument_size_in_bytes']} - batch shard "
             f"{batch_pos})); peak {rec['peak_bytes'] / 1e9:.3f} GB measured "
             f"(the run's max_memory_allocated), {peak_pred / 1e9:.3f} GB "
-            f"predicted (ratio {rec['peak_ratio']:.3f}); a position on a "
-            f"card of its own: arguments "
-            f"{pred['memory']['argument_size_in_bytes'] / 1e9:.3f} + temp "
-            f"{pred['memory']['temp_size_in_bytes'] / 1e9:.3f} GB predicted "
-            f"(not measured: one card); FLOPs counted "
+            f"predicted without received blocks (ratio "
+            f"{rec['peak_ratio']:.3f}); a position on a card of its own: "
+            f"arguments {own['argument_size_in_bytes'] / 1e9:.3f} + temp "
+            f"{own['temp_size_in_bytes'] / 1e9:.3f} GB predicted with "
+            f"received blocks (measured in phase 10, four cards); FLOPs "
+            f"counted "
             f"{pred['cost_analysis']['flops']:.6g} (model "
             f"{rl.model_flops:.6g}); H100 roofline ({n} chips): compute "
             f"{rl.t_compute:.4f} s, memory {rl.t_memory:.4f} s, collective "
@@ -5774,6 +5810,174 @@ def dryrun_phase(ops, trainer):
     return recs, launches, lines
 
 
+# ---------------------------------------------------------------------------
+# phase 10 — the mesh trainer with one position a card (two or more cards)
+# ---------------------------------------------------------------------------
+# (a) qwen3-1.7b at MESH_PARITY's 2 layers on a 1x2 mesh, and grok-1 at
+# phase 8's trainer widths (TRAIN_FAMILY_CUTS) on a 2x1 mesh: its expert
+# blocks stored over the data axis, so each MoE layer's gather (and its
+# recompute's) crosses the cards; (b) with four cards, qwen3-1.7b's 2x2
+# mesh.  Each against the same mesh trainer with every position on one
+# card (a data axis changes the MoE's capacity and aux, so grok's 2x1 is
+# not one device's trainer), fp32 moments, phase 7's gates.
+CARD_PARITY = ((TRAIN_ARCH, (1, 2)), ("grok-1-314b", (2, 1)),
+               (TRAIN_ARCH, (2, 2)))
+
+
+def _card_mesh(shape, one=False):
+    """A mesh of ``shape`` with one position a card (``one``: all on the
+    first card)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    n = shape[0] * shape[1]
+    return make_test_mesh(*shape, devices=[
+        f"cuda:{0 if one else i}" for i in range(n)])
+
+
+def cards_parity(problems):
+    """(a), (b): CARD_PARITY's mesh trainers with one position a card
+    against the same on one card.  Returns (record, lines)."""
+    from repro_torch import weights
+    recs, lines = {}, []
+    for arch, shape in CARD_PARITY:
+        if shape[0] * shape[1] > torch.cuda.device_count():
+            lines.append(f"{arch} {shape[0]}x{shape[1]}: not run, "
+                         f"{torch.cuda.device_count()} cards")
+            continue
+        cfg = _mesh_parity_cfg() if arch == TRAIN_ARCH \
+            else _family_train_cfg(arch)
+        paths = ["/".join(k) for k, _ in _ckpt_items(weights.to_reference(
+            weights.init_params(cfg, device="meta"), cfg))]
+        t0 = time.time()
+        one = _mesh_parity_run(cfg, "float32", _card_mesh(shape, one=True))
+        mesh = _card_mesh(shape)
+        torch.cuda.synchronize()
+        _reset_peaks(mesh)
+        got = _mesh_parity_run(cfg, "float32", mesh)
+        peaks = _card_peaks(mesh)
+        metric = max(abs(g[k] - h[k]) / max(abs(h[k]), 1e-30)
+                     for h, g in zip(one[2], got[2])
+                     for k in ("loss", "grad_norm"))
+        (share, share_at), (worst, _) = _param_errs(one[0], got[0], paths)
+        m_rel = max(_moment_errs(one[1][i], got[1][i])[0] for i in (0, 1))
+        what = f"{arch} {shape[0]}x{shape[1]} on {mesh.distinct_devices} cards"
+        if not metric <= STEP_TOL["metric"]:
+            problems.append(f"{what}: loss / grad norm {metric:.3g}")
+        if not share <= STEP_TOL["param_share"]:
+            problems.append(f"{what}: {share:.3g} of {share_at} more than "
+                            f"{STEP_TOL['param_near']} apart")
+        if not m_rel <= STEP_TOL["moment"]:
+            problems.append(f"{what}: moments {m_rel:.3g}")
+        recs[what] = dict(metric_rel_err=metric, param_share_off=share,
+                          param_share_leaf=share_at, param_max_abs=worst,
+                          moment_rel_err=m_rel, card_peaks_gb=peaks,
+                          losses=[h["loss"] for h in got[2]],
+                          losses_one=[h["loss"] for h in one[2]],
+                          seconds=time.time() - t0, d_model=cfg.d_model)
+        lines.append(
+            f"{'(b)' if shape == (2, 2) else '(a)'} {what} ({cfg.n_layers} "
+            f"layers, d_model {cfg.d_model}, "
+            f"fp32, B={MESH_PARITY['batch']}, S={MESH_PARITY['seq']}, 3 "
+            f"steps at lr {MESH_PARITY['lr']}, remat) against the same "
+            f"mesh on one card: "
+            f"loss and grad norm within {metric:.3g} (tol "
+            f"{STEP_TOL['metric']}); parameters at most {share:.3g} of a "
+            f"leaf ({share_at}) more than {STEP_TOL['param_near']} of its "
+            f"max apart, largest gap {worst:.3g}; moments {m_rel:.3g}; "
+            f"card peaks {', '.join(f'{g:.3f}' for g in peaks)} GB; "
+            f"losses {', '.join(f'{l:.5f}' for l in recs[what]['losses'])}")
+        del got, one
+        torch.cuda.empty_cache()
+    return recs, lines
+
+
+def cards_trainer(ops, problems):
+    """(b), (c): phase 7's full-width 2x2 trainer with one position a
+    card; each card's peak beside the dry run's arguments + temp of a
+    position (received blocks counted: a send between two cards is a
+    copy), the wire at every site equal to the prediction.  Returns
+    (record, launches, lines)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    R = MESH_RUN
+    tmp = tempfile.mkdtemp(prefix="cards_ckpt_")
+    try:
+        trainer, launches, kept, line = mesh_trainer(
+            ops, problems, tmp, _card_mesh((R["data"], R["model"])))
+        del kept
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = [f"(b) {line}"]
+    cfg = _trainer_cfg()
+    shape = ShapeConfig("train", R["seq"], R["batch"], "train")
+    t1 = time.time()
+    pred = dryrun.dry_step(cfg, shape, make_test_mesh(
+        R["data"], R["model"], devices="meta"))
+    dry_s = time.time() - t1
+    got, want = trainer["wire_sites"], pred["wire_bytes_by_site"]
+    sites = sorted(set(got) | set(want))
+    off = {k: (got.get(k, 0), want.get(k, 0)) for k in sites
+           if got.get(k, 0) != want.get(k, 0)}
+    if off or not sites:
+        problems.append(f"cards: wire bytes by site differ {off}")
+    m = pred["memory"]
+    held = m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+    peaks = trainer["card_peaks_gb"]
+    rec = dict(trainer=trainer, predicted=pred, dry_s=dry_s,
+               position_bytes=held,
+               peak_ratios=[g * 1e9 / held for g in peaks])
+    lines.append(
+        f"(c) the dry run of (b) on a meta 2x2 ({dry_s:.1f} s, "
+        f"{pred['symmetry']['temp']}): wire by site "
+        + ("equal at all " if not off else "DIFFERENT at ")
+        + f"{len(sites)} sites ({sum(got.values()) / 1e9:.6f} GB a step); "
+        f"a position's arguments {m['argument_size_in_bytes'] / 1e9:.3f} + "
+        f"temp {m['temp_size_in_bytes'] / 1e9:.3f} = {held / 1e9:.3f} GB "
+        f"predicted (with received blocks; {m['temp_by_phase']}), each "
+        f"card's peak " + ", ".join(
+            f"{g:.3f} GB ({r:.3f})" for g, r in zip(peaks,
+                                                    rec["peak_ratios"]))
+        + f"; {gpu_info()}")
+    return rec, {"cards: qwen3-1.7b 2x2 on 4 cards": launches}, lines
+
+
+def cards_phase(ops):
+    """Phase 10: the mesh trainer with one position a card, where two or
+    more cards are visible; on one card one line saying it did not run.
+    Returns (records, {path: launches}, lines)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        return {"ran": False, "cards": n}, {}, [
+            f"phase 10 did not run: {n} card visible, and the mesh trainer "
+            f"with one position a card needs two or more (run "
+            f"`chip_smoke.py --only-cards` on a machine with four)"]
+    t0 = time.time()
+    recs, lines, problems, clock = {"ran": True, "cards": n}, [], [], {}
+    t1 = time.time()
+    recs["parity"], ls = cards_parity(problems)
+    clock["parity"] = time.time() - t1
+    lines += ls
+    launches = {}
+    if n >= 4:
+        t1 = time.time()
+        recs["trainer"], launches, ls = cards_trainer(ops, problems)
+        clock["trainer"] = time.time() - t1
+        lines += ls
+    else:
+        lines.append(f"(b), (c) not run: {n} cards (the 2x2 needs four)")
+    recs["seconds"] = time.time() - t0
+    recs["section_s"] = clock
+    lines.append(f"phase 10 took {recs['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in clock.items()) + ")")
+    if problems:
+        for line in lines:
+            print(f"[cards] {line}")
+        fail("phase 10: " + "; ".join(problems))
+    return recs, launches, lines
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -5846,6 +6050,16 @@ def main():
         (OUT / "chip_smoke_dryrun.json").write_text(json.dumps(
             dict(gpu=info, dryrun=dry, launches=launches), indent=2,
             default=str))
+        return
+    if sys.argv[1:] == ["--only-cards"]:  # phase 10 alone, no verdict
+        cards, launches, cards_lines = cards_phase(ops)
+        for line in cards_lines:
+            print(f"[cards] {line}")
+        OUT.mkdir(exist_ok=True)
+        (OUT / "chip_smoke_cards.json").write_text(json.dumps(
+            dict(gpu=info, cards=cards, launches=launches), indent=2,
+            default=str))
+        print(gpu_info())
         return
     if sys.argv[1:] == ["--only-dense-mesh"]:  # phase 8 alone, no verdict
         dmesh, launches, dmesh_lines = dense_mesh_phase(ops)
@@ -6040,6 +6254,12 @@ def main():
         print(f"[dryrun] {line}")
     lap("phase 9")
 
+    cards, cards_launches, cards_lines = cards_phase(ops)
+    path_launches.update(cards_launches)
+    for line in cards_lines:
+        print(f"[cards] {line}")
+    lap("phase 10")
+
     for name, rec in recs.items():
         rec["launches"] = sum(l[w] for l in path_launches.values()
                               for w, k in ops.KERNEL_OF.items() if k == name)
@@ -6059,7 +6279,7 @@ def main():
              flash_local=flash_local,
              path_launches=path_launches, serve=serve_stats, parity=parity,
              paper=paper, train=train, mesh=mesh, dense_mesh=dmesh,
-             dryrun=dry, section_s=laps),
+             dryrun=dry, cards=cards, section_s=laps),
         indent=2, default=str))
     print(f"[done] {time.time() - t0:.1f} s after the build started ("
           + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ")")

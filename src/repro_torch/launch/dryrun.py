@@ -14,7 +14,13 @@ returns its outputs' shapes and counts ``dry_calls``), under
   ``cost_analysis()["flops"]``; like it, the kernels' work (a Pallas
   custom call there) is left out;
 * a tally of the live meta storages (``_Tally``): the arguments' bytes
-  and the peak of everything alive at once in each window of the run;
+  and the peak of everything alive at once in each window of the run.
+  Every position is the one ``meta`` device, so a send between two
+  positions would hand over the sender's storage; instead it makes a
+  new one (``collectives._moved``), as a send between two cards makes a
+  copy, and the tally counts each received block while it lives
+  (``dry_step(received=False)`` leaves them out: sends between
+  positions that share a card are views);
 * ``collectives.WIRE`` and ``EVENTS``: the bytes of every collective by
   site, and the reference's ring-model summary (``analysis/wire.py``).
 
@@ -34,11 +40,12 @@ model group's positions, so a position's temp is read from windows of
 the run (``temp_by_phase`` in ``memory``):
 
 * **the data groups' window**: the first group's bytes above the
-  arguments at its peak, shared over its positions, less what then lay
-  at positions outside it (the gradient blocks of leaves stored over
-  the data axes, which every group's backward reaches), plus, in a
-  train step, a position's blocks of those gradients (the earlier
-  groups' share, which a later group's positions already hold);
+  arguments at its peak, less what lies at positions outside it (the
+  gradient blocks of leaves stored over the data axes, which each MoE
+  layer's gather in its backward sends there: ``_Tally.place``),
+  shared over its positions, plus, in a train step, a position's blocks
+  of those gradients (the earlier groups' share, which a later group's
+  positions already hold);
 * **the optimizer's window** (a train step): every position updates its
   own blocks alike, so the mesh's bytes above the arguments at its peak
   over the positions.
@@ -69,8 +76,7 @@ of every cycle's forward and backward, each linear in the depth, so a
 convex function of it, and a line through two depths falls below it
 past them.  It is exact where one point sets the peak at both cut
 depths and at C (``symmetry["temp"]`` says which the record holds);
-``tests/test_torch_dryrun_sym.py`` shows both, a tiny DeepSeek cell at
-32 tokens falling 1.3% under.
+``tests/test_torch_dryrun_sym.py`` holds it exact at every tiny case.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k \\
@@ -80,6 +86,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -185,18 +192,25 @@ class _Tally(TorchDispatchMode):
     """Bytes of the live storages: each new storage an op returns is
     added, and taken off when it is freed (a weak reference to it: a
     storage's Python object lives as long as the storage).  Each storage
-    is numbered as it is born; ``peak`` is the window's largest ``live``
-    and ``peak_at`` the number of the last storage born by then
-    (``window`` starts another)."""
+    is numbered as it is born.  A storage ``place``d at a mesh position
+    in ``away`` (positions outside the data groups run), and every
+    storage an op makes from such storages at one position, lies there:
+    ``peak`` is the window's largest ``live`` less those bytes, and
+    ``peak_at`` the number of the last storage born by then (``window``
+    starts another); ``top`` the largest ``live`` of every window."""
 
     def __init__(self):
         super().__init__()
         self.live = 0
         self.peak = 0
         self.peak_at = 0
-        self.top = 0            # the largest ``live`` of every window
+        self.top = 0
         self._n = 0
         self._born = {}
+        self.away = frozenset()
+        self._away = {}         # storage -> (position, bytes), if away
+        self._live_away = 0
+        self._below = 0         # the window's peak before the last was set
 
     def track(self, tree):
         """Count the storages of ``tree`` (a step's arguments)."""
@@ -205,15 +219,24 @@ class _Tally(TorchDispatchMode):
 
     def window(self) -> int:
         """Start a window at the live bytes, which it returns."""
-        self.peak, self.peak_at = self.live, self._n
+        self.peak = self._below = self.live - self._live_away
+        self.peak_at = self._n
         return self.live
 
-    def alive_at_peak(self, t) -> bool:
-        """Whether ``t``, alive now, was alive at the window's peak."""
-        n = self._born.get(t.untyped_storage()._cdata)
-        return n is not None and n <= self.peak_at
+    def place(self, t, pos: int):
+        """``t``, just born, lies at mesh position ``pos``
+        (``collectives.placing``: a gathered block's gradient sent back
+        to the position that stores it)."""
+        key = t.untyped_storage()._cdata
+        if pos not in self.away or key not in self._born or key in self._away:
+            return
+        n = t.untyped_storage().nbytes()
+        self._away[key] = (pos, n)
+        self._live_away += n
+        if self._born[key] == self.peak_at:       # it set the peak
+            self.peak = max(self._below, self.peak - n)
 
-    def _add(self, s):
+    def _add(self, s, made=None, away=None):
         key = s._cdata
         if key in self._born:
             return
@@ -221,14 +244,19 @@ class _Tally(TorchDispatchMode):
         self._n += 1
         self._born[key] = self._n
         self.live += n
-        if self.live > self.peak:
-            self.peak, self.peak_at = self.live, self._n
-            self.top = max(self.top, self.live)
+        if away is not None:
+            self._away[key] = (away, n)
+            self._live_away += n
+        here = self.live - self._live_away
+        if here > self.peak:
+            self._below, self.peak, self.peak_at = self.peak, here, self._n
+        self.top = max(self.top, self.live)
         weakref.finalize(s, self._free, key, n)
 
     def _free(self, key, n):
         if self._born.pop(key, None) is not None:
             self.live -= n
+        self._live_away -= self._away.pop(key, (None, 0))[1]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -246,9 +274,55 @@ class _Tally(TorchDispatchMode):
                 ins = {x.untyped_storage()._cdata
                        for x in tree_leaves((args, kwargs))
                        if isinstance(x, torch.Tensor)}
+                at = {self._away[k][0] for k in ins if k in self._away}
+                at = at.pop() if len(at) == 1 else None
             if s._cdata not in ins:
-                self._add(s)
+                self._add(s, (func, t), at)
         return out
+
+
+class ByOp(_Tally):
+    """The tally, which also notes what made each storage: (op, shape,
+    dtype), "argument" for the step's arguments.  When the storage
+    numbered ``target`` is born it sums the live ones by what made them
+    (``at_target``: (live bytes, Counter)); ``made`` counts the bytes
+    born by what made them."""
+
+    def __init__(self, target: Optional[int] = None):
+        super().__init__()
+        self.target, self.at_target = target, None
+        self.what = {}
+        self.made = Counter()
+
+    def _add(self, s, made=None, away=None):
+        before = self._n
+        super()._add(s, made, away)
+        if self._n == before:
+            return
+        func, t = made if made is not None else (None, None)
+        w = "argument" if func is None else (str(func), tuple(t.shape),
+                                             str(t.dtype))
+        self.what[s._cdata] = (w, s.nbytes())
+        self.made[w] += s.nbytes()
+        if self._n == self.target:
+            live = Counter()
+            for key, (w, n) in self.what.items():
+                if key in self._born:
+                    live[w] += n
+            self.at_target = (self.live, live)
+
+
+def peak_by_op(cfg, shape, mesh, rules=None):
+    """The first data group's window of ``cfg``'s step (``_run``, no
+    optimizer) twice: the first run finds the storage born at the
+    window's peak, the second lists what is alive when it is born.
+    Returns (the first run's record, its ByOp, (live bytes, Counter of
+    live bytes by what made them))."""
+    first = ByOp()
+    run = _run(cfg, shape, mesh, rules, 1, optimizer=False, tally=first)
+    second = ByOp(target=first.peak_at)
+    _run(cfg, shape, mesh, rules, 1, optimizer=False, tally=second)
+    return run, first, second.at_target
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +426,7 @@ def _loss_metrics(cfg, params, mesh) -> dict:
 
 
 def _run(cfg, shape, mesh, rules, groups_run: Optional[int],
-         optimizer: bool = True) -> dict:
+         optimizer: bool = True, tally: Optional[_Tally] = None) -> dict:
     """Run the cell's step once on the meta mesh, ``groups_run`` of its
     data groups (None: all; 0, a train step only: none, every gradient
     zero).  A train step is its two halves (``make_train_step``'s mesh
@@ -360,9 +434,10 @@ def _run(cfg, shape, mesh, rules, groups_run: Optional[int],
     ``optimizer``, ``apply_update`` (the positions no run group reached
     given zero gradients), the optimizer's window; a prefill or decode
     step is one data groups' window.  Each window's counts and bytes
-    above the arguments at its peak; for the groups' window also the
-    bytes then alive at positions outside the run groups (gradient
-    blocks of leaves stored over the data axes)."""
+    above the arguments at its peak, less the bytes then at positions
+    outside the run groups (the gradient blocks of leaves stored over
+    the data axes, which each MoE layer's gather sends back there:
+    ``collectives.placing``)."""
     groups = col.model_groups(mesh)
     run_pos = {p for g in groups[:groups_run] for p in g.positions}
     train = shape.kind == "train"
@@ -372,12 +447,14 @@ def _run(cfg, shape, mesh, rules, groups_run: Optional[int],
         col.WIRE.clear()
         col.EVENTS.clear()
         ops.reset_dry_calls()
-        tally = _Tally()
+        tally = _Tally() if tally is None else tally
         tally.track(args)
+        tally.away = frozenset(range(len(mesh.devices))) - run_pos
         res["arg_mesh"] = arg_mesh = tally.live
         res["od_pos"] = 0
         out = None
-        with FlopCounterMode(display=False) as fc, tally:
+        with FlopCounterMode(display=False) as fc, tally, \
+                col.placing(tally.place):
             s0 = _snap(fc)
             tally.window()
             if train:
@@ -399,17 +476,8 @@ def _run(cfg, shape, mesh, rules, groups_run: Optional[int],
                 out = steps_mod.make_serve_step(
                     cfg, mesh=mesh, groups_run=groups_run)(*args)
             s1 = _snap(fc)
-            outside = 0
-            if train and grads is not None:
-                outside = sum(
-                    t.numel() * t.element_size()
-                    for g in weights.tree_leaves(grads)
-                    for p, t in enumerate(g.shards)
-                    if t is not None and p not in run_pos
-                    and tally.alive_at_peak(t))
             if groups_run != 0:
-                res["groups"] = (_between(s0, s1), tally.peak - arg_mesh,
-                                 outside)
+                res["groups"] = (_between(s0, s1), tally.peak - arg_mesh)
             if train and optimizer:
                 grads = _zero_fill(grads, params)
                 tally.window()
@@ -510,11 +578,22 @@ def _summary(events, n_positions):
                                        [w for w, _ in events])
 
 
-def dry_step(cfg, shape, mesh, rules=None, symmetry: bool = True) -> dict:
+def dry_step(cfg, shape, mesh, rules=None, symmetry: bool = True,
+             received: bool = True) -> dict:
     """The dry run of ``cfg``'s step for ``shape`` on ``mesh`` (a meta
     mesh): the record's counts and memory, with the symmetries of the
     module docstring where ``symmetry`` and the cell allow; without
-    them, also ``peak_bytes_mesh``."""
+    them, also ``peak_bytes_mesh``.  With ``received`` (the default) a
+    send between two positions makes a new storage, as between two
+    cards; without, it is a view, as between positions sharing one card
+    (``memory["received_blocks"]`` says which)."""
+    with (contextlib.nullcontext() if received else col.sends_as_views()):
+        rec = _dry_step(cfg, shape, mesh, rules, symmetry)
+    rec["memory"]["received_blocks"] = received
+    return rec
+
+
+def _dry_step(cfg, shape, mesh, rules, symmetry):
     n_pos = len(mesh.devices)
     groups = col.model_groups(mesh)
     n_groups, gsize = len(groups), groups[0].size
@@ -525,12 +604,12 @@ def dry_step(cfg, shape, mesh, rules=None, symmetry: bool = True) -> dict:
         # counts: the first group counted for each (or every group run);
         # the groups' window of the first group alone gives the temps
         run = _run(cfg, shape, mesh, rules, 1 if symmetry else None)
-        counts, _, _ = run["groups"]
+        counts, _ = run["groups"]
         if symmetry:
             counts = _Counts().lin(counts, 0.0, n_groups)
         one = run if symmetry or n_groups == 1 else \
             _run(cfg, shape, mesh, rules, 1, optimizer=False)
-        _, above, outside = one["groups"]
+        _, above = one["groups"]
         whole = run
     else:
         seg, C, (c1, c2), cut_cfg = cut
@@ -539,8 +618,8 @@ def dry_step(cfg, shape, mesh, rules=None, symmetry: bool = True) -> dict:
         t = (C - c1) / (c2 - c1)          # Y(C) = Y1 + t (Y2 - Y1)
         counts = _Counts().lin(runs[0]["groups"][0].lin(
             runs[1]["groups"][0], 1.0 - t, t), 0.0, n_groups)
-        above, outside = [round((1 - t) * a + t * b) for a, b in zip(
-            runs[0]["groups"][1:], runs[1]["groups"][1:])]
+        above = round((1 - t) * runs[0]["groups"][1]
+                      + t * runs[1]["groups"][1])
         if train:
             # the optimizer at full depth on zero gradients: its cost
             # does not shrink with the cycles (a segment's leaf is one
@@ -553,7 +632,7 @@ def dry_step(cfg, shape, mesh, rules=None, symmetry: bool = True) -> dict:
                 whole["arg_pos"] = _build(cfg, shape, mesh, env)[1]
         cycles = {"segment": seg, "cycles": C, "runs_at": [c1, c2]}
     temps = {"data_group": (whole["od_pos"] if train else 0)
-             + (above - outside) / gsize}
+             + above / gsize}
     if train:
         opt_counts, opt_above = whole["opt"]
         counts = counts.lin(opt_counts, 1.0, 1.0)

@@ -34,10 +34,10 @@ from __future__ import annotations
 from typing import List, NamedTuple, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, modules as nn
+from repro_torch.models.remat import checkpoint
 from repro_torch.parallel import collectives as col
 
 
@@ -168,9 +168,10 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, *,
 
     ``mode="train"`` returns (h_final, the summed MoE load-balance loss)
     and keeps no caches.  Under ``cfg.remat`` each cycle of a scanned
-    segment runs under ``torch.utils.checkpoint`` (the reference
-    checkpoints its scan body, in train mode only): backward recomputes
-    the cycle from its inputs instead of keeping its activations.
+    segment runs under ``remat.checkpoint`` (the reference checkpoints
+    its scan body, in train mode only): backward recomputes the cycle
+    from its inputs, the MoE's gather of its expert blocks included,
+    instead of keeping its activations.
 
     With ``group`` the forward runs on that model group: ``params`` is
     ``weights.group_params`` of its positions' blocks, ``tokens`` and
@@ -213,8 +214,7 @@ def _forward_train(params, cfg, x, angles):
         for cyc_p in seg_p:
             if seg.scanned and cfg.remat:
                 x, pending, a = checkpoint(_cycle_train, cyc_p, cfg,
-                                           seg.kinds, x, pending, angles,
-                                           use_reentrant=False)
+                                           seg.kinds, x, pending, angles)
             else:
                 x, pending, a = _cycle_train(cyc_p, cfg, seg.kinds, x,
                                              pending, angles)
@@ -411,8 +411,8 @@ def _chunk_ce_tp(w, cfg, h_c, labels_c, mask_c):
 def ce_sums(params, cfg, h, labels, mask):
     """The chunked CE's (masked NLL sum, mask sum): the chunk is
     ``LOSS_CHUNK`` positions, shrunk until it divides S, and each chunk
-    runs under ``torch.utils.checkpoint`` (the reference's checkpointed
-    scan body), so that neither the forward nor the backward holds (B, S,
+    runs under ``remat.checkpoint`` (the reference's checkpointed scan
+    body), so that neither the forward nor the backward holds (B, S,
     V) fp32 logits at once.  On a model group ``h`` is the
     sequence-sharded Shards: it is gathered to the full sequence on every
     position (the reference's ``h`` replicated over "model") and each
@@ -441,7 +441,7 @@ def ce_sums(params, cfg, h, labels, mask):
         h_c = col.Shards([t[:, sl] for t in h], h.group, None) if tp \
             else h[:, sl]
         t, k = checkpoint(chunk_ce, w, cfg, h_c, labels[:, sl],
-                          mask[:, sl], use_reentrant=False)
+                          mask[:, sl])
         tot, cnt = tot + t, cnt + k
     return tot, cnt
 

@@ -10,9 +10,11 @@ under ``impl == "pallas"`` and as fp32 ``torch.einsum`` otherwise; both
 keep the reference's fp32 between the GEMMs.
 
 On a model group (``x`` Shards: the dense engine's mesh and the mesh
-trainer) ``apply`` is the reference's ``_sharded_moe``: the sequence is
-all-gathered, every position routes every token (as every shard of the
-reference does), and each position's expert products run on its block
+trainer) ``apply`` is the reference's ``_sharded_moe``: each
+position's expert blocks stored over the data axes are all-gathered
+(the layer's own, when it runs), the sequence is all-gathered, every
+position routes every token (as every shard of the reference does),
+and each position's expert products run on its block
 of the experts through the same grouped GEMMs: under expert-TP (the
 default rules) an ``expert_ff`` slice of every expert, whose partial
 outputs are reduce-scattered back to the sequence-split residual (summed
@@ -218,6 +220,7 @@ def _apply_tp(p, cfg, x):
     position's aux)."""
     from repro_torch.parallel import collectives as col
     g = x.group
+    p = col.gathered(p)
     xf = col.gather_seq(x)
     B, S, D = xf[0].shape
     ep = p["e_up"][0].shape[0] != cfg.moe.n_experts
@@ -238,10 +241,15 @@ def _apply_tp(p, cfg, x):
 
 def apply(p, cfg, x):
     """x (B, S, D) -> (out (B, S, D), aux loss scalar).  On a model group
-    (``x`` Shards) ``_apply_tp``."""
+    (``x`` Shards) ``_apply_tp``.  A leaf stored over the data axes
+    (``collectives.Stored``: a mesh's "fsdp" expert weights) is gathered
+    here, one layer's at a time, and dies when the layer returns (unless
+    autograd keeps it for the backward: not inside a checkpointed
+    cycle, whose recompute gathers it again)."""
     from repro_torch.parallel import collectives as col
     if isinstance(x, col.Shards):
         return _apply_tp(p, cfg, x)
+    p = col.gathered(p)
     B, S, D = x.shape
     out, aux = local_moe(cfg, x.reshape(B * S, D), p["router_w"],
                          p.get("e_gate"), p["e_up"], p["e_down"])

@@ -31,6 +31,7 @@ reduce-scattering them, as GSPMD's partitioned dot does.
 from __future__ import annotations
 
 import contextlib
+import threading
 from collections import Counter
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -119,11 +120,86 @@ class PerPos(tuple):
     constant placed on each device): ``local`` indexes it by position."""
 
 
+class Stored:
+    """A leaf stored over the data axes (the MoE's "fsdp" weights) as one
+    position of a model group holds it until a layer consumes it: the
+    Sharded ``leaf``, ``pos`` the position, ``shards`` the tensors it
+    reads, by position (the trainer's leaves that require grad), and
+    ``sources`` its ``sharding.data_sources``; with ``row``, one cycle of
+    a stacked leaf, each of ``shards`` then a position's rows
+    (``unbind``).  ``block()`` is the position's block gathered over the
+    data axes (``sharding.model_block``): the layer gathers it when it
+    runs, so that one layer's gathered blocks live at a time, as the
+    reference gathers inside its MoE's ``shard_map`` body."""
+
+    def __init__(self, leaf, pos: int, shards, sources,
+                 row: Optional[int] = None):
+        self.leaf, self.pos, self.sources, self.row = leaf, pos, sources, row
+        self.shards = {q: shards[q] for q in sources[1]}
+
+    def unbind(self, dim: int = 0):
+        """Each cycle's Stored of a stacked leaf."""
+        assert dim == 0 and self.row is None
+        rows = {q: t.unbind(0) for q, t in self.shards.items()}
+        return tuple(Stored(self.leaf, self.pos, rows, self.sources, c)
+                     for c in range(self.leaf.shape[0]))
+
+    def block(self) -> torch.Tensor:
+        from repro_torch.parallel.sharding import model_block
+        ts = {q: t if self.row is None else t[self.row]
+              for q, t in self.shards.items()}
+        return model_block(self.leaf, self.pos, ts, row=self.row is not None,
+                           sources=self.sources)
+
+
+def gathered(p):
+    """A layer's parameters ``p`` (a dict of tensors, :class:`PerPos` or
+    :class:`Stored` values) with every Stored block gathered: alive
+    while the layer that called this runs."""
+    def one(v):
+        if isinstance(v, Stored):
+            return v.block()
+        if isinstance(v, PerPos):
+            return PerPos(one(t) for t in v)
+        return v
+    return {k: one(v) for k, v in p.items()}
+
+
+# the autograd engine runs a backward's nodes on one thread per card
+_COUNT = threading.Lock()
+
+
 def _count(key: str, x, in_collective: bool = False):
     n = _nbytes(x)
-    WIRE[key] += n
-    if not in_collective:
-        EVENTS.append(Event(key, "collective-permute", 1, n, n))
+    with _COUNT:
+        WIRE[key] += n
+        if not in_collective:
+            EVENTS.append(Event(key, "collective-permute", 1, n, n))
+
+
+# a send between two positions of a meta mesh (one device) makes a new
+# storage, as one between two cards makes a copy: the dry run's tally
+# then counts each received block while it lives.  ``sends_as_views``
+# turns it off: sends between positions that share a card are views
+_META_COPIES = [True]
+
+
+@contextlib.contextmanager
+def sends_as_views():
+    """Within the block, a send on a meta mesh is a view (no received
+    storage), as between positions sharing one card."""
+    _META_COPIES.append(False)
+    try:
+        yield
+    finally:
+        _META_COPIES.pop()
+
+
+def _moved(x, device):
+    y = x.to(device)
+    if y is x and x.device.type == "meta" and _META_COPIES[-1]:
+        return x.clone()
+    return y
 
 
 class _Send(torch.autograd.Function):
@@ -131,13 +207,76 @@ class _Send(torch.autograd.Function):
     def forward(ctx, x, device, site, kind):
         ctx.src, ctx.site, ctx.kind = x.device, site, kind
         _count(f"{site} {kind}", x, _in_collective > 0)
-        y = x.to(device)
+        y = _moved(x, device)
         return y.view_as(y) if y is x else y
 
     @staticmethod
     def backward(ctx, g):
         _count(f"{ctx.site} {_TRANSPOSE[ctx.kind]}", g)
-        return g.to(ctx.src), None, None, None
+        return _moved(g, ctx.src), None, None, None
+
+
+# None, or a callable (tensor, mesh position) that ``gather_blocks``'s
+# backward calls on each block's gradient (``placing``)
+PLACED = None
+
+
+@contextlib.contextmanager
+def placing(fn):
+    """Within the block, ``fn(tensor, position)`` learns the mesh position
+    of each gradient ``gather_blocks``'s backward sends back (the dry
+    run: a position outside the data group it runs)."""
+    global PLACED
+    PLACED = fn
+    try:
+        yield
+    finally:
+        PLACED = None
+
+
+class _Gather(torch.autograd.Function):
+    """The concatenation along ``dim`` on ``device`` of blocks from
+    several positions (mesh ``positions``), ``own`` the index of the
+    receiver's: each other block a send.  The backward hands each block
+    its gradient as a tensor of its own (sent back, or copied), not a
+    view of the gathered gradient, which would live as long as any of
+    them."""
+
+    @staticmethod
+    def forward(ctx, device, dim, site, own, positions, *xs):
+        ctx.dim, ctx.site, ctx.own, ctx.positions = dim, site, own, positions
+        ctx.srcs = [x.device for x in xs]
+        ctx.sizes = [x.shape[dim] for x in xs]
+        parts = []
+        for i, x in enumerate(xs):
+            if i != own:
+                _count(f"{site} all_gather", x, _in_collective > 0)
+                x = _moved(x, device)
+            parts.append(x)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = []
+        for i, gi in enumerate(g.split(ctx.sizes, ctx.dim)):
+            if i != ctx.own:
+                _count(f"{ctx.site} reduce_scatter", gi)
+            y = _moved(gi, ctx.srcs[i])
+            if y is gi:
+                y = gi.clone(memory_format=torch.contiguous_format)
+            if PLACED is not None:
+                PLACED(y, ctx.positions[i])
+            out.append(y)
+        return (None,) * 5 + tuple(out)
+
+
+def gather_blocks(xs: Sequence[torch.Tensor], own: int, device, dim: int,
+                  site: str, positions: Sequence[int]):
+    """The blocks ``xs`` of mesh ``positions`` concatenated along ``dim``
+    on ``device``, the receiver's own block ``xs[own]``: every other one
+    sent and counted under ``site`` as an all-gather, and the backward's
+    under its transpose."""
+    return _Gather.apply(device, dim, site, own, tuple(positions), *xs)
 
 
 def send(x, device, site: str, kind: str):
@@ -148,7 +287,7 @@ def send(x, device, site: str, kind: str):
     if torch.is_grad_enabled() and x.requires_grad:
         return _Send.apply(x, device, site, kind)
     _count(f"{site} {kind}", x, _in_collective > 0)
-    return x.to(device)
+    return _moved(x, device)
 
 
 def at(tree, m: int):

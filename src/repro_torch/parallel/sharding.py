@@ -370,22 +370,18 @@ def gather(st: Sharded, device=None) -> torch.Tensor:
     return out
 
 
-def model_block(st: Sharded, pos: int, shards=None, site: str = "fsdp"):
-    """Position ``pos``'s block of ``st`` under its spec with every axis
-    but "model" dropped: its own shard when the spec names no other axis;
-    else (a leaf stored over the data axes, the reference's "fsdp") the
-    blocks of the positions that differ from it on those axes, sent to
-    its device and concatenated in mesh order: the all-gather the
-    reference's MoE makes of its expert weights.  ``shards`` (default
-    ``st.shards``) are the tensors to read, e.g. each position's leaf
-    that requires grad."""
-    from repro_torch.parallel import collectives as col
-    shards = st.shards if shards is None else shards
+def data_sources(st: Sharded, pos: int):
+    """(the dim, the positions) whose blocks make position ``pos``'s
+    block of ``st`` under its spec with every axis but "model" dropped:
+    for a leaf stored over the data axes (the reference's "fsdp") the
+    positions that differ from ``pos`` only on those axes, in the order
+    of their blocks along that dim; (None, (pos,)) when its own shard is
+    its block."""
     mesh = st.mesh
     dims = [i for i, e in enumerate(st.spec)
             if any(a != "model" for a in _axes(e))]
     if not dims:
-        return shards[pos]
+        return None, (pos,)
     if len(dims) > 1 or "model" in _axes(st.spec[dims[0]]):
         raise NotImplementedError(f"gathering spec {st.spec} over its "
                                   "non-model axes")
@@ -395,12 +391,31 @@ def model_block(st: Sharded, pos: int, shards=None, site: str = "fsdp"):
            if all(_coord(mesh, q, a) == _coord(mesh, pos, a)
                   for a in mesh.axis_names if a not in others)]
     if len(src) == 1:            # the other axes have one position
-        return shards[pos]
+        return None, (pos,)
     src.sort(key=lambda q: region(st.shape, st.spec, mesh, q)[d].start)
-    dev = mesh.devices[pos]
-    return torch.cat([shards[q] if q == pos else
-                      col.send(shards[q], dev, site, "all_gather")
-                      for q in src], d)
+    return d, tuple(src)
+
+
+def model_block(st: Sharded, pos: int, shards=None, site: str = "fsdp",
+                row: bool = False, sources=None):
+    """Position ``pos``'s block of ``st`` under its spec with every axis
+    but "model" dropped: its own shard when the spec names no other axis;
+    else (a leaf stored over the data axes, the reference's "fsdp") the
+    blocks of the positions that differ from it on those axes
+    (``data_sources``), sent to its device and concatenated in mesh
+    order: the all-gather the reference's MoE makes of its expert
+    weights.  ``shards`` (default ``st.shards``; by position) are the
+    tensors to read, e.g. each position's leaf that requires grad; with
+    ``row`` each is one row of a stacked leaf (a cycle's); ``sources``
+    is ``data_sources(st, pos)`` when the caller has it."""
+    from repro_torch.parallel import collectives as col
+    shards = st.shards if shards is None else shards
+    d, src = sources or data_sources(st, pos)
+    if d is None:
+        return shards[pos]
+    return col.gather_blocks([shards[q] for q in src], src.index(pos),
+                             st.mesh.devices[pos], d - 1 if row else d,
+                             site, src)
 
 
 def row_block(st: Sharded, pos: int, shards=None, site: str = "reshard"):
@@ -428,12 +443,19 @@ def row_block(st: Sharded, pos: int, shards=None, site: str = "reshard"):
 def consumer_block(st: Sharded, path: str, pos: int, shards=None):
     """Position ``pos``'s block of the leaf at ``path`` as the layer that
     consumes it takes it: ``row_block`` for a ROW_CONSUMED leaf stored
-    in column blocks over a model axis of more than one position, else
-    ``model_block``."""
+    in column blocks over a model axis of more than one position; for a
+    leaf stored over the data axes a
+    :class:`~repro_torch.parallel.collectives.Stored` (its layer gathers
+    it, ``model_block``, when it runs); else its own shard."""
+    from repro_torch.parallel import collectives as col
+    shards = st.shards if shards is None else shards
     if (ROW_CONSUMED.search(path) and st.spec[-2:] == (None, "model")
             and st.mesh.shape.get("model", 1) > 1):
         return row_block(st, pos, shards)
-    return model_block(st, pos, shards)
+    sources = data_sources(st, pos)
+    if sources[0] is not None:
+        return col.Stored(st, pos, shards, sources)
+    return shards[pos]
 
 
 def cache_specs(cfg, env: ShardingEnv):

@@ -92,9 +92,10 @@ def mesh_loss_and_grads(cfg: ModelConfig, params, batch,
     ``pmean`` over the batch axes; the capacity is the group's tokens')
     and its MTP NLL sum over the whole batch's MTP mask count.
     ``params`` is the reference-shaped tree of Sharded leaves; a leaf
-    stored over the data axes (the MoE's "fsdp") is gathered for each
-    group and its gradient comes back to every position holding a block
-    of it.  Returns (metrics, gradients: a tree of partial Sharded
+    stored over the data axes (the MoE's "fsdp") is gathered by its
+    layer when it runs, one layer at a time, and again in the
+    checkpointed cycle's recompute (``collectives.Stored``), and its
+    gradient comes back to every position holding a block of it.  Returns (metrics, gradients: a tree of partial Sharded
     leaves, each position's share).
 
     ``groups_run`` (at least 1) runs only the first that many data
@@ -326,7 +327,10 @@ def _mesh_env(mesh):
 class _GroupViews:
     """Each model group's parameter view (``weights.group_params``) of the
     last Sharded tree seen, built when the group first runs on it: a
-    decode step reuses them."""
+    decode step reuses them.  A view holds the stored blocks of a leaf
+    stored over the data axes (``collectives.Stored``): each step's MoE
+    layers gather theirs one layer at a time, as the reference's jitted
+    step does."""
 
     def __init__(self, cfg, mesh):
         self.cfg, self.groups = cfg, col.model_groups(mesh)

@@ -256,7 +256,10 @@ def group_params(params, group, cfg, shards=None):
     """The parameters of one model group as its forward takes them
     (``group_view`` of its positions' port nestings): each leaf of the
     reference-shaped Sharded tree ``params`` gives each position its
-    block as its consumer takes it (``sharding.consumer_block``).
+    block as its consumer takes it (``sharding.consumer_block``); a leaf
+    stored over the data axes stays each position's stored blocks
+    (``collectives.Stored``, a cycle's rows of a stacked leaf), which its
+    layer gathers when it runs, also in a one-position group.
     ``shards`` (default each leaf's shards) is a list, per leaf in
     ``tree_leaves`` order, of the tensors to read, e.g. leaves that
     require grad."""

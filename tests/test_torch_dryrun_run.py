@@ -1,9 +1,12 @@
 """The dry run (``launch/dryrun.py``) against the port's own run, on the
 CPU at tiny sizes.
 
-A tiny qwen3-14b cell (4 layers) on a 2x2 mesh, its train, prefill and
-decode step run once on CPU positions (``devices="cpu"``) under
-``FlopCounterMode``, gives the same wire bytes at every collective site,
+A tiny qwen3-14b cell and a tiny grok-1 cell (4 layers; grok's expert
+weights stored over the data axis, each MoE layer gathering its blocks
+when it runs and again in the train step's recompute) on a 2x2 mesh,
+its train, prefill and decode step run once on CPU positions
+(``devices="cpu"``) under ``FlopCounterMode``, gives the same wire
+bytes at every collective site,
 the same event summary and the same counted FLOPs as the dry run on meta
 positions, which cut the cycles to 2 and 3 and ran one data group
 (the decode step's too); and
@@ -62,9 +65,14 @@ def _cpu_run(cfg, shape, mesh):
     return dict(col.WIRE), list(col.EVENTS), fc.get_total_flops()
 
 
-@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-def test_prediction_equals_the_port_run(kind):
-    cfg = get_tiny_config("qwen3-14b").replace(n_layers=4)
+CASES = [(a, k) for a in ("qwen3-14b", "grok-1-314b")
+         for k in ("train", "prefill", "decode")]
+
+
+@pytest.mark.parametrize("arch,kind", CASES, ids=[
+    k if a == "qwen3-14b" else f"{a}-{k}" for a, k in CASES])
+def test_prediction_equals_the_port_run(arch, kind):
+    cfg = get_tiny_config(arch).replace(n_layers=4)
     shape = ShapeConfig("t", S, B, kind)
     got = dryrun.dry_step(cfg, shape, make_test_mesh(2, 2, devices="meta"))
     assert got["symmetry"]["cycles"]["runs_at"] == [2, 3]

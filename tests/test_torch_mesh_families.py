@@ -39,6 +39,7 @@ import torch
 from repro_torch import steps, weights
 from repro_torch.configs import get_tiny_config
 from repro_torch.launch.mesh import make_mesh, make_test_mesh
+from repro_torch.models import lm as tlm
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.pipeline import pipeline_apply
 from repro_torch.parallel.sharding import sum_regions, use_sharding
@@ -199,9 +200,10 @@ def test_pipeline_backward_matches_reference(ref):
 
 def test_moe_expert_weights_gather_over_the_data_axis():
     """On a (2,2) mesh the experts' weights are stored over the data axis
-    (the reference's "fsdp") and each model position's forward gathers
-    its expert-TP block of all of them; the gather and its transpose
-    are counted."""
+    (the reference's "fsdp") and each model position's MoE layer gathers
+    its expert-TP block of them when it runs, and again in the
+    checkpointed cycle's recompute (the reference's ``jax.checkpoint``ed
+    scan body); the gathers and their transpose are counted."""
     cfg = _cfg("grok-1-314b")
     params = weights.init_params(cfg, torch.Generator().manual_seed(0),
                                  "cpu")
@@ -218,5 +220,6 @@ def test_moe_expert_weights_gather_over_the_data_axis():
         assert up.spec == (None, None, "data", "model")
         col.WIRE.clear()
         steps.mesh_loss_and_grads(cfg, st, batch)
+    assert cfg.remat and all(s.scanned for s in tlm.make_segments(cfg))
     assert col.WIRE["fsdp all_gather"] > 0
-    assert col.WIRE["fsdp reduce_scatter"] == col.WIRE["fsdp all_gather"]
+    assert 2 * col.WIRE["fsdp reduce_scatter"] == col.WIRE["fsdp all_gather"]

@@ -290,19 +290,19 @@ def test_train_cli_trains_on_a_mesh(flags, capsys):
 
 
 @pytest.mark.parametrize("arch,flags,why", [
-    ("grok-1-314b", ["--data", "2"], "item 16"),
-    ("deepseek-v3-671b", ["--data", "2"], "item 16"),
-    ("deepseek-v3-671b", ["--model", "2"], "item 16"),
-    ("recurrentgemma-2b", ["--model", "2"], "item 16"),
-    ("rwkv6-1.6b", ["--model", "2"], "item 16"),
+    ("grok-1-314b", ["--data", "2"], "trains on a mesh"),
+    ("deepseek-v3-671b", ["--data", "2"], "trains on a mesh"),
+    ("deepseek-v3-671b", ["--model", "2"], "trains on a mesh"),
+    ("recurrentgemma-2b", ["--model", "2"], "trains on a mesh"),
+    ("rwkv6-1.6b", ["--model", "2"], "trains on a mesh"),
     ("tiny-100m", ["--impl", "pallas"], "no backward")])
 def test_train_cli_refuses_what_it_cannot_train(arch, flags, why, capsys):
     """``--impl pallas`` exits 2: the kernels have no backward.  The
-    "item 16" cases (MoE on a data axis, MLA, RG-LRU and RWKV-6 on a model
-    axis), which exited 2 while the mesh trainer refused them, now
-    train on the mesh to a finite loss."""
+    cases that train on a mesh (MoE on a data axis, MLA, RG-LRU and
+    RWKV-6 on a model axis), which exited 2 while the mesh trainer
+    refused them, train to a finite loss."""
     argv = ["--tiny", "--device", "cpu", "--arch", arch] + flags
-    if why == "item 16":
+    if why == "trains on a mesh":
         out = train_cli.main(argv + ["--steps", "2", "--seq", "32",
                                      "--batch", "4"])
         assert "mesh {" in capsys.readouterr().out
