@@ -165,6 +165,18 @@ def gpu_info():
         else f"nvidia-smi failed: {out.stderr.strip()}"
 
 
+def _sync():
+    """Wait for every visible card (a mesh may hold work on each)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _reset_peak():
+    """Reset every visible card's peak (``_peak_gb``)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
 def time_ms(fn, iters=20, flush_bytes=64 << 20):
     """Mean device time of ``fn`` in ms: CUDA events around each call, with
     the 50 MB L2 cache flushed before it (the engine's caller finds the
@@ -184,6 +196,7 @@ def time_ms(fn, iters=20, flush_bytes=64 << 20):
         fn()
         e.record()
         e.synchronize()
+        _sync()
         times.append(s.elapsed_time(e))
     return float(np.mean(times))
 
@@ -1538,7 +1551,10 @@ def _launches(ops):
 
 
 def _peak_gb():
-    return torch.cuda.max_memory_allocated() / 1e9
+    """The largest peak of a visible card since ``_reset_peak`` (GB);
+    ``_card_peaks`` gives each card's."""
+    return max(torch.cuda.max_memory_allocated(i)
+               for i in range(torch.cuda.device_count())) / 1e9
 
 
 def serve_paged(ops, cfg, params):
@@ -1559,14 +1575,14 @@ def serve_paged(ops, cfg, params):
                       device=DEVICE)
     eng.warmup_windows()
     prompts = make_prompts(n_req, plen, cfg.vocab_size, SEED)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _sync()
+    _reset_peak()
     ops.reset_launches()                     # counts of the main path only
     t0 = time.time()
     for i, p in enumerate(prompts):
         eng.submit(p, gen_len, rid=f"req{i}")
     fin = eng.run()
-    torch.cuda.synchronize()
+    _sync()
     wall = time.time() - t0
     launches = _launches(ops)
     peak_gb = _peak_gb()
@@ -1675,11 +1691,11 @@ def _ttft_ms(eng, plen, n=3):
         pair = feature_prompts(eng.cfg.vocab_size, SEED + 100 + j, 1, 2,
                                plen, run["shared"], run["motif"])
         for p, out, tag in zip(pair, (miss, hit), "ab"):
-            torch.cuda.synchronize()
+            _sync()
             t0 = time.time()
             eng.submit(p, 1, rid=f"ttft{j}{tag}")
             eng.run()
-            torch.cuda.synchronize()
+            _sync()
             out.append((time.time() - t0) * 1e3)
     return miss, hit
 
@@ -1753,12 +1769,12 @@ def serve_paged_features(ops, cfg, params):
         eng.reset_metrics()
         if eng.cache is not None:
             eng.cache.clear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _sync()
+        _reset_peak()
         ops.reset_launches()                 # counts of this run only
         t0 = time.time()
         fin = serve_leaders_first(eng, prompts, gen_len, leaders)
-        torch.cuda.synchronize()
+        _sync()
         wall = time.time() - t0
         launches = _launches(ops)
         peak_gb = _peak_gb()
@@ -1944,14 +1960,14 @@ def serve_paged_chaos(ops, cfg, params, base):
         eng.run()
         eng.reset_metrics()
         eng.install_faults(chaos_plan())     # plan step 0: the first step
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _sync()
+        _reset_peak()
         ops.reset_launches()                 # counts of this run only
         t0 = time.time()
         for i, p in enumerate(prompts):
             eng.submit(p, gen_len, rid=f"req{i}")
         fin = eng.run()
-        torch.cuda.synchronize()
+        _sync()
         wall = time.time() - t0
         launches = _launches(ops)
         peak_gb = _peak_gb()
@@ -2150,16 +2166,19 @@ def _bf16_ties(cfg, params, prompts, base, got, what, mesh=None,
     return ties
 
 
-def serve_paged_striped(ops, cfg, params):
+def serve_paged_striped(ops, cfg, params, meshes=None):
     """The paged engine at ``cfg``'s widths with PAGED_RUN's traffic on
     STRIPED_RUN's pool, warm: the pools on one device, then striped over
-    the 1x4 mesh.  Checks every request's tokens (the mesh run's against
-    the one-device run's, near-tie rule ``_bf16_ties``), the same
-    schedule, each kernel's launches (paged decode once per stripe on the
-    mesh: 4 times the one-device run's, every one in the masked mode) and
-    the finite logits of one more decode step; reports tok/s, decode
-    step, peak memory, syncs, the distinct cards and a profiled window.
-    Returns, per run, (stats, launches, line)."""
+    the 1x4 mesh (``meshes``: the runs' meshes, None for the pools on one
+    device; the first is the base).  Checks every request's tokens (each
+    later run's against the base's, near-tie rule ``_bf16_ties``), the
+    same schedule, each kernel's launches (paged decode once per stripe
+    on a mesh: 4 times the one-device run's, every one in the masked
+    mode, and as many on each card of the mesh) and the finite logits of
+    one more decode step (whether they equal the base's bit for bit);
+    reports tok/s, decode step, peak memory (each card's), syncs, the
+    distinct cards and a profiled window.  Returns, per run, (stats,
+    launches, line)."""
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.serve import make_prompts
     from repro_torch.serving.engine import PagedEngine
@@ -2172,30 +2191,37 @@ def serve_paged_striped(ops, cfg, params):
     n_pages = batch * (-(-max_len // ps)) + 1
     n_pages += -n_pages % M
     prompts = make_prompts(n_req, plen, cfg.vocab_size, SEED)
-    out, base = [], None
-    for mesh in (None, make_test_mesh(STRIPED_RUN["data"], M)):
+    out, base, base_logits = [], None, None
+    for mesh in meshes or (None, make_test_mesh(STRIPED_RUN["data"], M)):
         eng = PagedEngine(cfg, params, max_batch=batch, page_size=ps,
                           n_pages=n_pages, max_len=max_len, n_nodes=M,
                           fused=True, max_window=run["window"],
                           prefill_budget=STRIPED_RUN["prefill_budget"],
                           mesh=mesh, device=DEVICE)
         eng.warmup_windows()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _sync()
+        _reset_peak()
         ops.reset_launches()                 # counts of this run only
+        by0 = dict(ops.paged_decode_attention.by_card)
         t0 = time.time()
         for i, p in enumerate(prompts):
             eng.submit(p, gen_len, rid=f"req{i}")
         fin = eng.run()
-        torch.cuda.synchronize()
+        _sync()
         wall = time.time() - t0
         launches = _launches(ops)
         masked = ops.paged_decode_attention.masked_launches
+        by_card = {c: n - by0.get(c, 0) for c, n in
+                   ops.paged_decode_attention.by_card.items()
+                   if n - by0.get(c, 0)}
         peak_gb = _peak_gb()
+        card_peaks = _card_peaks(mesh) if mesh is not None else [peak_gb]
         m = eng.metrics()
+        cards = 1 if mesh is None else mesh.distinct_devices
         what = (f"{cfg.name} paged, {M} nodes, "
                 + ("pools on one device" if mesh is None else
-                   f"pools striped on a {STRIPED_RUN['data']}x{M} mesh"))
+                   f"pools striped on a {STRIPED_RUN['data']}x{M} mesh on "
+                   f"{cards} card(s)"))
         if len(fin) != n_req or any(len(r.tokens) != gen_len for r in fin):
             fail(f"{what}: not every request finished with its tokens")
         if any(not (0 <= t < cfg.vocab_size) for r in fin for t in r.tokens):
@@ -2210,6 +2236,9 @@ def serve_paged_striped(ops, cfg, params):
         paged = launches["paged_decode_attention"]
         if masked != (0 if mesh is None else paged):
             fail(f"{what}: {masked} of {paged} paged decode launches masked")
+        if sorted(by_card.values()) != [paged // cards] * cards:
+            fail(f"{what}: paged decode launches by card {by_card}, not "
+                 f"{paged // cards} on each of {cards}")
         toks = {r.rid: list(r.tokens) for r in fin}
         ties = []
         if base is not None:
@@ -2219,8 +2248,9 @@ def serve_paged_striped(ops, cfg, params):
                      f"steps, {m['windows']} windows; on one device "
                      f"{base['prefills']}, {base['decode_steps']}, "
                      f"{base['windows']}")
-            if paged != M * base["launches"]["paged_decode_attention"]:
-                fail(f"{what}: {paged} paged decode launches, not {M} x "
+            times = stripes // base["stripes"]
+            if paged != times * base["launches"]["paged_decode_attention"]:
+                fail(f"{what}: {paged} paged decode launches, not {times} x "
                      f"{base['launches']['paged_decode_attention']}")
             if (m["h2d_syncs"], m["d2h_syncs"]) != (base["h2d_syncs"],
                                                     base["d2h_syncs"]):
@@ -2229,9 +2259,12 @@ def serve_paged_striped(ops, cfg, params):
                      f"{base['h2d_syncs']} + {base['d2h_syncs']}")
             ties = _bf16_ties(cfg, params, prompts, base["tokens"], toks,
                               what)
-        logits = _one_step_logits(eng)
+        logits = _one_step_logits(eng).cpu()
         if not torch.isfinite(logits).all():
             fail(f"{what}: non-finite logits after serving")
+        same = None if base_logits is None else \
+            torch.equal(logits, base_logits)
+        diff = None if base_logits is None else max_err(logits, base_logits)
         prof = _profile_window(eng, prompts)
         pool = eng.pools[0][0][0]
         devs = [str(t.device) for t in (pool.k if mesh is not None
@@ -2249,8 +2282,10 @@ def serve_paged_striped(ops, cfg, params):
                      windows=m["windows"], preemptions=m["preemptions"],
                      h2d_syncs=m["h2d_syncs"], d2h_syncs=m["d2h_syncs"],
                      launches=launches, masked_launches=masked,
+                     paged_by_card=by_card, card_peaks_gb=card_peaks,
                      peak_gb=peak_gb, profile=prof, near_ties=ties,
-                     tokens=toks)
+                     tokens=toks, logits_bit_equal=same,
+                     logits_max_abs_diff=diff)
         line = (f"serve {what} ({n_pages} pages on "
                 f"{sorted(set(devs))}, {len(set(devs))} distinct card(s); "
                 f"admission budget {STRIPED_RUN['prefill_budget']}): "
@@ -2259,36 +2294,46 @@ def serve_paged_striped(ops, cfg, params):
                 f"{stats['decode_step_ms']:.3f} ms; {prefills} prefills, "
                 f"{scan_steps} decode steps, {m['windows']} windows; syncs "
                 f"{m['h2d_syncs']} h2d + {m['d2h_syncs']} d2h; peak memory "
-                f"{peak_gb:.2f} GB; launches {launches}, {masked} masked")
+                f"{peak_gb:.2f} GB"
+                + (f" (each card {', '.join(f'{g:.2f}' for g in card_peaks)})"
+                   if cards > 1 else "")
+                + f"; launches {launches}, {masked} masked; paged decode "
+                f"launches by card {by_card}")
         if base is not None:
             stats["step_ratio"] = (stats["decode_step_ms"]
                                    / base["decode_step_ms"])
             stats["peak_delta_gb"] = peak_gb - base["peak_gb"]
             line += (f"; decode step {stats['step_ratio']:.3f}x, peak "
-                     f"{stats['peak_delta_gb']:+.3f} GB against the pools on "
-                     f"one device; paged decode {paged} = {M} x "
+                     f"{stats['peak_delta_gb']:+.3f} GB against the "
+                     f"{base_what}; paged decode {paged} = {times} x "
                      f"{base['launches']['paged_decode_attention']}; schedule "
                      f"and syncs equal; tokens "
                      + ("equal" if not ties else f"equal but at near-ties "
-                        f"{ties}"))
+                        f"{ties}")
+                     + "; one more step's logits "
+                     + ("bit-equal" if same else f"differ by at most "
+                        f"{diff:.3g}"))
         line += (f"; profiled {prof['steps']}-step window: "
                  f"{prof['wall_ms']:.3f} ms wall, device busy "
                  f"{prof['busy_share']:.3f}, "
                  f"{prof['launches_per_step']:.0f} device launches per step, "
                  f"top {prof['top']}")
         out.append((stats, launches, line))
-        base = stats
+        if base is None:
+            base, base_logits = stats, logits
+            base_what = what.split(", ", 2)[-1]
         del eng
         torch.cuda.empty_cache()
     return out
 
 
-def serve_cli_striped():
+def serve_cli_striped(cards=1):
     """The serve CLI at qwen3-1.7b's full width on a 1x4 mesh
     (``--engine paged --devices 4 --model 4``, PAGED_RUN's traffic and
     STRIPED_RUN's budget) in a process of its own: it must serve every
-    request and report 4 stripes.  Its output goes to
-    chiprun_out/serve_cli_striped.txt."""
+    request and report 4 stripes on ``cards`` distinct cards (its
+    positions go round-robin over the visible cards).  Its output goes
+    to chiprun_out/serve_cli_striped.txt."""
     import os
     run = PAGED_RUN
     argv = ["--arch", "qwen3-1.7b", "--engine", "paged", "--devices", "4",
@@ -2309,7 +2354,8 @@ def serve_cli_striped():
     n_tok = run["requests"] * run["gen"]
     if r.returncode or not served or \
             f"served {run['requests']} requests, {n_tok} tokens" \
-            not in served[0] or "each pool in 4 stripes" not in r.stdout:
+            not in served[0] or "each pool in 4 stripes" not in r.stdout \
+            or f"({cards} distinct device(s) in the mesh)" not in r.stdout:
         fail(f"serve CLI {' '.join(argv)}: exit {r.returncode}; "
              f"{r.stderr[-2000:]}")
     stripes = [x for x in r.stdout.splitlines() if "stripes over" in x][0]
@@ -2387,11 +2433,11 @@ def serve_dense(ops, cfg, params):
         [f"--{k.replace('_', '-')}={v}" for k, v in run.items()]
         + [f"--seed={SEED}"])
     n_params = sum(t.numel() for t in _leaves(params))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _sync()
+    _reset_peak()
     ops.reset_launches()                     # counts of this path only
     out, st = run_dense(args, cfg, params=params, device=DEVICE)
-    torch.cuda.synchronize()
+    _sync()
     launches = _launches(ops)
     peak_gb = _peak_gb()
     if sorted(out) != list(range(args.requests)) or any(
@@ -2488,11 +2534,11 @@ def _synced_ms(fn, n):
     """Device-synchronized host time of ``fn`` in ms, the mean of ``n``
     calls after one unclocked call."""
     fn()
-    torch.cuda.synchronize()
+    _sync()
     t0 = time.time()
     for _ in range(n):
         fn()
-    torch.cuda.synchronize()
+    _sync()
     return (time.time() - t0) / n * 1e3
 
 
@@ -2514,19 +2560,19 @@ def serve_embeddings(ops, cfg, params):
     pos = vl_positions(B, S, DEVICE)
     max_len = S + gen_len
     n_params = sum(t.numel() for t in _leaves(params))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _sync()
+    _reset_peak()
     ops.reset_launches()                     # counts of this path only
     t0 = time.time()
     logits, caches = lm.prefill(params, cfg, x, max_len=max_len,
                                 positions=pos)
     outs = [logits]
-    torch.cuda.synchronize()
+    _sync()
     t1 = time.time()
     for i in range(gen_len):
         logits, caches = lm.decode_step(params, cfg, e[i], caches, S + i)
         outs.append(logits)
-    torch.cuda.synchronize()
+    _sync()
     t2 = time.time()
     launches = _launches(ops)
     peak_gb = _peak_gb()
@@ -2586,11 +2632,11 @@ def serve_encoder(ops, cfg, params):
         return lm.head_logits(params, cfg,
                               lm.final_norm(params, cfg, h, pending))
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _sync()
+    _reset_peak()
     ops.reset_launches()                     # counts of this path only
     logits = frames()
-    torch.cuda.synchronize()
+    _sync()
     launches = _launches(ops)
     peak_gb = _peak_gb()
     want = expected_launches(cfg, 1, 0, B * S, B, False)
@@ -2629,21 +2675,30 @@ def _profile(fn, cpu=True):
     ``cpu=False`` the host's ops are not traced (only the device's
     kernels are read either way)."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
+    _sync()
     with profile(activities=[ProfilerActivity.CPU] * cpu
                  + [ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         k = max(fn(), 1)
-        torch.cuda.synchronize()
+        _sync()
         wall = time.time() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = {e.key: e.self_device_time_total for e in kernels}
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:4]
+    cards = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            c = cards.setdefault(e.device_index, [0.0, 0])
+            c[0] += e.self_device_time_total
+            c[1] += 1
     return dict(steps=k, wall_ms=wall * 1e3,
                 busy_share=sum(dev_us.values()) / 1e6 / wall,
                 launches_per_step=sum(e.count for e in kernels) / k,
-                top=[(name[:48], round(us / 1e3 / k, 4)) for name, us in top])
+                top=[(name[:48], round(us / 1e3 / k, 4)) for name, us in top],
+                by_card={i: dict(busy_share=us / 1e6 / wall,
+                                 launches_per_step=n / k)
+                         for i, (us, n) in sorted(cards.items())})
 
 
 def _profile_dense(cfg, params, args):
@@ -2719,10 +2774,10 @@ def _mean_prefill_ms(eng, prompt, n=5):
                      device=DEVICE)
     times = []
     for _ in range(n):
-        torch.cuda.synchronize()
+        _sync()
         t0 = time.time()
         prefill(eng.params, tok, eng.pools, row)
-        torch.cuda.synchronize()
+        _sync()
         times.append(time.time() - t0)
     return float(np.mean(times[1:])) * 1e3
 
@@ -3534,10 +3589,12 @@ def _examples():
         sys.path.insert(0, path)
 
 
-def paper_store():
+def paper_store(devices=DEVICE, keep=False):
     """The §X-B comparison on the card: one SingleController and one
-    StripedStore on a 1x4 mesh (4 stripes of 1 GiB on the one card),
-    each written STORE_RUN's batches and read them back, timed."""
+    StripedStore on a 1x4 mesh (4 stripes of 1 GiB on the one card, or
+    one on each of ``devices``), each written STORE_RUN's batches and
+    read them back, timed; ``keep``: the record keeps the stripes
+    (``words``)."""
     from repro_torch.core.memory_server import (SingleController,
                                                 StripedStore,
                                                 stripe_slab_index)
@@ -3569,7 +3626,7 @@ def paper_store():
     want_addr, want_val = As[last], V[order[last]]
     dup = A.numel() - want_addr.numel()
     del A, V, order, As, last
-    mesh = make_test_mesh(1, n, devices=DEVICE)
+    mesh = make_test_mesh(1, n, devices=devices)
     stores = {"single": SingleController(size, device=DEVICE)}
     with use_sharding(mesh):
         stores["striped"] = StripedStore(size)
@@ -3579,15 +3636,15 @@ def paper_store():
     for name, st in stores.items():
         st.write(*batches[0])              # warm (rewritten below)
         st.read(batches[0][0])
-        torch.cuda.synchronize()
+        _sync()
         t0 = time.perf_counter()
         for a, v in batches:
             st.write(a, v)
-        torch.cuda.synchronize()
+        _sync()
         t_w = time.perf_counter() - t0
         t0 = time.perf_counter()
         reads[name] = [st.read(a) for a, _ in batches]
-        torch.cuda.synchronize()
+        _sync()
         t_r = time.perf_counter() - t0
         total = run["batches"] * B
         rates[name] = dict(writes_m_per_s=total / t_w / 1e6,
@@ -3604,7 +3661,8 @@ def paper_store():
                  f"written value")
     # bit for bit everywhere: stripe j holds the words j, j + n, ...
     for j, stripe in enumerate(striped.stripes):
-        if not torch.equal(single.slab.view(rows, n)[:, j], stripe):
+        if not torch.equal(single.slab.view(rows, n)[:, j],
+                           stripe.to(single.slab.device)):
             fail(f"store: stripe {j} differs from the single controller's "
                  f"words")
     nonzero = [int(torch.count_nonzero(single.slab)),
@@ -3621,7 +3679,8 @@ def paper_store():
     slab_row = stripe_slab_index(want_addr, n, size)
     for j, stripe in enumerate(striped.stripes):
         mine = (want_addr % n) == j
-        if not torch.equal(stripe[slab_row[mine] - j * rows],
+        if not torch.equal(stripe[(slab_row[mine] - j * rows).to(
+                stripe.device)].to(DEVICE),
                            want_val[mine]):
             fail(f"store: stripe {j} does not hold the rows "
                  f"stripe_slab_index gives it")
@@ -3635,10 +3694,13 @@ def paper_store():
             f"wins): single controller {rates['single']['writes_m_per_s']:.1f}"
             f" M writes/s, {rates['single']['reads_m_per_s']:.1f} M reads/s;"
             f" striped on a 1x{n} mesh ({n} stripes of "
-            f"{rows * 4 / 2 ** 30:g} GiB on the one card) {rates['striped']['writes_m_per_s']:.1f} M writes/s, "
+            f"{rows * 4 / 2 ** 30:g} GiB on {mesh.distinct_devices} "
+            f"card(s)) {rates['striped']['writes_m_per_s']:.1f} M writes/s, "
             f"{rates['striped']['reads_m_per_s']:.1f} M reads/s; stores "
             f"equal bit for bit, last writes read back, untouched words 0, "
             f"stripes in place")
+    if keep:
+        stats["words"] = list(striped.stripes)
     del stores, single, striped, reads, batches
     torch.cuda.empty_cache()
     return stats, line
@@ -3652,11 +3714,11 @@ def paper_neurons():
     import torch_neuron_sim as sim
     run = NEURON_RUN
     N, steps = run["neurons"], run["steps"]
-    torch.cuda.synchronize()
+    _sync()
     t0 = time.perf_counter()
     res = sim.simulate(N, steps, seed=SEED, device=DEVICE,
                        keep=run["parity"])
-    torch.cuda.synchronize()
+    _sync()
     wall = time.perf_counter() - t0
     total = res["total_spikes"]
     Wv = res["Wv"].cpu()
@@ -3695,7 +3757,7 @@ def paper_neurons():
     n_phys = run["physiological"]
     t0 = time.perf_counter()
     phys = sim.simulate(n_phys, steps, seed=SEED, device=DEVICE)
-    torch.cuda.synchronize()
+    _sync()
     wall_phys = time.perf_counter() - t0
     lo, hi = NEURON_BAND_HZ
     if not lo <= phys["rate_hz"] <= hi:
@@ -3740,7 +3802,7 @@ def paper_shared(ops, cfg, params):
     (eng_off, off), (eng_on, on) = shm.serve_shared(
         cfg, params, prompts, gen, page_size=ps, n_pages=n_pages,
         device=DEVICE)
-    torch.cuda.synchronize()
+    _sync()
     launches = _launches(ops)
     for what, toks in (("off", off), ("on", on)):
         if len(toks) != run["requests"] or any(
@@ -3778,11 +3840,11 @@ def paper_shared(ops, cfg, params):
     return stats, launches, line
 
 
-def _lattice_run(shape, parts, stats):
+def _lattice_run(shape, parts, stats, devices=DEVICE):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.lattice import lattice_all_reduce
     from repro_torch.parallel.sharding import use_sharding
-    with use_sharding(make_mesh(shape, ("pod", "data"), DEVICE)):
+    with use_sharding(make_mesh(shape, ("pod", "data"), devices)):
         return lattice_all_reduce(parts, ("data",), "pod", stats=stats)
 
 
@@ -3851,13 +3913,14 @@ def paper_lattice():
     return res, line
 
 
-def paper_pipeline(ops, cfg, params):
+def paper_pipeline(ops, cfg, params, devices=DEVICE):
     """qwen3-1.7b's 28 blocks as 4 stages of 7 on a ("stage",) mesh of 4
     positions on the one card (a stream each), 8 microbatches of (1,
     512): equal bit for bit to the same stages run in order over the
     same microbatches, within PIPE_FULL_TOL of one full-batch forward;
     its ms, the bubble measured on the positions' streams and
-    ``bubble_fraction``.  Returns (stats, launches, line)."""
+    ``bubble_fraction``; the stages on ``devices`` (one card, or a card
+    each).  Returns (stats, launches, line)."""
     from repro_torch.core.paradigms import streaming_pipeline
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import blocks, lm
@@ -3881,13 +3944,13 @@ def paper_pipeline(ops, cfg, params):
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 51)
     tokens = torch.randint(2, cfg.vocab_size, (n_mb, S), generator=g,
                            device=DEVICE)
-    mesh = make_mesh((n_st,), ("stage",), DEVICE)
+    mesh = make_mesh((n_st,), ("stage",), devices)
     with torch.no_grad():
         x = lm.embed_tokens(params, cfg, tokens)
         ops.reset_launches()
         with use_sharding(mesh):
             pipe = pipeline_apply(stage_fn, stage_params, x, n_micro=n_mb)
-        torch.cuda.synchronize()
+        _sync()
         launches = _launches(ops)
         fns = [lambda h, sp=sp: stage_fn(sp, h) for sp in stage_params]
         seq = streaming_pipeline(fns, x, microbatches=n_mb)
@@ -3921,7 +3984,9 @@ def paper_pipeline(ops, cfg, params):
         if launches != want:
             fail(f"pipeline: launches {launches} != expected {want}")
         # the bubble, on the positions' own streams: each stage call's
-        # device time between events recorded on the stream it runs on
+        # device time between events recorded on the stream it runs on,
+        # from an origin event on each card (recorded together on idle
+        # cards: events of two cards cannot be subtracted)
         log = []
 
         def timed(layers, x):
@@ -3930,22 +3995,30 @@ def paper_pipeline(ops, cfg, params):
             a.record(s)
             y = stage_fn(layers, x)
             b.record(s)
-            log.append((s.cuda_stream, a, b))
+            log.append((s.cuda_stream, s.device, a, b))
             return y
 
         times = []
+        cards = sorted({torch.empty(0, device=d).device
+                        for d in mesh.devices}, key=lambda d: d.index)
         for _ in range(3):
             log.clear()
-            torch.cuda.synchronize()
-            origin = torch.cuda.Event(enable_timing=True)
-            origin.record()
+            _sync()
+            origin = {}
+            for d in cards:
+                origin[d] = torch.cuda.Event(enable_timing=True)
+                origin[d].record(torch.cuda.current_stream(d))
             t0 = time.time()
             with use_sharding(mesh):
-                pipeline_apply(timed, stage_params, x, n_micro=n_mb)
-            torch.cuda.synchronize()
+                pipe_out = pipeline_apply(timed, stage_params, x,
+                                          n_micro=n_mb)
+            _sync()
             times.append((time.time() - t0) * 1e3)
-        spans = [(st, origin.elapsed_time(a), origin.elapsed_time(b))
-                 for st, a, b in log]
+        if not torch.equal(pipe_out, pipe):
+            fail("pipeline: a timed run differs from the first")
+        del pipe_out
+        spans = [(st, origin[d].elapsed_time(a), origin[d].elapsed_time(b))
+                 for st, d, a, b in log]
         span = max(e for _, _, e in spans) - min(s for _, s, _ in spans)
         busy = {}
         for st, s, e in spans:
@@ -3960,10 +4033,11 @@ def paper_pipeline(ops, cfg, params):
                  bubble_fraction=bubble_fraction(n_st, n_mb),
                  in_order_ms=seq_ms, full_batch_ms=full_ms,
                  max_err_full=err, scale=scale, mean_rel_full=mean_rel,
-                 launches=launches)
+                 launches=launches, cards=len(cards), out=pipe.cpu())
     line = (f"stage pipeline, {cfg.name}'s {len(layers)} blocks as {n_st} "
-            f"stages of {per} on a (stage,) mesh of {n_st} positions on the "
-            f"one card (a stream each), {n_mb} microbatches of (1, {S}), "
+            f"stages of {per} on a (stage,) mesh of {n_st} positions on "
+            f"{len(cards)} card(s) (a stream each), {n_mb} microbatches of "
+            f"(1, {S}), "
             f"bf16 activations, impl=pallas: {np.median(times):.3f} ms "
             f"(runs {', '.join(f'{t:.3f}' for t in times)}; the same stages "
             f"in order {seq_ms:.3f} ms, one full batch {full_ms:.3f} ms); "
@@ -4035,6 +4109,7 @@ def paper_phase(ops):
     lines.append(line)
     recs["pipeline"], launches["paper: stage pipeline"], line = \
         paper_pipeline(ops, cfg, params)
+    del recs["pipeline"]["out"]
     lines.append(line)
     del params
     torch.cuda.empty_cache()
@@ -4319,10 +4394,9 @@ def pallas_loss(ops, problems):
     batch = _on(_train_batches(cfg, LOSS_RUN["batch"], LOSS_RUN["seq"],
                                1)[0], DEVICE)
     with torch.no_grad():
-        for fn in ops.WRAPPERS:
-            fn.launches = 0
+        ops.reset_launches()
         loss_p, _ = lm.loss_fn(params, cfg, batch)
-        torch.cuda.synchronize()
+        _sync()
         launches = _launches(ops)
         loss_b, _ = lm.loss_fn(params, cfg.replace(impl="blocked"), batch)
         # the scale of a bf16 rounding of every activation, for the tol
@@ -4401,7 +4475,7 @@ def _train(cfg, ckpt_dir, state_dtype, ckpt_every, skip_final=False):
         ckpt_dir=ckpt_dir, peak_lr=R["peak_lr"], warmup=R["warmup"],
         seed=SEED)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak()
     log = io.StringIO()
     from repro_torch.runtime import checkpoint as ckpt_lib
     skip = _SkipSave(ckpt_lib, skip={R["steps"]} if skip_final else ())
@@ -4811,8 +4885,7 @@ def mesh_trainer(ops, problems, tmp, mesh=None):
     torch.cuda.empty_cache()
     _reset_peaks(mesh)
     skip = _SkipSave(ckpt_lib, skip={R["steps"]}, keep=R["ckpt_every"])
-    for fn in ops.WRAPPERS:
-        fn.launches = 0
+    ops.reset_launches()
     log = io.StringIO()
     clocks = {n: _Clock(ckpt_lib, n) for n in ("_snapshot", "_write")}
     t1 = time.time()
@@ -4826,7 +4899,7 @@ def mesh_trainer(ops, problems, tmp, mesh=None):
         for c_ in clocks.values():
             c_.undo()
     run_s = time.time() - t1
-    torch.cuda.synchronize()
+    _sync()
     launches = _launches(ops)
     peak = _peak_gb()
     card_peaks = _card_peaks(mesh)
@@ -4927,7 +5000,7 @@ def elastic_restores(problems, tmp, kept, step3_loss):
         torch.cuda.empty_cache()
         t0 = time.time()
         step, params, opt = elastic.restore_elastic(tmp, cfg, c, mesh)
-        torch.cuda.synchronize()
+        _sync()
         restore_s = time.time() - t0
         # each distinct block against the saved array's (copied to the
         # card), each replica against the first position holding it
@@ -4966,7 +5039,7 @@ def elastic_restores(problems, tmp, kept, step3_loss):
                 ctl = float(ctl["loss"])
                 t0 = time.time()
                 _, _, met = stepf(params, opt, _on(batches[step], DEVICE))
-            torch.cuda.synchronize()
+            _sync()
             rel = lambda x: abs(x - step3_loss) / abs(step3_loss)
             r.update(rebatch=(per, accum), loss=float(met["loss"]),
                      step_s=time.time() - t0, loss_2x2=step3_loss,
@@ -5264,7 +5337,7 @@ def dense_mesh_parity(ops, problems):
                     placed = weights.shard_params(params, cfg, mesh)
                     got = _dmesh_greedy(cfg, placed, tok0, plen, P["gen"],
                                         mesh)
-                torch.cuda.synchronize()
+                _sync()
                 for k, v in _launches(ops).items():
                     total[k] += v
                 del placed
@@ -5311,7 +5384,8 @@ def _dmesh_wire(cfg, run, mesh, steps_n, wire):
 def _dmesh_profile(cfg, placed, mesh, rules, args, prompts, run):
     """A profiled prefill of the first batch and four profiled decode
     steps on ``mesh``, their bytes on the wire counted.  Returns (the
-    profiles, ``_dmesh_wire``, whether the last logits are finite)."""
+    profiles, ``_dmesh_wire``, whether the last logits are finite, those
+    logits on the host)."""
     from repro_torch import steps
     from repro_torch.parallel import collectives as col
     from repro_torch.parallel.sharding import use_sharding
@@ -5336,7 +5410,8 @@ def _dmesh_profile(cfg, placed, mesh, rules, args, prompts, run):
         col.WIRE.clear()
         prof["decode"] = _profile(run_decode, cpu=False)
         wire = _dmesh_wire(cfg, run, mesh, 4, dict(col.WIRE))
-    return prof, wire, bool(torch.isfinite(state["l"]).all())
+    last = state["l"].float().cpu()
+    return prof, wire, bool(torch.isfinite(last).all()), last
 
 
 def dense_mesh_serve(ops, problems):
@@ -5370,13 +5445,13 @@ def dense_mesh_serve(ops, problems):
             if not keep:
                 params = None
             torch.cuda.empty_cache()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            _sync()
+            _reset_peak()
             ops.reset_launches()
             with use_sharding(mesh, rules):
                 out, st = run_dense(args, cfg, params=placed, mesh=mesh,
                                     rules=rules)
-            torch.cuda.synchronize()
+            _sync()
             launches[f"dense mesh: {what}"] = _launches(ops)
             peak = _peak_gb()
             got = {f"req{i}": t for i, t in out.items()}
@@ -5385,8 +5460,8 @@ def dense_mesh_serve(ops, problems):
             else:
                 ties = _bf16_ties(cfg, placed, prompts, base, got, what,
                                   mesh=mesh, rules=rules)
-            prof, wire, finite = _dmesh_profile(cfg, placed, mesh, rules,
-                                                args, prompts, run)
+            prof, wire, finite, _ = _dmesh_profile(cfg, placed, mesh, rules,
+                                                   args, prompts, run)
             if not finite:
                 problems.append(f"dense mesh {what}: non-finite logits")
             del placed
@@ -5513,11 +5588,12 @@ def family_train(problems):
 PIPE_GRAD = dict(stages=4, micro=8, batch=64, width=1024)
 
 
-def pipeline_backward(problems):
+def pipeline_backward(problems, devices=None):
     """``pipeline_apply``'s backward on a 4-stage mesh on the one card
-    (a CUDA stream a position, the gradients handed back through the
-    sends) against autograd of the stages run in order: fp32, tanh
-    stages of PIPE_GRAD's width."""
+    (or on ``devices``; a CUDA stream a position, the gradients handed
+    back through the sends) against autograd of the stages run in order:
+    fp32, tanh stages of PIPE_GRAD's width.  The record keeps the
+    pipeline's gradients (``grads``, on the host)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.pipeline import pipeline_apply
     from repro_torch.parallel.sharding import use_sharding
@@ -5539,30 +5615,36 @@ def pipeline_backward(problems):
             for s_ in range(P["stages"]):
                 y = stage(w[s_], y)
         else:
-            with use_sharding(make_mesh((P["stages"],), ("stage",))):
+            with use_sharding(make_mesh((P["stages"],), ("stage",),
+                                        devices)):
                 y = pipeline_apply(stage, [w[s_] for s_ in
                                            range(P["stages"])], x,
                                    n_micro=P["micro"])
         grads[name] = torch.autograd.grad((y * c).sum(), (w, x))
-        torch.cuda.synchronize()
+        _sync()
         grads[name + "_s"] = time.time() - t0
     err = max(max_err(a, b) / float(b.abs().max())
               for a, b in zip(grads["pipeline"], grads["plain"]))
     if not err <= 1e-5:
         problems.append(f"pipeline backward: gradients {err:.3g} of their "
                         "max from the plain run's")
+    cards = len({str(torch.empty(0, device=d).device) for d in devices}) \
+        if devices is not None else 1
     return dict(rel_err=err, s=grads["pipeline_s"],
-                plain_s=grads["plain_s"]), (
+                plain_s=grads["plain_s"],
+                grads=[t.cpu() for t in grads["pipeline"]]), (
         f"pipeline backward, {P['stages']} stages x {P['micro']} "
-        f"microbatches on one card (a stream a stage), fp32 tanh stages "
+        f"microbatches on {cards} card(s) (a stream a stage), fp32 tanh "
+        f"stages "
         f"{P['batch']} x {P['width']}: gradients within {err:.3g} of their "
         f"max of the stages run in order (tol 1e-5); {grads['pipeline_s']:.3f}"
         f" s, in order {grads['plain_s']:.3f} s")
 
 
-def dense_mesh_cli(problems):
+def dense_mesh_cli(problems, cards=1):
     """(d): the serve CLI's dense engine on a 1x2 mesh in a process of
-    its own; output in chiprun_out/serve_cli_dense_mesh.txt."""
+    its own, its positions on ``cards`` distinct cards (round-robin over
+    the visible cards); output in chiprun_out/serve_cli_dense_mesh.txt."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.time()
@@ -5577,7 +5659,8 @@ def dense_mesh_cli(problems):
     mesh = [x for x in lines if x.startswith("[dense] mesh")]
     served = [x for x in lines if "served" in x]
     # the positions must lie on the card, not fall back to the CPU
-    if r.returncode or not mesh or "cuda" not in mesh[0] or not served:
+    if r.returncode or not mesh or "cuda" not in mesh[0] or not served \
+            or f"on {cards} distinct device(s)" not in mesh[0]:
         problems.append(f"serve CLI {' '.join(DMESH_CLI)}: exit "
                         f"{r.returncode}; {r.stderr[-800:]}")
     return dict(rc=r.returncode, s=s, lines=mesh + served), (
@@ -5607,6 +5690,7 @@ def dense_mesh_phase(ops):
     recs["train"], ls = timed("train", family_train, problems)
     lines += ls
     recs["pipeline"], line = timed("pipeline", pipeline_backward, problems)
+    del recs["pipeline"]["grads"]
     lines.append(line)
     recs["cli"], line = timed("cli", dense_mesh_cli, problems)
     lines.append(line)
@@ -5721,10 +5805,11 @@ def dry_trainer(trainer, problems):
     return rec, line
 
 
-def dry_serve(ops, problems):
+def dry_serve(ops, problems, mesh=None):
     """(b): the kernels' dry calls of a prefill and of a decode step on
     a meta 1x4 mesh (DRY_SERVE) against the launches of the same prefill
-    and step on the card.  Returns (record, {path: launches}, line)."""
+    and step on the card (or on ``mesh``: their sum over its cards).
+    Returns (record, {path: launches}, line)."""
     from repro_torch import steps, weights
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
@@ -5732,10 +5817,13 @@ def dry_serve(ops, problems):
     from repro_torch.parallel.sharding import use_sharding
     D = DRY_SERVE
     cfg, params = full_width_params(D["arch"])
-    mesh = make_test_mesh(D["data"], D["model"])
+    mesh = mesh or make_test_mesh(D["data"], D["model"])
     with use_sharding(mesh):
         placed = weights.shard_params(params, cfg, mesh, consume=True)
     del params
+    torch.cuda.empty_cache()
+    _sync()
+    _reset_peaks(mesh)
     tok = torch.tensor(np.random.default_rng(SEED).integers(
         2, cfg.vocab_size, (D["batch"], D["prompt_len"])), dtype=torch.int32,
         device=DEVICE)
@@ -5744,24 +5832,26 @@ def dry_serve(ops, problems):
     with torch.no_grad(), use_sharding(mesh):
         ops.reset_launches()
         lg, caches = prefill(placed, tok)
-        torch.cuda.synchronize()
+        _sync()
         got = {"prefill": _launches(ops)}
         ops.reset_launches()
         _, lg, caches = serve(placed, lg.argmax(-1).to(torch.int32), caches,
                               D["prompt_len"])
-        torch.cuda.synchronize()
+        _sync()
         got["decode"] = _launches(ops)
+    peaks = _card_peaks(mesh)
     finite = bool(torch.isfinite(lg).all())
     del placed, caches, lg
     torch.cuda.empty_cache()
     meta = make_test_mesh(D["data"], D["model"], devices="meta")
     t1 = time.time()
-    want = {"prefill": dryrun.dry_step(cfg, ShapeConfig(
-                "prefill", D["prompt_len"], D["batch"], "prefill"),
-                meta)["kernel_dry_calls"],
-            "decode": dryrun.dry_step(cfg, ShapeConfig(
-                "decode", D["max_len"], D["batch"], "decode"),
-                meta)["kernel_dry_calls"]}
+    dry = {"prefill": dryrun.dry_step(cfg, ShapeConfig(
+               "prefill", D["prompt_len"], D["batch"], "prefill"), meta),
+           "decode": dryrun.dry_step(cfg, ShapeConfig(
+               "decode", D["max_len"], D["batch"], "decode"), meta)}
+    want = {k: r["kernel_dry_calls"] for k, r in dry.items()}
+    held = {k: r["memory"]["argument_size_in_bytes"]
+            + r["memory"]["temp_size_in_bytes"] for k, r in dry.items()}
     dry_s = time.time() - t1
     for what in ("prefill", "decode"):
         if got[what] != want[what]:
@@ -5778,8 +5868,14 @@ def dry_serve(ops, problems):
             f"on the card = dry calls on the meta mesh for the prefill "
             f"{got['prefill']} and the decode step {got['decode']}"
             + ("" if got == want else f" (dry calls {want})")
-            + f"; the dry runs {dry_s:.1f} s")
-    return dict(launches=got, dry_calls=want, dry_s=dry_s), \
+            + f"; the dry runs {dry_s:.1f} s; on {mesh.distinct_devices} "
+            f"card(s), each card's peak "
+            + ", ".join(f"{g:.3f}" for g in peaks)
+            + " GB beside a position's predicted arguments + temp "
+            + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in held.items())
+            + " (received blocks counted)")
+    return dict(launches=got, dry_calls=want, dry_s=dry_s,
+                card_peaks_gb=peaks, position_bytes=held), \
         {f"dry run check: {D['arch']} 1x4": {
             k: got["prefill"][k] + got["decode"][k] for k in got["decode"]}}, \
         line
@@ -5850,7 +5946,7 @@ def cards_parity(problems):
         t0 = time.time()
         one = _mesh_parity_run(cfg, "float32", _card_mesh(shape, one=True))
         mesh = _card_mesh(shape)
-        torch.cuda.synchronize()
+        _sync()
         _reset_peaks(mesh)
         got = _mesh_parity_run(cfg, "float32", mesh)
         peaks = _card_peaks(mesh)
@@ -5942,38 +6038,502 @@ def cards_trainer(ops, problems):
         + f"; {gpu_info()}")
     return rec, {"cards: qwen3-1.7b 2x2 on 4 cards": launches}, lines
 
+# (d) to (h), with four cards: the serving mesh, the paper's modules and
+# the dry run with one position a card, each against the same mesh with
+# every position on the first card (the same kernels and plans on
+# identical cards: tokens identical, logits bit-equal, or the finding
+# explained and the near-tie rule applied): (d) phase 8 (a)'s family
+# parity; (e) phase 8 (b)'s full-width dense meshes and the dense-mesh
+# serve CLI; (f) the striped pools (phase 3) and their serve CLI; (g)
+# phase 5's store, lattice (on a 2x2 (pod, data) mesh) and pipeline and
+# phase 8's pipeline backward, beside the peer-copy rate; (h) phase 9's
+# served prefill and decode step
+CARD_LATTICE = dict(mesh=(2, 2), words=1 << 26)
+PEER_COPY_BYTES = 1 << 28
+
+
+def _card_devices(n, one=False):
+    """``n`` positions' devices: one a card, or (``one``) all on the
+    first."""
+    return [f"cuda:{0 if one else i}" for i in range(n)]
+
+
+def _card_delta(ops, before):
+    """Each kernel's launches by card since ``before``
+    (``ops.launches_by_card()``)."""
+    out = {}
+    for k, cards in ops.launches_by_card().items():
+        d = {c: n - before.get(k, {}).get(c, 0) for c, n in cards.items()}
+        d = {c: n for c, n in d.items() if n}
+        if d:
+            out[k] = d
+    return out
+
+
+def _say(lines, line):
+    """Keep ``line`` and print it now (a later failure keeps it)."""
+    lines.append(line)
+    print(f"[cards] {line}", flush=True)
+
+
+def _ties_note(same, ties):
+    return "identical" if same else f"differ only at near-ties {ties}"
+
+
+def cards_dense_parity(ops, problems):
+    """(d): DMESH_CASES' meshes with one position a card against the
+    same meshes on the first card.  Returns (records, lines)."""
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.parallel.sharding import use_sharding
+    P = DMESH_PARITY
+    recs, lines = {}, []
+    for arch, cut, meshes, rules_list, plen in DMESH_CASES:
+        cfg = get_config(arch).replace(activation_dtype="float32",
+                                       impl="pallas", **cut)
+        params = weights.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(SEED + 8), DEVICE)
+        tok0 = torch.tensor(np.stack(make_prompts(
+            P["batch"], plen, cfg.vocab_size, SEED + 8)), device=DEVICE)
+        for rules in rules_list:
+            for shape in meshes:
+                what = (f"{arch} {shape[0]}x{shape[1]}"
+                        + (" EP" if rules else ""))
+                runs = []
+                for one in (True, False):
+                    mesh = _card_mesh(shape, one)
+                    before = ops.launches_by_card()
+                    with use_sharding(mesh, rules):
+                        placed = weights.shard_params(params, cfg, mesh)
+                        runs.append(_dmesh_greedy(cfg, placed, tok0, plen,
+                                                  P["gen"], mesh))
+                    _sync()
+                    del placed
+                by_card = _card_delta(ops, before)
+                again = None
+                if not all(torch.equal(a, b) for a, b in zip(runs[1][1],
+                                                             runs[0][1])):
+                    # is the one card's run equal to itself?
+                    mesh1 = _card_mesh(shape, one=True)
+                    with use_sharding(mesh1, rules):
+                        placed = weights.shard_params(params, cfg, mesh1)
+                        rerun = _dmesh_greedy(cfg, placed, tok0, plen,
+                                              P["gen"], mesh1)
+                    del placed
+                    again = max(max_err(a, b)
+                                for a, b in zip(rerun[1], runs[0][1]))
+                (base, got), flips = runs, []
+                same = got[0] == base[0]
+                if not same:
+                    inf = [[float("inf")] * P["batch"] for _ in base[0]]
+                    flips = _token_flips({"pallas": got[0], "ref": base[0]},
+                                         base[2], P["tol"], inf,
+                                         f"cards {what}")
+                upto = min([j for _, j, _, _ in flips] + [P["gen"]])
+                bit = all(torch.equal(a, b) for a, b in zip(got[1], base[1]))
+                err = max((max_err(a, b) for a, b in
+                           zip(got[1][:upto + 1], base[1][:upto + 1])),
+                          default=0.0)
+                if not err <= P["tol"]:
+                    problems.append(f"cards {what}: logits {err:.3g} > "
+                                    f"{P['tol']}")
+                recs[what] = dict(tokens_equal=same, logits_bit_equal=bit,
+                                  logit_err=err, flips=flips,
+                                  one_card_rerun_err=again,
+                                  by_card=by_card, n_layers=cfg.n_layers)
+                _say(lines, 
+                    f"(d) dense mesh parity {what} on {mesh.distinct_devices}"
+                    f" cards ({cfg.n_layers} layers at published widths, "
+                    f"fp32, impl=pallas, {P['batch']} prompts of {plen} x "
+                    f"{P['gen']} tokens) against the same mesh on one card: "
+                    f"tokens {_ties_note(same, flips)}, logits of every step "
+                    + ("bit-equal" if bit else f"within {err:.3g} (tol "
+                       f"{P['tol']}; the one-card run again against itself: "
+                       + ("bit-equal" if again == 0 else
+                          f"within {again:.3g}") + ")")
+                    + f"; launches by card {by_card}")
+        del params, tok0
+        torch.cuda.empty_cache()
+    return recs, lines
+
+
+def cards_dense_serve(ops, problems):
+    """(e): DMESH_RUNS' meshes through ``run_dense`` with one position a
+    card against the same meshes on the first card: tokens, the logits
+    of a profiled step, the launches and the wire by collective equal;
+    each card's peak, launches and busy share; then the dense-mesh serve
+    CLI on 1x2.  Returns (records, {path: launches}, lines)."""
+    from repro_torch import weights
+    from repro_torch.launch.serve import build_parser, make_prompts, \
+        run_dense
+    from repro_torch.parallel.sharding import use_sharding
+    recs, launches, lines = {}, {}, []
+    for arch, run in DMESH_RUNS.items():
+        args = build_parser().parse_args(
+            [f"--{k.replace('_', '-')}={v}" for k, v in run.items()
+             if k != "meshes"] + [f"--seed={SEED}"])
+        cfg, params = full_width_params(arch)
+        prompts = make_prompts(args.requests, args.prompt_len,
+                               cfg.vocab_size, SEED)
+        keep = arch != "grok-1-314b"     # grok's copy does not fit
+        for d, m, rules in run["meshes"]:
+            what = f"{arch} {d}x{m}" + (" EP" if rules else "")
+            res = {}
+            for one in (True, False):
+                mesh = _card_mesh((d, m), one)
+                if params is None:           # consumed by the run before
+                    cfg, params = full_width_params(arch)
+                with use_sharding(mesh, rules):
+                    placed = weights.shard_params(params, cfg, mesh,
+                                                  consume=not keep)
+                if not keep:
+                    params = None
+                torch.cuda.empty_cache()
+                _sync()
+                _reset_peaks(mesh)
+                ops.reset_launches()
+                before = ops.launches_by_card()
+                with use_sharding(mesh, rules):
+                    out, st = run_dense(args, cfg, params=placed, mesh=mesh,
+                                        rules=rules)
+                _sync()
+                r = dict(tokens={f"req{i}": t for i, t in out.items()},
+                         st=st, launches=_launches(ops),
+                         by_card=_card_delta(ops, before),
+                         peaks=_card_peaks(mesh))
+                if not one:
+                    base = res[True]["tokens"]
+                    r["ties"] = [] if r["tokens"] == base else _bf16_ties(
+                        cfg, placed, prompts, base, r["tokens"],
+                        f"cards {what}", mesh=mesh, rules=rules)
+                r["prof"], r["wire"], finite, r["logits"] = _dmesh_profile(
+                    cfg, placed, mesh, rules, args, prompts, run)
+                if not finite:
+                    problems.append(f"cards {what}: non-finite logits")
+                res[one] = r
+                del placed
+                torch.cuda.empty_cache()
+            a, b = res[True], res[False]
+            same = a["tokens"] == b["tokens"]
+            bit = torch.equal(a["logits"], b["logits"])
+            wire_eq = a["wire"]["per_position"] == b["wire"]["per_position"]
+            if not wire_eq:
+                problems.append(f"cards {what}: wire by collective "
+                                f"{b['wire']['per_position']}, on one card "
+                                f"{a['wire']['per_position']}")
+            if a["launches"] != b["launches"]:
+                problems.append(f"cards {what}: launches {b['launches']}, "
+                                f"on one card {a['launches']}")
+            st, st1 = b["st"], a["st"]
+            launches[f"cards: dense mesh {what}"] = b["launches"]
+            dp = b["prof"]["decode"]
+            rec = dict(decode_step_ms=st["step_s"] * 1e3,
+                       prefill_ms=st["prefill_s"] * 1e3,
+                       tok_per_s=st["tokens"] / st["seconds"],
+                       one_card_step_ms=st1["step_s"] * 1e3,
+                       one_card_prefill_ms=st1["prefill_s"] * 1e3,
+                       one_card_tok_per_s=st1["tokens"] / st1["seconds"],
+                       card_peaks_gb=b["peaks"],
+                       one_card_peak_gb=a["peaks"][0],
+                       tokens_equal=same, ties=b["ties"],
+                       logits_bit_equal=bit,
+                       logits_max_abs_diff=max_err(a["logits"], b["logits"]),
+                       wire=b["wire"], wire_equal=wire_eq,
+                       launches=b["launches"], by_card=b["by_card"],
+                       profile=b["prof"], one_card_profile=a["prof"])
+            recs[what] = rec
+            _say(lines, 
+                f"(e) dense mesh serve {what} on {len(b['peaks'])} cards "
+                f"({cfg.n_layers} layers, bf16, impl=pallas, "
+                f"{args.requests} requests x {args.gen} tokens, batch "
+                f"{args.batch}, prompt {args.prompt_len}): decode step "
+                f"{rec['decode_step_ms']:.3f} ms (one card "
+                f"{rec['one_card_step_ms']:.3f}), prefill "
+                f"{rec['prefill_ms']:.3f} ms (one card "
+                f"{rec['one_card_prefill_ms']:.3f}), {rec['tok_per_s']:.1f} "
+                f"tok/s (one card {rec['one_card_tok_per_s']:.1f}); tokens "
+                f"{_ties_note(same, b['ties'])}; a profiled decode step's "
+                f"logits " + ("bit-equal" if bit else f"differ by at most "
+                              f"{rec['logits_max_abs_diff']:.3g}")
+                + f"; wire a position a decode step by collective "
+                + ("equal to one card's" if wire_eq else "DIFFERENT")
+                + f" ({b['wire']['measured'] / 1e6:.4f} MB); peaks "
+                + ", ".join(f"{g:.2f}" for g in b["peaks"])
+                + f" GB (one card {a['peaks'][0]:.2f}); profiled decode "
+                f"step {dp['wall_ms'] / 4:.3f} ms wall, by card "
+                + "; ".join(f"cuda:{c} busy {v['busy_share']:.3f}, "
+                            f"{v['launches_per_step']:.0f} launches"
+                            for c, v in dp["by_card"].items())
+                + f"; kernel launches by card {b['by_card']}")
+        del params
+        torch.cuda.empty_cache()
+    recs["cli"], line = dense_mesh_cli(problems, cards=2)
+    _say(lines, f"(e) {line}")
+    return recs, launches, lines
+
+
+def cards_striped(ops, problems):
+    """(f): qwen3-1.7b's paged engine with its pools striped over a 1x4
+    mesh, one stripe a card, against the same mesh on the first card
+    (``serve_paged_striped``'s gates), then the serve CLI on four
+    cards.  Returns (records, {path: launches}, lines)."""
+    M = STRIPED_RUN["model"]
+    shape = (STRIPED_RUN["data"], M)
+    cfg, params = full_width_params("qwen3-1.7b")
+    runs = serve_paged_striped(ops, cfg, params, meshes=(
+        _card_mesh(shape, one=True), _card_mesh(shape)))
+    del params
+    torch.cuda.empty_cache()
+    recs = {"one card": runs[0][0], "cards": runs[1][0]}
+    for r in recs.values():
+        r.pop("tokens")
+    lines = []
+    for _, _, line in runs:
+        _say(lines, f"(f) {line}")
+    recs["cli"], line = serve_cli_striped(cards=M)
+    _say(lines, f"(f) {line}")
+    return recs, {"cards: qwen3-1.7b paged 1x4 mesh": runs[1][1]}, lines
+
+
+def peer_copies(n):
+    """Whether each card reaches each other's memory
+    (``torch.cuda.can_device_access_peer``) and the rate of a
+    PEER_COPY_BYTES copy between each pair (GB/s, the mean of 5 after
+    one, host clock around a sync of every card)."""
+    x = [torch.empty(PEER_COPY_BYTES, dtype=torch.uint8, device=f"cuda:{i}")
+         for i in range(n)]
+    peer, rate = {}, {}
+    for i in range(n):
+        for j in range(n):
+            if i == j:
+                continue
+            peer[f"{i}->{j}"] = torch.cuda.can_device_access_peer(i, j)
+            x[j].copy_(x[i])
+            _sync()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                x[j].copy_(x[i])
+            _sync()
+            rate[f"{i}->{j}"] = 5 * PEER_COPY_BYTES / (
+                time.perf_counter() - t0) / 1e9
+    del x
+    torch.cuda.empty_cache()
+    return peer, rate
+
+
+def cards_lattice(devices):
+    """The lattice all-reduce on CARD_LATTICE's (pod, data) mesh, its
+    positions on ``devices``: small integers equal to the plain sum bit
+    for bit, normal values within LATTICE_UNITS fp32 units; returns
+    (record, the normal values' results on the host)."""
+    pods, fast = CARD_LATTICE["mesh"]
+    n_pos, words = pods * fast, CARD_LATTICE["words"]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    ints = [torch.randint(-1024, 1024, (words,), generator=g,
+                          device=DEVICE).float().to(d) for d in devices]
+    plain = ints[0].to(DEVICE).clone()
+    for p in ints[1:]:
+        plain += p.to(DEVICE)
+    stats = {}
+    for i, o in enumerate(_lattice_run((pods, fast), ints, stats, devices)):
+        if not torch.equal(o.to(DEVICE), plain):
+            fail(f"lattice all-reduce on {devices}: position {i} differs "
+                 f"from the plain sum of small integers")
+    del ints, plain
+    normal = [torch.randn(words, generator=g, device=DEVICE).to(d)
+              for d in devices]
+    plain = normal[0].to(DEVICE).clone()
+    mag = plain.abs()
+    for p in normal[1:]:
+        plain += p.to(DEVICE)
+        mag += p.to(DEVICE).abs()
+    outs = _lattice_run((pods, fast), normal, {}, devices)
+    eps = torch.finfo(torch.float32).eps
+    worst = max(float(((o.to(DEVICE) - plain).abs() / (eps * mag)).max())
+                for o in outs)
+    if not worst <= LATTICE_UNITS:
+        fail(f"lattice all-reduce on {devices}: {worst:.2f} fp32 units of "
+             f"the magnitudes from the plain sum (tol {LATTICE_UNITS})")
+    host = [o.cpu() for o in outs]
+    del outs, plain, mag
+    ms = _synced_ms(lambda: _lattice_run((pods, fast), normal, {}, devices),
+                    3)
+    del normal
+    torch.cuda.empty_cache()
+    return dict(ms=ms, bytes=stats, worst_units=worst), host
+
+
+def cards_paper(ops, problems, n):
+    """(g): phase 5's store, lattice and pipeline and phase 8's pipeline
+    backward with one position a card, each against the same on the
+    first card, beside the peer-copy rate.  Returns (records, {path:
+    launches}, lines)."""
+    recs, launches, lines = {}, {}, []
+    peer, rate = peer_copies(n)
+    recs["peer_access"], recs["peer_copy_gb_per_s"] = peer, rate
+    _say(lines, f"(g) peer access (can_device_access_peer) {peer}; a "
+                 f"{PEER_COPY_BYTES >> 20} MiB copy "
+                 + ", ".join(f"{k} {v:.1f}" for k, v in rate.items())
+                 + " GB/s")
+    # the store: 4 stripes of 1 GiB, one a card
+    st = {one: paper_store(_card_devices(STORE_RUN["stripes"], one), True)
+          for one in (True, False)}
+    same = all(torch.equal(a, b.to(a.device)) for a, b in zip(
+        st[True][0]["words"], st[False][0]["words"]))
+    if not same:
+        problems.append("cards store: the stripes differ from one card's")
+    for one in (True, False):
+        del st[one][0]["words"]
+    torch.cuda.empty_cache()
+    recs["store"] = {"one card": st[True][0], "cards": st[False][0],
+                     "stripes_equal": same}
+    _say(lines, f"(g) {st[False][1]}; stripes "
+                 + ("equal bit for bit to" if same else "DIFFERENT from")
+                 + f" the same mesh on one card (one card: "
+                 f"{st[True][0]['single writes_m_per_s']:.1f} / "
+                 f"{st[True][0]['striped writes_m_per_s']:.1f} M writes/s)")
+    # the lattice on a 2x2 (pod, data) mesh
+    n_pos = CARD_LATTICE["mesh"][0] * CARD_LATTICE["mesh"][1]
+    lat = {one: cards_lattice(_card_devices(n_pos, one))
+           for one in (True, False)}
+    same = all(torch.equal(a, b) for a, b in zip(lat[True][1],
+                                                 lat[False][1]))
+    if not same:
+        problems.append("cards lattice: the sums differ from one card's")
+    recs["lattice"] = {"one card": lat[True][0], "cards": lat[False][0],
+                       "equal": same}
+    c, o = lat[False][0], lat[True][0]
+    moved = sum(c["bytes"].values())
+    _say(lines, 
+        f"(g) lattice all-reduce (§V-A), {CARD_LATTICE['mesh'][0]}x"
+        f"{CARD_LATTICE['mesh'][1]} (pod, data) mesh, {CARD_LATTICE['words']}"
+        f" fp32 words a position: on {n_pos} cards {c['ms']:.3f} ms, on one "
+        f"card {o['ms']:.3f} ms; bytes a position receives {c['bytes']} "
+        f"({moved / 1e6:.1f} MB, at the slowest pair's peer rate "
+        f"{moved / min(rate.values()) / 1e6:.3f} ms); integers equal to the "
+        f"plain sum bit for bit, normal values within "
+        f"{c['worst_units']:.2f} fp32 units, and "
+        + ("equal bit for bit to" if same else "DIFFERENT from")
+        + " one card's")
+    # the pipeline: qwen3-1.7b's blocks as 4 stages, one a card
+    cfg, params = full_width_params("qwen3-1.7b")
+    pipe = {}
+    for one in (True, False):
+        before = ops.launches_by_card()
+        pipe[one] = paper_pipeline(ops, cfg, params,
+                                   _card_devices(PIPE_RUN["stages"], one))
+        pipe[one][0]["by_card"] = _card_delta(ops, before)
+    del params
+    torch.cuda.empty_cache()
+    same = torch.equal(pipe[True][0].pop("out"), pipe[False][0].pop("out"))
+    if not same:
+        problems.append("cards pipeline: output differs from one card's")
+    launches["cards: stage pipeline"] = pipe[False][1]
+    p, q = pipe[False][0], pipe[True][0]
+    recs["pipeline"] = {"one card": q, "cards": p, "equal": same}
+    hand = (PIPE_RUN["stages"] - 1) * PIPE_RUN["micro"] * PIPE_RUN["seq"] \
+        * cfg.d_model * 2
+    _say(lines, 
+        f"(g) {pipe[False][2]}; against the same on one card "
+        + ("bit for bit" if same else "DIFFERENT")
+        + f" (one card: {np.median(q['ms']):.3f} ms, measured bubble "
+        f"{q['measured_bubble']:.3f}); {hand / 1e6:.1f} MB handed on "
+        f"({hand / min(rate.values()) / 1e6:.3f} ms at the slowest pair's "
+        f"peer rate); every launch of the section by card (its checks "
+        f"included) {p['by_card']}")
+    # phase 8's pipeline backward
+    bw = {one: pipeline_backward(problems,
+                                 _card_devices(PIPE_GRAD["stages"], one))
+          for one in (True, False)}
+    same = all(torch.equal(a, b) for a, b in zip(bw[True][0].pop("grads"),
+                                                 bw[False][0].pop("grads")))
+    if not same:
+        problems.append("cards pipeline backward: gradients differ from "
+                        "one card's")
+    recs["pipeline_backward"] = {"one card": bw[True][0],
+                                 "cards": bw[False][0], "equal": same}
+    _say(lines, f"(g) {bw[False][1]}; gradients "
+                 + ("equal bit for bit to" if same else "DIFFERENT from")
+                 + f" one card's ({bw[True][0]['s']:.3f} s)")
+    return recs, launches, lines
+
+
+def cards_dry_serve(ops, problems):
+    """(h): phase 9's served prefill and decode step on a 1x4 mesh with
+    one position a card: the dry calls equal to the launches summed over
+    the cards, each card's peak beside a position's arguments + temp."""
+    D = DRY_SERVE
+    before = ops.launches_by_card()
+    rec, launches, line = dry_serve(ops, problems, _card_mesh(
+        (D["data"], D["model"])))
+    rec["by_card"] = _card_delta(ops, before)
+    lines = []
+    _say(lines, f"(h) {line.replace('(b) ', '', 1)}; launches by card "
+         f"{rec['by_card']}")
+    return rec, {"cards: " + k: v for k, v in launches.items()}, lines
+
 
 def cards_phase(ops):
     """Phase 10: the mesh trainer with one position a card, where two or
-    more cards are visible; on one card one line saying it did not run.
-    Returns (records, {path: launches}, lines)."""
+    more cards are visible, and with four the serving mesh, the paper's
+    modules and the dry run ((d) to (h)); on one card one line saying it
+    did not run.  Returns (records, {path: launches}, lines)."""
     n = torch.cuda.device_count()
+    lines = []
+
+    def say(*new):
+        for line in new:
+            print(f"[cards] {line}", flush=True)
+        lines.extend(new)
     if n < 2:
-        return {"ran": False, "cards": n}, {}, [
-            f"phase 10 did not run: {n} card visible, and the mesh trainer "
+        say(f"phase 10 did not run: {n} card visible, and the mesh trainer "
             f"with one position a card needs two or more (run "
-            f"`chip_smoke.py --only-cards` on a machine with four)"]
+            f"`chip_smoke.py --only-cards` on a machine with four)")
+        return {"ran": False, "cards": n}, {}, lines
     t0 = time.time()
-    recs, lines, problems, clock = {"ran": True, "cards": n}, [], [], {}
+    recs, problems, clock = {"ran": True, "cards": n}, [], {}
+    first = ops.launches_by_card()
     t1 = time.time()
     recs["parity"], ls = cards_parity(problems)
     clock["parity"] = time.time() - t1
-    lines += ls
+    say(*ls)
     launches = {}
     if n >= 4:
         t1 = time.time()
         recs["trainer"], launches, ls = cards_trainer(ops, problems)
         clock["trainer"] = time.time() - t1
-        lines += ls
+        say(*ls)
+        for name, fn, more in (
+                ("dense parity", cards_dense_parity, ()),
+                ("dense serve", cards_dense_serve, ()),
+                ("striped", cards_striped, ()),
+                ("paper", cards_paper, (n,)),
+                ("dry serve", cards_dry_serve, ())):
+            t1 = time.time()
+            out = fn(ops, problems, *more)
+            clock[name] = time.time() - t1
+            recs[name] = out[0]
+            if len(out) == 3:
+                launches.update(out[1])
+            lines.extend(out[-1])           # printed as they came
+            say(f"{name}: {clock[name]:.1f} s")
+        by_card = _card_delta(ops, first)
+        recs["launches_by_card"] = by_card
+        off0 = {k: sum(v for c, v in cards.items() if c not in (0, None))
+                for k, cards in by_card.items()}
+        say(f"kernel launches by card over phase 10: {by_card}")
+        for fn in ops.KERNELS:
+            if not off0.get(fn.__name__):
+                problems.append(f"{fn.__name__} launched on no card but "
+                                f"cuda:0")
     else:
-        lines.append(f"(b), (c) not run: {n} cards (the 2x2 needs four)")
+        say(f"(b) to (h) not run: {n} cards (they need four)")
     recs["seconds"] = time.time() - t0
     recs["section_s"] = clock
-    lines.append(f"phase 10 took {recs['seconds']:.1f} s (" + ", ".join(
+    say(f"phase 10 took {recs['seconds']:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in clock.items()) + ")")
     if problems:
-        for line in lines:
-            print(f"[cards] {line}")
         fail("phase 10: " + "; ".join(problems))
     return recs, launches, lines
 
@@ -6052,9 +6612,7 @@ def main():
             default=str))
         return
     if sys.argv[1:] == ["--only-cards"]:  # phase 10 alone, no verdict
-        cards, launches, cards_lines = cards_phase(ops)
-        for line in cards_lines:
-            print(f"[cards] {line}")
+        cards, launches, _ = cards_phase(ops)
         OUT.mkdir(exist_ok=True)
         (OUT / "chip_smoke_cards.json").write_text(json.dumps(
             dict(gpu=info, cards=cards, launches=launches), indent=2,
@@ -6254,10 +6812,8 @@ def main():
         print(f"[dryrun] {line}")
     lap("phase 9")
 
-    cards, cards_launches, cards_lines = cards_phase(ops)
+    cards, cards_launches, _ = cards_phase(ops)
     path_launches.update(cards_launches)
-    for line in cards_lines:
-        print(f"[cards] {line}")
     lap("phase 10")
 
     for name, rec in recs.items():
@@ -6283,6 +6839,8 @@ def main():
         indent=2, default=str))
     print(f"[done] {time.time() - t0:.1f} s after the build started ("
           + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ")")
+    print(f"[done] kernel launches by card over the run: "
+          f"{ops.launches_by_card()}")
     print(json.dumps(kernels))
     print(gpu_info())
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ wrapper raises.  There is no fallback from the kernel to the plain version.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` (plain
 calls on CPU tensors do not count), so a run can show that its main path
-went through the kernels.
+went through the kernels; ``<wrapper>.by_card`` counts every launch
+since the import by the card's index (``launches_by_card``).
 
 A ``meta`` tensor (the dry run, ``launch/dryrun.py``) runs the same
 checks as a CUDA tensor and returns empty outputs of the kernel's shapes
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from typing import NamedTuple
 
 import torch
@@ -119,6 +121,12 @@ def _dry(fn, out):
     return out
 
 
+def _counted(fn, device):
+    """One launch of ``fn``'s kernel, on ``device``."""
+    fn.launches += 1
+    fn.by_card[device.index] += 1
+
+
 def _launch(name, device, *args):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -155,7 +163,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
             v.data_ptr(), out.data_ptr(), B, S, H, hd, scale,
             softcap or 0.0, int(causal), window or 0,
             int(q.dtype == torch.bfloat16))
-    flash_attention.launches += 1
+    _counted(flash_attention, q.device)
     return out
 
 
@@ -268,7 +276,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
             None if scratch is None else scratch.data_ptr(), B, Kv, G, hd,
             ps, nmax, ns, tps, scale, softcap or 0.0,
             int(q.dtype == torch.bfloat16), int(partials))
-    paged_decode_attention.launches += 1
+    _counted(paged_decode_attention, q.device)
     if page_mask is not None:
         paged_decode_attention.masked_launches += 1
     return (out, m, l) if partials else out
@@ -306,7 +314,7 @@ def decode_attention(q, k, v, pos, *, scale=None, softcap=None):
             None if scratch is None else scratch.data_ptr(), B, T, Kv,
             H // Kv, hd, pos, ns, tps, scale, softcap or 0.0,
             int(q.dtype == torch.bfloat16))
-    decode_attention.launches += 1
+    _counted(decode_attention, q.device)
     return out
 
 
@@ -408,7 +416,7 @@ def moe_gemm(x, w, *, out_dtype=None):
     bf16 = torch.bfloat16
     _moe_launch(x, w, out, _moe_plan(x.device, E, C, D, F, x.dtype == bf16,
                                      w.dtype == bf16))
-    moe_gemm.launches += 1
+    _counted(moe_gemm, x.device)
     return out
 
 
@@ -454,7 +462,7 @@ def rmsnorm(x, scale, *, eps=1e-6):
     _launch("rmsnorm", x.device, x.data_ptr(), scale.data_ptr(),
             out.data_ptr(), x.numel() // D, D, eps,
             int(x.dtype == torch.bfloat16))
-    rmsnorm.launches += 1
+    _counted(rmsnorm, x.device)
     return out
 
 
@@ -477,7 +485,7 @@ def add_rmsnorm(x, delta, scale, *, eps=1e-6):
     _launch("add_rmsnorm", x.device, x.data_ptr(), delta.data_ptr(),
             scale.data_ptr(), s.data_ptr(), out.data_ptr(), x.numel() // D,
             D, eps, int(x.dtype == torch.bfloat16))
-    add_rmsnorm.launches += 1
+    _counted(add_rmsnorm, x.device)
     return s, out
 
 
@@ -501,7 +509,7 @@ def qk_rmsnorm(q, k, q_scale, k_scale, *, eps=1e-6):
             qo.data_ptr(), q.numel() // D, k.data_ptr(), k_scale.data_ptr(),
             ko.data_ptr(), k.numel() // D, D, eps,
             int(q.dtype == torch.bfloat16))
-    qk_rmsnorm.launches += 1
+    _counted(qk_rmsnorm, q.device)
     return qo, ko
 
 
@@ -567,7 +575,7 @@ def rwkv6_scan(r, k, v, lw, u, S0):
             lw.data_ptr(), u.data_ptr(), S0.data_ptr(), o.data_ptr(),
             S_T.data_ptr(), B, S, H, K, V, int(r.dtype == torch.bfloat16),
             RWKV_DESIGNS[rwkv6_plan(B, S, H, K, V).design])
-    rwkv6_scan.launches += 1
+    _counted(rwkv6_scan, r.device)
     return o, S_T
 
 
@@ -588,7 +596,7 @@ def rglru_scan(a, b, h0):
         return _dry(rglru_scan, (hs, hT))
     _launch("rglru_scan", a.device, a.data_ptr(), b.data_ptr(),
             h0.data_ptr(), hs.data_ptr(), hT.data_ptr(), B, S, W)
-    rglru_scan.launches += 1
+    _counted(rglru_scan, a.device)
     return hs, hT
 
 
@@ -607,6 +615,17 @@ def reset_launches() -> None:
     paged_decode_attention.masked_launches = 0
 
 
+def launches_by_card() -> dict:
+    """Each kernel's launches since the import by card index (the fused
+    rmsnorm entry points' under ``rmsnorm``); ``reset_launches`` does not
+    touch them."""
+    out = {}
+    for fn in WRAPPERS:
+        into = out.setdefault(KERNEL_OF[fn.__name__], Counter())
+        into.update(fn.by_card)
+    return {k: dict(sorted(v.items())) for k, v in out.items()}
+
+
 def reset_dry_calls() -> None:
     for fn in WRAPPERS:
         fn.dry_calls = 0
@@ -619,3 +638,5 @@ def dry_calls() -> dict:
 
 reset_launches()
 reset_dry_calls()
+for _fn in WRAPPERS:
+    _fn.by_card = Counter()

@@ -70,13 +70,21 @@ Two exact symmetries keep a production cell's host time down
 
 The counts (FLOPs, wire by site, the event summary, the kernels' dry
 calls) are sums over the step's calls, so they come out exact, as do
-the arguments and the outputs.  The extrapolated window's bytes are a
-lower bound: its peak is the largest of the live bytes at every point
-of every cycle's forward and backward, each linear in the depth, so a
-convex function of it, and a line through two depths falls below it
-past them.  It is exact where one point sets the peak at both cut
-depths and at C (``symmetry["temp"]`` says which the record holds);
-``tests/test_torch_dryrun_sym.py`` holds it exact at every tiny case.
+the arguments and the outputs.  So is the window's peak: it is the
+largest of the live bytes at every storage birth, and the tally keeps
+each of them (``_Tally.points``) under its span (before the cut
+segment, its first cycle, its last, after it; in the forward, a
+checkpoint's recompute or the backward after it: ``remat.span``, which
+the cycle loops call) and its ordinal in the span.  A point's bytes are
+affine in its cycle and in the depth, so each is carried along its
+line from the two cut depths to C, and the largest is the peak; a
+middle cycle's points lie on or below the first's and the last's.  The
+two depths' points must line up, or the run raises.  A line through
+the two depths' peaks alone would fall below the true peak where
+another point sets it at C (the peak is convex in the depth);
+``tests/test_torch_dryrun_sym.py`` holds such a case, and
+``scripts/dryrun_full_depth.py`` holds production cells against their
+full-depth run.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k \\
@@ -108,7 +116,7 @@ from repro_torch.configs import SHAPES, cell_is_runnable, get_config
 from repro_torch.configs import runnable_cells
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import lm
+from repro_torch.models import lm, remat
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.sharding import Sharded, _axes, use_sharding
 
@@ -197,9 +205,16 @@ class _Tally(TorchDispatchMode):
     storage an op makes from such storages at one position, lies there:
     ``peak`` is the window's largest ``live`` less those bytes, and
     ``peak_at`` the number of the last storage born by then (``window``
-    starts another); ``top`` the largest ``live`` of every window."""
+    starts another); ``top`` the largest ``live`` of every window.
 
-    def __init__(self):
+    ``points`` keeps those bytes at every birth of the window, by its
+    span and its ordinal in the span: a span is the cycle loops' region
+    (``remat.span``: before the segment ``cut_seg``, its first cycle,
+    its last, a middle one, after it) and the phase (the forward, a
+    checkpoint's recompute, the backward after it); the ``"start"``
+    point is the window's start."""
+
+    def __init__(self, cut_seg: Optional[int] = None):
         super().__init__()
         self.live = 0
         self.peak = 0
@@ -211,6 +226,26 @@ class _Tally(TorchDispatchMode):
         self._away = {}         # storage -> (position, bytes), if away
         self._live_away = 0
         self._below = 0         # the window's peak before the last was set
+        self.cut_seg = cut_seg
+        self.points = {}
+        self._point = {}        # storage -> its point, while it lives
+        self.region = "before"
+        self._span = ("before", "forward")
+        self._ordinal = Counter()
+
+    def enter(self, seg: int, cycle: int, n_cycles: int):
+        """``remat.span``: a forward enters cycle ``cycle`` of segment
+        ``seg``."""
+        cut = -1 if self.cut_seg is None else self.cut_seg
+        self.region = "before" if seg < cut else "after" if seg > cut \
+            else "first" if cycle == 0 else "last" \
+            if cycle == n_cycles - 1 else "middle"
+        self._span = (self.region, "forward")
+
+    def phase(self, region: str, phase: str):
+        """A checkpoint made in ``region`` recomputes, or its backward
+        runs."""
+        self._span = (region, phase)
 
     def track(self, tree):
         """Count the storages of ``tree`` (a step's arguments)."""
@@ -221,6 +256,10 @@ class _Tally(TorchDispatchMode):
         """Start a window at the live bytes, which it returns."""
         self.peak = self._below = self.live - self._live_away
         self.peak_at = self._n
+        self.points = {"start": self.peak}
+        self._point.clear()
+        self._ordinal.clear()
+        self.region, self._span = "before", ("before", "forward")
         return self.live
 
     def place(self, t, pos: int):
@@ -233,6 +272,8 @@ class _Tally(TorchDispatchMode):
         n = t.untyped_storage().nbytes()
         self._away[key] = (pos, n)
         self._live_away += n
+        if key in self._point:
+            self.points[self._point[key]] -= n
         if self._born[key] == self.peak_at:       # it set the peak
             self.peak = max(self._below, self.peak - n)
 
@@ -248,6 +289,11 @@ class _Tally(TorchDispatchMode):
             self._away[key] = (away, n)
             self._live_away += n
         here = self.live - self._live_away
+        self._ordinal[self._span] += 1
+        if self._span[0] != "middle":
+            point = self._span + (self._ordinal[self._span],)
+            self.points[point] = here
+            self._point[key] = point
         if here > self.peak:
             self._below, self.peak, self.peak_at = self.peak, here, self._n
         self.top = max(self.top, self.live)
@@ -256,6 +302,7 @@ class _Tally(TorchDispatchMode):
     def _free(self, key, n):
         if self._born.pop(key, None) is not None:
             self.live -= n
+        self._point.pop(key, None)
         self._live_away -= self._away.pop(key, (None, 0))[1]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -426,7 +473,8 @@ def _loss_metrics(cfg, params, mesh) -> dict:
 
 
 def _run(cfg, shape, mesh, rules, groups_run: Optional[int],
-         optimizer: bool = True, tally: Optional[_Tally] = None) -> dict:
+         optimizer: bool = True, tally: Optional[_Tally] = None,
+         cut_seg: Optional[int] = None) -> dict:
     """Run the cell's step once on the meta mesh, ``groups_run`` of its
     data groups (None: all; 0, a train step only: none, every gradient
     zero).  A train step is its two halves (``make_train_step``'s mesh
@@ -437,7 +485,9 @@ def _run(cfg, shape, mesh, rules, groups_run: Optional[int],
     above the arguments at its peak, less the bytes then at positions
     outside the run groups (the gradient blocks of leaves stored over
     the data axes, which each MoE layer's gather sends back there:
-    ``collectives.placing``)."""
+    ``collectives.placing``).  With ``cut_seg``, the data groups'
+    window's bytes at every point (``_Tally.points``) by the spans of
+    that segment."""
     groups = col.model_groups(mesh)
     run_pos = {p for g in groups[:groups_run] for p in g.positions}
     train = shape.kind == "train"
@@ -447,14 +497,14 @@ def _run(cfg, shape, mesh, rules, groups_run: Optional[int],
         col.WIRE.clear()
         col.EVENTS.clear()
         ops.reset_dry_calls()
-        tally = _Tally() if tally is None else tally
+        tally = _Tally(cut_seg) if tally is None else tally
         tally.track(args)
         tally.away = frozenset(range(len(mesh.devices))) - run_pos
         res["arg_mesh"] = arg_mesh = tally.live
         res["od_pos"] = 0
         out = None
         with FlopCounterMode(display=False) as fc, tally, \
-                col.placing(tally.place):
+                col.placing(tally.place), remat.spans(tally):
             s0 = _snap(fc)
             tally.window()
             if train:
@@ -478,6 +528,8 @@ def _run(cfg, shape, mesh, rules, groups_run: Optional[int],
             s1 = _snap(fc)
             if groups_run != 0:
                 res["groups"] = (_between(s0, s1), tally.peak - arg_mesh)
+                res["points"] = {k: v - arg_mesh
+                                 for k, v in tally.points.items()}
             if train and optimizer:
                 grads = _zero_fill(grads, params)
                 tally.window()
@@ -579,26 +631,40 @@ def _summary(events, n_positions):
 
 
 def dry_step(cfg, shape, mesh, rules=None, symmetry: bool = True,
-             received: bool = True) -> dict:
+             received: bool = True, cut: bool = True) -> dict:
     """The dry run of ``cfg``'s step for ``shape`` on ``mesh`` (a meta
     mesh): the record's counts and memory, with the symmetries of the
-    module docstring where ``symmetry`` and the cell allow; without
-    them, also ``peak_bytes_mesh``.  With ``received`` (the default) a
+    module docstring where ``symmetry`` and the cell allow (``cut=False``
+    keeps the data groups' and runs every cycle); without them, also
+    ``peak_bytes_mesh``.  With ``received`` (the default) a
     send between two positions makes a new storage, as between two
     cards; without, it is a view, as between positions sharing one card
     (``memory["received_blocks"]`` says which)."""
     with (contextlib.nullcontext() if received else col.sends_as_views()):
-        rec = _dry_step(cfg, shape, mesh, rules, symmetry)
+        rec = _dry_step(cfg, shape, mesh, rules, symmetry, cut)
     rec["memory"]["received_blocks"] = received
     return rec
 
 
-def _dry_step(cfg, shape, mesh, rules, symmetry):
+def _extrapolated_peak(p1: dict, p2: dict, num: int, den: int) -> int:
+    """The largest of the points' bytes, each carried along the line
+    through its bytes at the two cut depths to the full one (``num /
+    den`` of the way past the first per unit between them).  Every point
+    of a middle cycle lies on or below those of the first and the last
+    cycle (its bytes are affine in its cycle), so these are all."""
+    if p1.keys() != p2.keys():
+        odd = sorted(set(p1) ^ set(p2), key=str)[:4]
+        raise ValueError(f"dry run: the cut depths' points differ "
+                         f"({len(p1)} against {len(p2)}: {odd})")
+    return max(round(p1[k] + num * (p2[k] - p1[k]) / den) for k in p1)
+
+
+def _dry_step(cfg, shape, mesh, rules, symmetry, cut=True):
     n_pos = len(mesh.devices)
     groups = col.model_groups(mesh)
     n_groups, gsize = len(groups), groups[0].size
     train = shape.kind == "train"
-    cut = cycle_cut(cfg, mesh, rules) if symmetry else None
+    cut = cycle_cut(cfg, mesh, rules) if symmetry and cut else None
     cycles = None
     if cut is None:
         # counts: the first group counted for each (or every group run);
@@ -613,13 +679,13 @@ def _dry_step(cfg, shape, mesh, rules, symmetry):
         whole = run
     else:
         seg, C, (c1, c2), cut_cfg = cut
-        runs = [_run(cut_cfg(c), shape, mesh, rules, 1, optimizer=False)
-                for c in (c1, c2)]
+        runs = [_run(cut_cfg(c), shape, mesh, rules, 1, optimizer=False,
+                     cut_seg=seg) for c in (c1, c2)]
         t = (C - c1) / (c2 - c1)          # Y(C) = Y1 + t (Y2 - Y1)
         counts = _Counts().lin(runs[0]["groups"][0].lin(
             runs[1]["groups"][0], 1.0 - t, t), 0.0, n_groups)
-        above = round((1 - t) * runs[0]["groups"][1]
-                      + t * runs[1]["groups"][1])
+        above = _extrapolated_peak(runs[0]["points"], runs[1]["points"],
+                                   C - c1, c2 - c1)
         if train:
             # the optimizer at full depth on zero gradients: its cost
             # does not shrink with the cycles (a segment's leaf is one
@@ -654,14 +720,26 @@ def _dry_step(cfg, shape, mesh, rules, symmetry):
         "symmetry": {"cycles": cycles,
                      "data_groups_run": 1 if symmetry else n_groups,
                      "data_groups": n_groups,
-                     "temp": "exact" if cycles is None else
-                     "extrapolated from the cut depths: a lower bound"},
+                     "temp": "exact"},
     }
 
 
 # ---------------------------------------------------------------------------
 # the reference's entry points
 # ---------------------------------------------------------------------------
+def cell_rules(shape, mesh, rules=None):
+    """``rules`` for a cell: long_500k-style shapes (global_batch=1)
+    cannot shard the batch axis, so the batch is replicated and the
+    parallelism comes from the model axis only."""
+    batch_div = 1
+    for a in ("pod", "data"):
+        if a in mesh.axis_names:
+            batch_div *= mesh.shape[a]
+    if shape.global_batch % batch_div:
+        return dict(rules or {}, batch=None)
+    return rules
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              rules=None, dump_wire: str = None, impl: str = None) -> dict:
     cfg = get_config(arch)
@@ -679,15 +757,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
               "chips": int(n_chips)}
     t0 = time.time()
 
-    # long_500k-style shapes (global_batch=1) cannot shard the batch axis:
-    # replicate batch, parallelism comes from the model axis only.
-    batch_axes = [a for a in ("pod", "data") if a in mesh.axis_names]
-    batch_div = 1
-    for a in batch_axes:
-        batch_div *= mesh.shape[a]
-    if shape.global_batch % batch_div:
-        rules = dict(rules or {}, batch=None)
+    cell = cell_rules(shape, mesh, rules)
+    if cell is not rules:
         record["rules_override"] = {"batch": None}
+    rules = cell
 
     rec = dry_step(cfg, shape, mesh, rules)
     record["lower_s"] = round(time.time() - t0, 1)

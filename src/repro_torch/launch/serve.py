@@ -73,10 +73,13 @@ def make_prompts(n_requests: int, prompt_len: int, vocab_size: int,
             for _ in range(n_requests)]
 
 
-def _sync(device):
+def _sync(devices):
+    """Wait for each CUDA device of ``devices`` (a mesh's positions may
+    lie on several cards)."""
     import torch
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for d in {torch.device(d) for d in devices}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def run_dense(args, cfg, params=None, device=None, mesh=None,
@@ -111,13 +114,16 @@ def run_dense(args, cfg, params=None, device=None, mesh=None,
             return _dense_loop(
                 args, cfg, params,
                 steps.make_prefill_step(cfg, max_len=max_len, mesh=mesh),
-                steps.make_serve_step(cfg, mesh=mesh), device)
+                steps.make_serve_step(cfg, mesh=mesh), device,
+                mesh.devices)
     return _dense_loop(args, cfg, params,
                        steps.make_prefill_step(cfg, max_len=max_len),
-                       steps.make_serve_step(cfg), device)
+                       steps.make_serve_step(cfg), device, (device,))
 
 
-def _dense_loop(args, cfg, params, prefill, serve, device):
+def _dense_loop(args, cfg, params, prefill, serve, device, clock):
+    """The fixed-batch loop on ``device``; each clock reading waits for
+    every device in ``clock``."""
     import torch
     prompts = make_prompts(args.requests, args.prompt_len, cfg.vocab_size,
                            args.seed)
@@ -128,7 +134,7 @@ def _dense_loop(args, cfg, params, prefill, serve, device):
     wl, wc = prefill(params, tokens_of([prompts[0]] * args.batch))
     serve(params, wl.argmax(-1).to(torch.int32), wc, args.prompt_len)
     del wl, wc
-    _sync(device)
+    _sync(clock)
 
     pending = list(enumerate(prompts))
     outputs = {}
@@ -143,7 +149,7 @@ def _dense_loop(args, cfg, params, prefill, serve, device):
         logits, caches = prefill(params, tokens_of(rows))
         tok = logits.argmax(-1).to(torch.int32)
         outs = [tok]
-        _sync(device)
+        _sync(clock)
         td = time.time()
         prefill_s += td - tp
         prefills += 1
@@ -152,7 +158,8 @@ def _dense_loop(args, cfg, params, prefill, serve, device):
                                         args.prompt_len + i)
             outs.append(tok)
             decode_steps += 1
-        seq = torch.cat(outs, -1).cpu()          # (batch, gen); syncs
+        seq = torch.cat(outs, -1).cpu()          # (batch, gen)
+        _sync(clock)
         decode_s += time.time() - td
         for row, (rid, _) in enumerate(batch):
             outputs[rid] = [int(t) for t in seq[row]]
@@ -223,7 +230,7 @@ def run_paged(args, cfg, params=None, device=None, n_nodes: int = 1,
         eng.submit(p, args.gen, rid=f"req{i}", slo=args.slo)
     t0 = time.time()
     finished = eng.run()
-    _sync(device)
+    _sync(mesh.devices if mesh is not None else (device,))
     dt = time.time() - t0
     outputs = {int(r.rid[3:]): r.tokens for r in finished}
     m = eng.metrics()

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, modules as nn
-from repro_torch.models.remat import checkpoint
+from repro_torch.models.remat import checkpoint, span
 from repro_torch.parallel import collectives as col
 
 
@@ -87,19 +87,28 @@ def make_segments(cfg: ModelConfig) -> List[SegmentSpec]:
 def _layers(cfg, params, states):
     """Yield (kind, block params, state, (seg, cycle, j)) for every layer
     in order; ``states`` mirrors the segment/cycle nesting (or is None)."""
-    for si, seg in enumerate(make_segments(cfg)):
+    segs = make_segments(cfg)
+    for si, seg in enumerate(segs):
         for c in range(seg.n_cycles):
+            span(si, c, seg.n_cycles)
             for j, kind in enumerate(seg.kinds):
                 st = None if states is None else states[si][c][j]
                 yield kind, params["segments"][si][c][j], st, (si, c, j)
+    span(len(segs), 0, 1)
 
 
 def _nest(cfg, fn):
     """The segment/cycle/kind nesting with ``fn(kind, (seg, cycle, j))``
     at every layer."""
-    return [[tuple(fn(kind, (si, c, j)) for j, kind in enumerate(seg.kinds))
-             for c in range(seg.n_cycles)]
-            for si, seg in enumerate(make_segments(cfg))]
+    segs, out = make_segments(cfg), []
+    for si, seg in enumerate(segs):
+        out.append([])
+        for c in range(seg.n_cycles):
+            span(si, c, seg.n_cycles)
+            out[-1].append(tuple(fn(kind, (si, c, j))
+                                 for j, kind in enumerate(seg.kinds)))
+    span(len(segs), 0, 1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +219,10 @@ def _forward_train(params, cfg, x, angles):
     dev = x[0].device if isinstance(x, col.Shards) else x.device
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     pending = None
-    for seg, seg_p in zip(make_segments(cfg), params["segments"]):
-        for cyc_p in seg_p:
+    segs = make_segments(cfg)
+    for si, (seg, seg_p) in enumerate(zip(segs, params["segments"])):
+        for c, cyc_p in enumerate(seg_p):
+            span(si, c, seg.n_cycles)
             if seg.scanned and cfg.remat:
                 x, pending, a = checkpoint(_cycle_train, cyc_p, cfg,
                                            seg.kinds, x, pending, angles)
@@ -219,6 +230,7 @@ def _forward_train(params, cfg, x, angles):
                 x, pending, a = _cycle_train(cyc_p, cfg, seg.kinds, x,
                                              pending, angles)
             aux = aux + a
+    span(len(segs), 0, 1)
     if isinstance(x, col.Shards):
         return col.local(torch.add, x, pending), aux
     return x + pending, aux
@@ -690,9 +702,19 @@ def _suffix_forward_paged(params, cfg, tokens, pools, block_row, start,
     sequence's pages and attending causally over the whole page run.
     ``start`` and ``n_valid`` are ints or 0-d device tensors.  Returns
     (x, pending, pools) as ``forward`` does; the pools are updated in
-    place."""
+    place.  A 1-token continuation runs as a 2-row window whose second
+    row is padding (to the null page, as every pad row): a single-row
+    product sums in another order than a multi-row one, and a window of
+    two rows gives the bits of any wider window, so a 1-token chunk
+    writes the KV and ends in the logits of one suffix pass."""
+    W = tokens.shape[1]
+    if W == 1:
+        x, pending, pools = _suffix_forward_paged(
+            params, cfg, torch.cat([tokens, torch.zeros_like(tokens)], 1),
+            pools, block_row, start, n_valid)
+        return x[:, :1], pending[:, :1], pools
     x = embed_tokens(params, cfg, tokens)
-    B, W = tokens.shape
+    B = tokens.shape[0]
     positions = (start + torch.arange(W, dtype=torch.int32,
                                       device=x.device)).to(torch.int32)
     angles = _angles(cfg, positions[None].expand(B, W))

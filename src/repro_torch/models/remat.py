@@ -21,9 +21,15 @@ target_frame.early_stop is set").  Here a recompute runs under one lock
 (the forward code it runs also updates module state: the collectives'
 counts, the kernels' launch counts), once per backward, and every
 thread reads what it saved.
+
+``span`` is the dry run's marker (``launch/dryrun._Tally``): the cycle
+loops call it at each cycle's start, and ``checkpoint`` re-enters the
+span it was called in for its recompute and for the backward that
+follows.  Off the dry run it does nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import weakref
 from typing import Any, Callable
@@ -31,6 +37,25 @@ from typing import Any, Callable
 import torch
 
 _RECOMPUTE = threading.Lock()
+_SPANS = None        # the dry run's tally while it runs, else None
+
+
+def span(seg: int, cycle: int, n_cycles: int):
+    """Cycle ``cycle`` of segment ``seg``'s ``n_cycles`` starts (``seg``
+    past the last segment: the cycles are done)."""
+    if _SPANS is not None:
+        _SPANS.enter(seg, cycle, n_cycles)
+
+
+@contextlib.contextmanager
+def spans(tally):
+    """``span`` and the checkpoints report to ``tally`` inside."""
+    global _SPANS
+    _SPANS = tally
+    try:
+        yield tally
+    finally:
+        _SPANS = None
 
 
 class _Stop(Exception):
@@ -52,6 +77,7 @@ class _Frame:
 
     def __init__(self, fn, args):
         self.fn, self.args = fn, args
+        self.span = None if _SPANS is None else _SPANS.region
         self.holders = []
         self.recomputed = {}           # graph task id -> {number: tensor}
 
@@ -85,6 +111,8 @@ class _Frame:
 
         def unpack(_):
             raise RuntimeError("remat: a recompute's tensor was unpacked")
+        if self.span is not None:
+            _SPANS.phase(self.span, "recompute")
         if self.holders:
             try:
                 with torch.enable_grad(), \
@@ -95,6 +123,8 @@ class _Frame:
         if n[0] != len(self.holders):
             raise RuntimeError(f"remat: the recompute saved {n[0]} tensors, "
                                f"the forward {len(self.holders)}")
+        if self.span is not None:
+            _SPANS.phase(self.span, "backward")
         return out
 
 

@@ -175,7 +175,8 @@ def _channel_mix_tp(p, cfg, x, cache):
         last = col.PerPos(t[:, -1] for t in x)
     else:
         prev = col.shift_in(x, cache[0].x_cm)
-        last = col.broadcast(x[-1][:, -1], g, "shift") if g.size > 1 \
+        last = col.broadcast(x[-1][:, -1], g, "shift", src=g.size - 1) \
+            if g.size > 1 \
             else col.PerPos([x[0][:, -1]])
 
     def mixes(pm, xm, pv):

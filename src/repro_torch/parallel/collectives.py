@@ -420,9 +420,10 @@ def shift_in(xs: "Shards", first) -> PerPos:
                   for m in range(g.size))
 
 
-def broadcast(x, group: Group, site: str) -> PerPos:
-    """The root's ``x`` on every position of the group."""
-    return PerPos(x if p == 0 else send(x, d, site, "broadcast")
+def broadcast(x, group: Group, site: str, src: int = 0) -> PerPos:
+    """Position ``src``'s ``x`` (the root's by default) on every position
+    of the group."""
+    return PerPos(x if p == src else send(x, d, site, "broadcast")
                   for p, d in enumerate(group.devices))
 
 

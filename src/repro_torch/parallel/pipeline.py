@@ -21,7 +21,11 @@ the stage axis; the port's parameters are unstacked (``weights.py``), so
 ``stage_params`` is a sequence with one tree per stage.  One controller
 drives every position: on a CUDA device each position runs on a stream
 of its own, so positions overlap as the schedule allows, and an
-activation is handed on after an event that marks it done.  The
+activation is handed on after an event that marks it done; between two
+cards PyTorch copies on the source card's current stream, after the
+destination's, so the activation is recorded on that stream too (the
+allocator would otherwise hand its memory to the stage's next work
+before the copy has read it).  The
 traffic is the Swallow "streaming" pattern: activations only, no
 weights, nearest-neighbor.
 """
@@ -99,8 +103,15 @@ def pipeline_apply(stage_fn: Callable, stage_params: Sequence, x,
                     y, done = carry[s - 1]
                     if done is not None:
                         streams[s].wait_event(done)
-                    x_in = col.send(y, devices[s], "pipeline",
-                                    "ppermute")
+                    if devices[s - 1] != devices[s] \
+                            and streams[s - 1] is not None:
+                        # a copy between two cards runs on the source
+                        # card's current stream, after the destination
+                        # stream (which waited for ``done``): y must
+                        # outlive it there, not only on its own stream
+                        y.record_stream(torch.cuda.current_stream(
+                            devices[s - 1]))
+                    x_in = col.send(y, devices[s], "pipeline", "ppermute")
                     if streams[s] is not None:
                         x_in.record_stream(streams[s])
                 y = stage_fn(params[s], x_in)

@@ -9,10 +9,12 @@ decoder, an MoE (its "fsdp" leaves gathered over the data axis),
 DeepSeek (a dense segment before the MoE one) and gemma2 (two-layer
 cycles), a prefill (the MoE's too: each MoE layer gathers its
 "fsdp" leaves when it runs), a decode step and a 2x2x2 mesh (four
-data groups over "pod" and "data").  A position's temp (``temp_by_phase``) is a
-lower bound in general, and exact in every case here (DeepSeek's fell
-43,276 bytes under while the bytes at positions outside the group ran
-counted towards its peak).
+data groups over "pod" and "data").  A position's temp
+(``temp_by_phase``) is exact too: every point's bytes (each birth, by
+its span and ordinal) are carried from the two cut depths to the full
+one, and the largest taken.  At 6 MoE cycles, DeepSeek's two-depth peak
+is set by another point than at full depth: a line through the cut
+depths' peaks fell 352,652 bytes under the full run there.
 """
 import pytest
 
@@ -66,3 +68,32 @@ def test_symmetries_are_exact(arch, cut, kind, pod):
     assert m["temp_size_in_bytes"] == f["temp_size_in_bytes"]
     assert sym["collectives"]["op_counts"] == full["collectives"]["op_counts"]
     assert _close(sym["collectives"], full["collectives"])
+
+
+# tiny configs raised to 6 cycles on a 1x2 mesh; DeepSeek's peak moves
+# to another point past the cut depths (grok's stays: a guard)
+DEEP = [("deepseek-v3-671b", dict(n_layers=7, first_k_dense=1)),
+        ("grok-1-314b", dict(n_layers=6))]
+
+
+@pytest.mark.parametrize("arch,cut", DEEP, ids=[a for a, _ in DEEP])
+def test_temp_is_exact_past_the_cut_depths(arch, cut):
+    cfg = get_tiny_config(arch).replace(**cut)
+    shape = ShapeConfig("t", S, B, "train")
+    mesh = make_test_mesh(1, 2, devices="meta")
+    sym = dryrun.dry_step(cfg, shape, mesh)
+    assert sym["symmetry"]["cycles"]["cycles"] == 6
+    assert sym["symmetry"]["temp"] == "exact"
+    full = dryrun.dry_step(cfg, shape, mesh, symmetry=False)
+    assert sym["memory"]["temp_by_phase"] == full["memory"]["temp_by_phase"]
+    assert sym["memory"]["temp_size_in_bytes"] == \
+        full["memory"]["temp_size_in_bytes"]
+
+
+def test_cut_depths_whose_points_differ_raise():
+    with pytest.raises(ValueError, match="points differ"):
+        dryrun._extrapolated_peak({"start": 0, ("first", "forward", 1): 5},
+                                  {"start": 0}, 4, 1)
+    assert dryrun._extrapolated_peak(
+        {"start": 0, ("last", "backward", 3): 10},
+        {"start": 0, ("last", "backward", 3): 13}, 4, 1) == 22
