@@ -23,7 +23,17 @@ them; DeepSeek at one dense and one MoE layer, gemma2 at two local and
 two global layers, qwen3-14b and minitron-8b at four layers through the
 paged engine, qwen2-vl-7b and hubert-xlarge on the served weights).  It
 also reports whether a 1-token prefill chunk writes the KV of a longer
-suffix pass bit for bit.  Its last phase (5, "paper") runs the paper's
+suffix pass bit for bit.  Phase 2 also holds the weight product
+(``modules.matmul`` of two bf16 operands: cuBLAS's bf16 GEMM with fp32
+accumulation) against the promoted fp32 product at every bf16 weight
+shape of gemma2-27b, grok-1 and DeepSeek-V3 at phase 3's rows, its
+backward (2-D, the tied head, grouped) against the promoted product's
+autograd, and ``moe.local_moe`` and ``_local_moe_ep`` on the card
+against the CPU, bit for bit, on inputs whose every product before the
+combine is exact; phase 3 runs
+DeepSeek-V3's dense prefill and decode steps twice (logits equal bit for
+bit) and fails if gemma2-27b's decode steps convert a weight to
+another dtype.  Its last phase (5, "paper") runs the paper's
 own modules on the card: the §X-B memory server (a 4 GiB store, one
 controller against four stripes on a 1x4 mesh), the §X-A neuron
 simulation at N = 32,768 with one-step parity against the CPU, the
@@ -897,6 +907,345 @@ def check_families(ops, ref):
             f"{out['rmsnorm'][-1]['plain_ms']:.4f} ms, bound {b_ms:.5f} ms")
     torch.cuda.empty_cache()
     return out, lines
+
+
+# the three configs whose parameters are bf16: their products take the
+# tensor cores (``modules.matmul`` -> ``product.Product``, cuBLAS's bf16 x
+# bf16 -> fp32 GEMM) on the card; every other config's are fp32 x bf16 or
+# fp32 and keep the promotion, as the reference does
+PRODUCT_ARCHS = ("gemma2-27b", "grok-1-314b", "deepseek-v3-671b")
+
+
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _named_leaves(v, path)
+    else:
+        yield path.lstrip("/"), tree
+
+
+def product_shapes():
+    """(arch, weight names, K, N, tied, row counts): each 2-D bf16 weight
+    shape of the three bf16-parameter configs at phase 3's cuts, once,
+    at phase 3's decode and prefill rows (the head's prefill is the last
+    row of each prompt); the router's product (fp32 in the reference
+    too) and the embedding's gather aside, the tied table as the head it
+    is, (D, V) read transposed in place."""
+    from repro_torch.configs import get_config
+    from repro_torch.weights import init_params
+    out = []
+    for arch in PRODUCT_ARCHS:
+        cfg = get_config(arch).replace(**CUTS[arch])
+        run = DENSE_RUNS[arch]
+        B, BS = run["batch"], run["batch"] * run["prompt_len"]
+        tied = cfg.tie_embeddings and cfg.embed_inputs
+        shapes = {}
+        for name, t in _named_leaves(init_params(cfg, None, "meta")):
+            leaf = name.rsplit("/", 1)[-1]
+            if t.ndim != 2 or t.dtype != torch.bfloat16 or "router" in leaf \
+                    or (leaf == "embed_table" and not tied):
+                continue
+            head = leaf in ("embed_table", "head_w")
+            K, N = t.shape[::-1] if leaf == "embed_table" else t.shape
+            key = (K, N, leaf == "embed_table", (B, B) if head else (B, BS))
+            shapes.setdefault(key, []).append(leaf)
+        out += [(arch, sorted(set(names)), K, N, t, rows)
+                for (K, N, t, rows), names in shapes.items()]
+    return out
+
+
+def _bf16_units(got, want, slack):
+    """How far |got - want| exceeds ``slack``, in bf16 units in the last
+    place at the larger of the two (normal numbers): two bf16 roundings
+    of fp32 values ``slack`` apart differ by at most slack + one unit."""
+    v = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(
+        2.0 ** -126)
+    unit = torch.ldexp(torch.ones_like(v), torch.frexp(v).exponent - 8)
+    return ((got.float() - want.float()).abs() - slack).clamp_min(0) / unit
+
+
+def check_product():
+    """``modules.matmul`` on two bf16 operands (the tensor cores, fp32
+    accumulation) against the promoted product it replaced, at every
+    shape ``product_shapes`` lists: the fp32 output within the bound on
+    two fp32 summation orders of the same K products, 2 K 2**-24 (|x| @
+    |w|) elementwise; the bf16 output within one bf16 unit beyond that
+    bound (where the sum cancels, the order moves the bf16 rounding by
+    the fp32 difference itself).  Times: the
+    route's fp32 product, the promotion (both operands converted, then an
+    fp32 GEMM on the CUDA cores: TF32 is off), and the bound (the bf16
+    operands read once, the fp32 output written once; 2 M K N at the
+    bf16 rate)."""
+    from repro_torch.models import modules as nn
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    recs, lines = [], []
+    for arch, names, K, N, tied, rows in product_shapes():
+        w = torch.randn(N if tied else K, K if tied else N, generator=gen,
+                        device=DEVICE).mul_(K ** -0.5).bfloat16()
+        if tied:
+            w = w.T
+        for M in sorted(set(rows)):
+            x = torch.randn(M, K, generator=gen, device=DEVICE).bfloat16()
+            got32 = nn.matmul(x, w, torch.float32)
+            want32 = x.float() @ w.float()
+            lim = (x.float().abs() @ w.float().abs()).mul_(
+                2 * K * 2.0 ** -24)
+            ratio = float(((got32 - want32).abs() / lim.clamp_min(
+                2.0 ** -126)).max())
+            ok32 = within((got32 - want32).abs(), lim)
+            err32 = max_err(got32, want32)
+            del got32
+            units = float(_bf16_units(nn.matmul(x, w), want32.bfloat16(),
+                                      lim).max())
+            del want32, lim
+            ms = time_ms(lambda: nn.matmul(x, w, torch.float32))
+            plain_ms = time_ms(lambda: x.float() @ w.float(), iters=5)
+            b_ms, by = bound(2 * M * K + 2 * K * N + 4 * M * N,
+                             2 * M * K * N, torch.bfloat16)
+            rec = dict(arch=arch, weights=names, M=M, K=K, N=N, tied=tied,
+                       max_abs_err_fp32=err32, err_over_bound=ratio,
+                       bf16_units_past_bound=units, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=by)
+            recs.append(rec)
+            lines.append(
+                f"product {arch} {'/'.join(names)} ({M}x{K})@({K}x{N})"
+                f"{' tied, read transposed' if tied else ''}: fp32 err "
+                f"{err32:.3g} ({ratio:.3g} of its order bound), bf16 "
+                f"{units:.3g} units past it; route {ms:.4f} ms, promoted "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+            if not (ok32 and units <= 1.0):
+                fail(lines[-1])
+            del x
+        del w
+    torch.cuda.empty_cache()
+    for rec, line in check_product_grads():
+        recs.append(rec)
+        lines.append(line)
+    return recs, lines
+
+
+def _grads(fn, x, w, g):
+    """fn(x, w) and the gradients of x and w under the cotangent g."""
+    x, w = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y = fn(x, w)
+    y.backward(g)
+    return y.detach(), x.grad, w.grad
+
+
+def check_product_grads():
+    """``Product``'s forward and backward on the card against autograd
+    of the promoted product on the same inputs, one case a kind of
+    product: 2-D (gemma2's w_gate, prefill rows, x of shape (1, M, K)),
+    the tied head (gemma2's (V, D) table, read transposed in place) and
+    grouped (grok's expert up-projections through ``moe._grouped`` under
+    impl="blocked", the trainer's; its bf16 output through
+    ``modules.matmul``), each with a bf16 and an fp32 output and so a
+    bf16 and an fp32 cotangent.  Gates as ``check_product``'s: every
+    fp32 value within the order bound of its sum (K products for y, N
+    for dx, M for dw), every bf16 one within one bf16 unit beyond it.
+    Yields (record, line)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import modules as nn, moe
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    blocked = get_config("grok-1-314b").replace(impl="blocked")
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=DEVICE).mul_(
+            scale).bfloat16()
+
+    def mm(a, b):
+        return (torch.bmm if b.ndim == 3 else torch.matmul)(a, b)
+
+    cases = (
+        ("2-D gemma2 w_gate", rand(1, 4096, 4608),
+         rand(4608, 36864, scale=4608 ** -0.5), lambda w: w,
+         lambda od: lambda x, w: nn.matmul(x, w, od)),
+        ("tied head gemma2 embed_table", rand(1, 512, 4608),
+         rand(256000, 4608, scale=4608 ** -0.5), lambda t: t.T,
+         lambda od: lambda x, t: nn.matmul(x, t.T, od)),
+        ("grouped grok e_up", rand(8, 256, 6144),
+         rand(8, 6144, 32768, scale=6144 ** -0.5), lambda w: w,
+         lambda od: ((lambda x, w: moe._grouped(blocked, x, w))
+                     if od == torch.float32
+                     else (lambda x, w: nn.matmul(x, w)))),
+    )
+    for kind, x, leaf, as_w, route in cases:
+        for od in (torch.bfloat16, torch.float32):
+            fn = route(od)
+            w = as_w(leaf)
+            M, K, N = x.shape[-2], x.shape[-1], w.shape[-1]
+            g = torch.randn(*x.shape[:-1], N, generator=gen,
+                            device=DEVICE).to(od)
+            got = _grads(fn, x, leaf, g)
+            want = _grads(lambda a, b: mm(a.float(), as_w(b).float()).to(
+                od), x, leaf, g)
+            xa, wa, ga = x.float().abs(), w.float().abs(), g.float().abs()
+            xs = xa.reshape(-1, K) if w.ndim == 2 else xa
+            gs = ga.reshape(-1, N) if w.ndim == 2 else ga
+            rows = xs.shape[-2]
+            lims = (mm(xa, wa).mul_(2 * K * 2.0 ** -24),
+                    mm(ga, wa.transpose(-1, -2)).mul_(2 * N * 2.0 ** -24),
+                    mm(xs.transpose(-1, -2), gs).mul_(
+                        2 * rows * 2.0 ** -24))
+            del xa, wa, ga, xs, gs
+            worst = []
+            for name, a, b, lim in zip(("y", "dx", "dw"), got, want, lims):
+                if name == "dw":
+                    a, b = as_w(a), as_w(b)
+                if a.dtype == torch.float32:
+                    worst.append((name, float(((a - b).abs() / lim.clamp_min(
+                        2.0 ** -126)).max()), "of its order bound",
+                        within((a - b).abs(), lim)))
+                else:
+                    u = float(_bf16_units(a, b, lim).max())
+                    worst.append((name, u, "bf16 units past its bound",
+                                  u <= 1.0))
+            del got, want, lims
+            ms = time_ms(lambda: _grads(fn, x, leaf, g), iters=5)
+            plain_ms = time_ms(lambda: _grads(
+                lambda a, b: mm(a.float(), as_w(b).float()).to(od), x, leaf,
+                g), iters=3)
+            rec = dict(kind=kind, x=list(x.shape), w=list(w.shape), M=M,
+                       out=str(od).split(".")[-1],
+                       errors={n: v for n, v, _, _ in worst},
+                       ms=ms, plain_ms=plain_ms)
+            line = (f"product backward {kind}: x {tuple(x.shape)} @ w "
+                    f"{tuple(w.shape)}, {rec['out']} output and cotangent: "
+                    + ", ".join(f"{n} {v:.3g} {what}"
+                                for n, v, what, _ in worst)
+                    + f"; forward and backward {ms:.3f} ms, promoted "
+                    f"{plain_ms:.3f} ms")
+            if not all(ok for *_, ok in worst):
+                fail(line)
+            yield rec, line
+            del g
+        del x, leaf
+        torch.cuda.empty_cache()
+
+
+# the experts' hidden width in ``check_combine``: the combine adds (T, D)
+# rows and never sees it; the CPU run at grok's 32768 would take minutes
+COMBINE_F = 128
+
+
+def combine_inputs(cfg, T, gen):
+    """Seeded tokens (T, D) bf16, router (D, E) fp32 and expert weights
+    (E, D, F), (E, F, D) bf16 on the CPU whose every product before the
+    MoE combine is exact, so that the card and the CPU give the combine
+    the same bits and only its order of adds can tell them apart.  Token
+    t holds 1 at dims ids[t] of 0..E-1 (its k experts, a router weight of
+    30 there: logits 30 or 0, so the chosen scores are exactly 1.0 under
+    sigmoid and 0.5 under softmax, and each weight exactly 1/k), 1 at
+    dim E, and values of spread exponents above it; e_gate reads dim E
+    times 32 (silu and gelu of 32 are 32), every column of e_up and
+    e_down reads one row (one bf16 x bf16 product: exact in fp32).  The
+    expert rows then hold bf16 products of spread magnitude, which the
+    k weighted adds of a token round in an order-dependent way (in fp32
+    the rounding reaches the output; grok's two adds commute)."""
+    E, D, F, k = cfg.moe.n_experts, cfg.d_model, COMBINE_F, cfg.moe.top_k
+
+    def spread(*shape):
+        return (torch.randn(*shape, generator=gen) * torch.exp2(
+            torch.randint(-6, 7, shape, generator=gen).float())).bfloat16()
+
+    ids = torch.rand(T, E, generator=gen).topk(k, dim=-1).indices
+    x = spread(T, D)
+    x[:, :E + 1] = 0
+    x.scatter_(1, ids, 1.0)
+    x[:, E] = 1
+    router = torch.zeros(D, E)
+    router[torch.arange(E), torch.arange(E)] = 30.0
+    e_gate = torch.zeros(E, D, F, dtype=torch.bfloat16)
+    e_gate[:, E, :] = 32
+    e_up = torch.zeros(E, D, F, dtype=torch.bfloat16).scatter_(
+        1, torch.randint(E + 1, D, (E, 1, F), generator=gen),
+        spread(E, 1, F))
+    e_down = torch.zeros(E, F, D, dtype=torch.bfloat16).scatter_(
+        1, torch.randint(0, F, (E, 1, D), generator=gen), spread(E, 1, D))
+    return x, router, e_gate, e_up, e_down
+
+
+def check_combine():
+    """The MoE combine through the path the engines run, ``moe.local_moe``
+    (one expert group: ``moe.combine``; several: ``moe.add_group``) and
+    EP's ``moe._local_moe_ep`` (the second of two halves of the
+    experts), at grok-1's and DeepSeek-V3's d_model, experts and top-k
+    and phase 3's decode and prefill token counts, on ``combine_inputs``
+    (the hidden width cut to COMBINE_F): on the card twice under
+    impl="pallas" (the served path, ``moe_gemm``) and once under
+    impl="blocked" (the trainer's, ``modules.matmul``), and once on the
+    CPU, where every add runs in order; all four equal bit for bit, with
+    bf16 tokens and weights (the engines') and with fp32 ones (the fp32
+    sum unrounded in the output).  Times the card's bf16 ``local_moe``
+    beside one ``index_add_`` of its weighted rows, the unordered
+    combine it replaced."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    recs, lines = [], []
+    for arch in ("grok-1-314b", "deepseek-v3-671b"):
+        base = get_config(arch)
+        base = base.replace(moe=dataclasses.replace(base.moe,
+                                                 d_ff_expert=COMBINE_F))
+        E, D, k = base.moe.n_experts, base.d_model, base.moe.top_k
+        run = DENSE_RUNS[arch]
+        for T in (run["batch"], run["batch"] * run["prompt_len"]):
+            C = moe.capacity(base, T)
+            n_g = moe._group_count(E, C, D)
+            inputs = combine_inputs(base, T, torch.Generator().manual_seed(
+                SEED))
+            on = {(d, dt): [t.to(d) if t.dtype == torch.float32 else
+                            t.to(d, dt) for t in inputs]
+                  for d in (DEVICE, "cpu")
+                  for dt in (torch.bfloat16, torch.float32)}
+            for ep in (False, True):
+                def run_on(dev, impl, dt=torch.bfloat16):
+                    cfg = base.replace(impl=impl)
+                    x, router, e_gate, e_up, e_down = on[dev, dt]
+                    if not ep:
+                        return moe.local_moe(cfg, x, router, e_gate, e_up,
+                                             e_down)[0]
+                    h = slice(E // 2, E)
+                    return moe._local_moe_ep(cfg, x, router, e_gate[h],
+                                             e_up[h], e_down[h], 1)[0]
+                equal = live = True
+                for dt in (torch.bfloat16, torch.float32):
+                    outs = [run_on(DEVICE, "pallas", dt),
+                            run_on(DEVICE, "pallas", dt),
+                            run_on(DEVICE, "blocked", dt)]
+                    cpu = run_on("cpu", "blocked", dt)
+                    equal &= all(torch.equal(o.cpu(), cpu) for o in outs)
+                    live &= bool(torch.isfinite(cpu).all()) and \
+                        bool((cpu != 0).any())
+                    del outs, cpu
+                ms = time_ms(lambda: run_on(DEVICE, "pallas"))
+                rows = torch.randn(E * C, D, device=DEVICE)
+                st = torch.randint(0, T + 1, (E * C,), device=DEVICE)
+                plain_ms = time_ms(lambda: torch.zeros(
+                    (T + 1, D), device=DEVICE).index_add_(0, st, rows))
+                del rows, st
+                name = "_local_moe_ep (experts E/2..E)" if ep \
+                    else "local_moe"
+                rec = dict(arch=arch, path=name, T=T, C=C,
+                           groups=1 if ep else n_g, top_k=k, equal=equal,
+                           ms=ms, index_add_ms=plain_ms)
+                recs.append(rec)
+                lines.append(
+                    f"MoE combine {arch} {name} T={T} top-{k} ({E} experts "
+                    f"x C={C}, {rec['groups']} group"
+                    f"{'s' * (rec['groups'] > 1)}, hidden {COMBINE_F}), bf16 "
+                    f"and fp32: card twice (pallas), once (blocked) and CPU "
+                    f"{'equal bit for bit' if equal else 'DIFFER'}; "
+                    f"{ms:.4f} ms (one unordered index_add_ of its "
+                    f"{E * C} rows {plain_ms:.4f} ms)")
+                if not (equal and live):
+                    fail(lines[-1] + ("" if live else "; output zero or "
+                                      "not finite"))
+            del on, inputs
+    torch.cuda.empty_cache()
+    return recs, lines
 
 
 def rwkv6_inputs(B, S, H, K, dtype, gen, strong=False):
@@ -2457,6 +2806,7 @@ def serve_dense(ops, cfg, params):
     prof, logits = _profile_dense(cfg, params, args)
     if not all(bool(torch.isfinite(l).all()) for l in logits):
         fail(f"{arch}: non-finite logits from the dense engine")
+    conv = prof["decode"]["weight_conversions"]
     stats = dict(arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
                  n_params=n_params, **run, wall_s=st["seconds"],
                  tok_per_s=st["tokens"] / st["seconds"],
@@ -2478,12 +2828,34 @@ def serve_dense(ops, cfg, params):
             f"wall, device busy "
             f"{prof['decode']['busy_share']:.3f}, "
             f"{prof['decode']['launches_per_step']:.0f} launches, top "
-            f"{prof['decode']['top']}; profiled prefill "
+            f"{prof['decode']['top']}, conversions of a weight in 4 steps "
+            f"{conv or 0}; profiled prefill "
             f"{prof['prefill']['wall_ms']:.3f} ms wall, device busy "
             f"{prof['prefill']['busy_share']:.3f}, top "
             f"{prof['prefill']['top']}")
     torch.cuda.empty_cache()
     return stats, launches, line
+
+
+def dense_repeat(cfg, params):
+    """The dense engine's prefill and four decode steps at ``cfg``'s
+    DENSE_RUNS batch, run twice in this process: every step's logits
+    equal bit for bit (the MoE combine adds each token's experts in a
+    fixed order)."""
+    from repro_torch.launch.serve import build_parser
+    run = DENSE_RUNS[cfg.name]
+    args = build_parser().parse_args(
+        [f"--{k.replace('_', '-')}={v}" for k, v in run.items()]
+        + [f"--seed={SEED}"])
+    diff, same = repeat_logits(cfg, params, args)
+    line = (f"{cfg.name} dense ({cfg.n_layers} layers), one prefill of "
+            f"{args.batch} x "
+            f"{args.prompt_len} and 4 decode steps run twice: max |a - b| "
+            f"over every step's logits {diff:.3g}, tokens "
+            f"{'equal' if same else 'DIFFER'}")
+    if diff != 0 or not same:
+        fail(line)
+    return dict(max_abs_diff=diff, tokens_equal=same), line
 
 
 def full_width_params(arch):
@@ -2701,31 +3073,83 @@ def _profile(fn, cpu=True):
                          for i, (us, n) in sorted(cards.items())})
 
 
-def _profile_dense(cfg, params, args):
-    """One batched prefill of the first batch's prompts and four decode
-    steps of the dense engine, each profiled on its own.  Returns the
-    profiles and the logits of the prefill and of the last step."""
+def _dense_steps(cfg, params, args):
+    """One batch of the dense engine, as closures: ``run_prefill()`` (a
+    batched prefill of the first batch's prompts) and ``run_decode(n,
+    start)`` (n greedy steps from position prompt_len + start); the
+    prefill's logits in ``state["prefill"]``, each step's appended to
+    ``state["steps"]`` and the last in ``state["decode"]``."""
     from repro_torch import steps
     from repro_torch.launch.serve import make_prompts
     prefill = steps.make_prefill_step(cfg, args.prompt_len + args.gen)
     serve = steps.make_serve_step(cfg)
     prompts = make_prompts(args.batch, args.prompt_len, cfg.vocab_size, SEED)
     tok = torch.tensor(np.stack(prompts), device=DEVICE)
-    state = {}
+    state = {"steps": []}
 
     def run_prefill():
         state["prefill"], state["caches"] = prefill(params, tok)
+        state["tok"] = state["prefill"].argmax(-1).to(torch.int32)
         return 1
 
-    def run_decode(n=4):
-        t = state["prefill"].argmax(-1).to(torch.int32)
+    def run_decode(n=4, start=0):
         for i in range(n):
-            t, state["decode"], state["caches"] = serve(
-                params, t, state["caches"], args.prompt_len + i)
+            state["tok"], state["decode"], state["caches"] = serve(
+                params, state["tok"], state["caches"],
+                args.prompt_len + start + i)
+            state["steps"].append(state["decode"])
         return n
 
+    return run_prefill, run_decode, state
+
+
+def weight_conversions(params, fn):
+    """{input shape: count} of the dtype conversions (``aten::_to_copy``)
+    that ``fn`` makes of a tensor shaped as a parameter of two or more
+    dims (or its transpose), read from a profile of the host's ops with
+    their input shapes (one op a conversion kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    shapes = {s for t in _leaves(params) if t.ndim >= 2
+              for s in (tuple(t.shape), tuple(t.shape)[::-1])}
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+        _sync()
+    return {str(tuple(e.input_shapes[0])): e.count
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.key == "aten::_to_copy" and e.input_shapes
+            and tuple(e.input_shapes[0]) in shapes}
+
+
+def _profile_dense(cfg, params, args):
+    """One batched prefill of the first batch's prompts and four decode
+    steps of the dense engine, each profiled on its own, then four more
+    steps with the host's ops and their shapes recorded for
+    ``weight_conversions``.  Returns the profiles (with the conversions)
+    and the logits of the prefill and of the fourth step."""
+    run_prefill, run_decode, state = _dense_steps(cfg, params, args)
     prof = dict(prefill=_profile(run_prefill), decode=_profile(run_decode))
-    return prof, (state["prefill"], state["decode"])
+    logits = (state["prefill"], state["decode"])
+    prof["decode"]["weight_conversions"] = weight_conversions(
+        params, lambda: run_decode(4, start=4))
+    return prof, logits
+
+
+def repeat_logits(cfg, params, args, n=4):
+    """The largest |a - b| between two runs of the dense engine's prefill
+    and ``n`` decode steps on the same prompts, over every step's
+    logits, and whether the tokens agree."""
+    runs = []
+    for _ in range(2):
+        run_prefill, run_decode, state = _dense_steps(cfg, params, args)
+        run_prefill()
+        run_decode(n)
+        runs.append([state["prefill"]] + state["steps"])
+    diff = max(max_err(a, b) for a, b in zip(*runs))
+    same = all(torch.equal(a.argmax(-1), b.argmax(-1))
+               for a, b in zip(*runs))
+    return diff, same
 
 
 def _leaves(tree):
@@ -6665,6 +7089,10 @@ def main():
     for name, shapes in fam.items():
         recs[name]["shapes"] += shapes
     lines += fam_lines
+    product, product_lines = check_product()
+    lines += product_lines
+    combine, combine_lines = check_combine()
+    lines += combine_lines
     for line in lines:
         print(f"[kernels] {line}")
     lap("kernels")
@@ -6755,6 +7183,14 @@ def main():
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of parameters "
               f"on the card")
         served(f"{arch} dense", serve_dense(ops, cfg, params))
+        conv = serve_stats[f"{arch} dense"]["profile"]["decode"][
+            "weight_conversions"]
+        if arch == "gemma2-27b" and conv:
+            fail(f"{arch}: its decode steps convert weights: {conv}")
+        if arch == "deepseek-v3-671b":
+            parity[f"{arch} dense, run twice"], line = dense_repeat(
+                cfg, params)
+            print(f"[parity] {line}")
         params = cut_params(cfg, params, parity_cfg(arch))
         torch.cuda.empty_cache()
         parity[f"{arch} dense"], line = dense_parity(arch, params)
@@ -6834,7 +7270,9 @@ def main():
              kernels=[recs[fn.__name__] for fn in ops.KERNELS],
              flash_local=flash_local,
              path_launches=path_launches, serve=serve_stats, parity=parity,
-             paper=paper, train=train, mesh=mesh, dense_mesh=dmesh,
+             product=product, combine=combine, paper=paper, train=train,
+             mesh=mesh,
+             dense_mesh=dmesh,
              dryrun=dry, cards=cards, section_s=laps),
         indent=2, default=str))
     print(f"[done] {time.time() - t0:.1f} s after the build started ("

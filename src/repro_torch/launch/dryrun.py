@@ -472,6 +472,14 @@ def _loss_metrics(cfg, params, mesh) -> dict:
     return out
 
 
+def _bmm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs):
+    """FLOPs of ``aten.bmm``, either overload: the tensor cores' bf16
+    product takes a third positional argument (``out_dtype``), which
+    torch's own formula mistakes for its ``out_shape``."""
+    b, m, k = a_shape
+    return 2 * b * m * k * b_shape[2]
+
+
 def _run(cfg, shape, mesh, rules, groups_run: Optional[int],
          optimizer: bool = True, tally: Optional[_Tally] = None,
          cut_seg: Optional[int] = None) -> dict:
@@ -503,7 +511,9 @@ def _run(cfg, shape, mesh, rules, groups_run: Optional[int],
         res["arg_mesh"] = arg_mesh = tally.live
         res["od_pos"] = 0
         out = None
-        with FlopCounterMode(display=False) as fc, tally, \
+        with FlopCounterMode(display=False,
+                             custom_mapping={torch.ops.aten.bmm: _bmm_flops}
+                             ) as fc, tally, \
                 col.placing(tally.place), remat.spans(tally):
             s0 = _snap(fc)
             tally.window()

@@ -149,12 +149,14 @@ def embed_tokens(params, cfg, tokens):
 
 
 def head_logits(params, cfg, h):
-    """h (..., D) -> fp32 logits (..., V), with final softcap.  The tied
-    head promotes bf16 ``h`` against the fp32 table, as JAX does."""
+    """h (..., D) -> fp32 logits (..., V), with final softcap: the
+    reference's product (``modules.matmul``, fp32 out) against the head,
+    or the tied table read transposed in place."""
     if cfg.tie_embeddings and cfg.embed_inputs:
-        logits = h.float() @ params["embed"]["embed_table"].float().T
+        w = params["embed"]["embed_table"].T
     else:
-        logits = h.float() @ params["head"]["head_w"].float()
+        w = params["head"]["head_w"]
+    logits = nn.matmul(h, w, torch.float32)
     if cfg.logit_softcap is not None:
         logits = nn.softcap(logits, cfg.logit_softcap)
     return logits
@@ -302,8 +304,8 @@ def _head_tp(params, cfg, h):
     gathered to the group's root."""
     tied = cfg.tie_embeddings and cfg.embed_inputs
     logits = col.local(lambda hm, wm: nn.softcap(
-        hm.float() @ (wm.T if tied else wm).float(), cfg.logit_softcap),
-        h, _head_weight_blocks(params, cfg))
+        nn.matmul(hm, wm.T if tied else wm, torch.float32),
+        cfg.logit_softcap), h, _head_weight_blocks(params, cfg))
     root = h.group.root
     return torch.cat([l if m == 0 else col.send(l, root, "head",
                                                 "all_gather")
@@ -380,8 +382,8 @@ def _local_ce(logits, labels_c, mask_c, v_offset, v_local, softcap):
 
 def _chunk_ce(w, cfg, h_c, labels_c, mask_c):
     """One sequence chunk of CE against the (D, V) head ``w``: fp32
-    logits of the promoted operands, softcap applied here."""
-    logits = h_c.float() @ w.float()
+    logits (``modules.matmul``), softcap applied here."""
+    logits = nn.matmul(h_c, w, torch.float32)
     return _local_ce(logits, labels_c, mask_c, 0, cfg.vocab_size,
                      cfg.logit_softcap)
 
@@ -400,8 +402,8 @@ def _chunk_ce_tp(w, cfg, h_c, labels_c, mask_c):
     if w[0].shape[1] == cfg.vocab_size:
         return _chunk_ce(w[0], cfg, h_c[0], labels_c, mask_c)
     v_local = w[0].shape[1]
-    logits = col.local(lambda h, wm: nn.softcap(h.float() @ wm.float(),
-                                                cfg.logit_softcap), h_c, w)
+    logits = col.local(lambda h, wm: nn.softcap(
+        nn.matmul(h, wm, torch.float32), cfg.logit_softcap), h_c, w)
     m_root = col.all_reduce_to_root([l.max(-1).values.detach()
                                      for l in logits], g, "ce", op="max")
     m = col.broadcast(m_root, g, "ce")

@@ -1,9 +1,9 @@
 """Shared model primitives: norms, rotary embeddings, activations, FFN.
 
-Reference: ``repro/models/modules.py``.  JAX's ``dot_general`` of a bf16
-activation and an fp32 parameter promotes to fp32 and the reference then
-casts back to the activation dtype; torch refuses mixed dtypes, so every
-product here writes that promotion and the cast out explicitly.
+Reference: ``repro/models/modules.py``.  ``matmul``, the reference's
+product (bf16 operands with fp32 accumulation on the card's tensor
+cores, the promoted fp32 product elsewhere), lives in
+``kernels/product.py``, which the collectives use too.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.product import matmul
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8}
@@ -20,11 +21,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dt(name: str) -> torch.dtype:
     return _DTYPES[name]
-
-
-def matmul(x, w):
-    """fp32 product of the promoted operands, cast back to ``x.dtype``."""
-    return (x.float() @ w.float()).to(x.dtype)
 
 
 def rmsnorm(x, scale, eps: float = 1e-6, impl: Optional[str] = None):

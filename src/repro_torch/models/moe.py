@@ -6,8 +6,13 @@ Reference: ``repro/models/moe.py`` (``route``, ``capacity``,
 single-device branch of ``apply``).  The reference's ``lax.scan`` over
 expert groups is a Python loop.  Its three grouped einsums
 (``preferred_element_type=float32``) run through the ``moe_gemm`` kernel
-under ``impl == "pallas"`` and as fp32 ``torch.einsum`` otherwise; both
-keep the reference's fp32 between the GEMMs.
+under ``impl == "pallas"`` and otherwise as the reference's product
+(``modules.matmul``: the card's tensor cores for bf16 operands, the
+promoted fp32 product elsewhere); all keep the reference's fp32 between
+the GEMMs.  The weighted expert rows are combined in the reference's
+order: each token adds its slot rows in ascending slot order, which is
+the order of the reference's ``at[].add`` scatter, so the sum does not
+depend on how the card schedules it (``local_moe``).
 
 On a model group (``x`` Shards: the dense engine's mesh and the mesh
 trainer) ``apply`` is the reference's ``_sharded_moe``: each
@@ -139,16 +144,64 @@ def _grouped(cfg, x, w):
     if cfg.impl == "pallas":
         from repro_torch.kernels import ops as kops
         return kops.moe_gemm(x, w, out_dtype=torch.float32)
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float())
+    return nn.matmul(x, w, torch.float32)
+
+
+def _expert_rows(cfg, xg, e_gate, e_up, e_down, dtype):
+    """(E*C, D) fp32: the experts' FFN on their dispatched tokens xg
+    (E, C, D), the hidden h rounded to the activation dtype between the
+    GEMMs, as the reference's group step does."""
+    E, C, D = xg.shape
+    act = nn.activation(cfg.act)
+    up = _grouped(cfg, xg, e_up)
+    if e_gate is not None:
+        h = act(_grouped(cfg, xg, e_gate)) * up
+    else:
+        h = act(up)
+    return _grouped(cfg, h.to(dtype), e_down).reshape(E * C, D)
+
+
+def combine(y, slot_w, ss):
+    """(T, D) fp32: each token's weighted expert rows added to zero in
+    ascending slot order, the order of the reference's ``out.at[st]
+    .add(y * sw)`` over its groups.  ``y`` (n, D) fp32 the rows of slots
+    0 .. n-1, ``slot_w`` their weights, ``ss`` (T, k) each token's slots
+    sorted; a slot at or past n (dropped, or another position's expert)
+    adds an exact zero, which leaves the sum's bits as they are.  The k
+    adds of every token run in a fixed order on any device."""
+    n = y.shape[0]
+    ssc = torch.clamp(ss, max=n - 1)
+    terms = torch.where((ss < n)[..., None],
+                        y[ssc] * slot_w[ssc][..., None], 0.0)
+    out = torch.zeros((ss.shape[0], y.shape[1]), dtype=torch.float32,
+                      device=y.device)
+    for t in terms.unbind(1):
+        out = out + t
+    return out
+
+
+def add_group(out, st, yw, C: int):
+    """``out[st] += yw`` for one group's slot rows, ``C`` an expert, in
+    the reference's order: one ``index_add_`` an expert, in expert order.
+    A token holds at most one slot of an expert, so no two adds of one
+    launch meet on a row (the sentinel row of empty slots aside), and
+    each token's rows land in ascending slot order on any device."""
+    for lo in range(0, st.shape[0], C):
+        out.index_add_(0, st[lo:lo + C], yw[lo:lo + C])
+    return out
 
 
 def local_moe(cfg, tokens, router_w, e_gate, e_up, e_down):
-    """Dense-math MoE on local tokens. tokens (T, D) -> (out (T, D), aux)."""
+    """Dense-math MoE on local tokens. tokens (T, D) -> (out (T, D), aux).
+
+    One expert group (``_group_count``): the combine gathers each token's
+    rows (``combine``).  More groups, each too large to keep beside the
+    others: every group adds its rows into ``out`` as the reference's
+    scatter does, an expert at a time (``add_group``)."""
     m = cfg.moe
     T, D = tokens.shape
     E = m.n_experts
     C = capacity(cfg, T)
-    act = nn.activation(cfg.act)
 
     w, ids, aux = route(cfg, router_w, tokens)
     if _GAP_LOGS:
@@ -163,19 +216,21 @@ def local_moe(cfg, tokens, router_w, e_gate, e_up, e_down):
     x_pad = torch.cat([tokens, tokens.new_zeros((1, D))], 0)
     n_g = _group_count(E, C, D)
     eg = E // n_g
+    if n_g == 1:
+        y = _expert_rows(cfg, x_pad[slot_tok].reshape(E, C, D), e_gate,
+                         e_up, e_down, tokens.dtype)
+        ss = slot.view(T, m.top_k).sort(dim=1).values
+        return combine(y, slot_w, ss).to(tokens.dtype), aux
     out = torch.zeros((T + 1, D), dtype=torch.float32, device=tokens.device)
     for gi in range(n_g):
-        st = slot_tok[gi * eg * C:(gi + 1) * eg * C]
-        sw = slot_w[gi * eg * C:(gi + 1) * eg * C]
+        rows = slice(gi * eg * C, (gi + 1) * eg * C)
         experts = slice(gi * eg, (gi + 1) * eg)
-        xg = x_pad[st].reshape(eg, C, D)
-        up = _grouped(cfg, xg, e_up[experts])
-        if e_gate is not None:
-            h = act(_grouped(cfg, xg, e_gate[experts])) * up
-        else:
-            h = act(up)
-        y = _grouped(cfg, h.to(tokens.dtype), e_down[experts])
-        out.index_add_(0, st, (y.reshape(eg * C, D) * sw[:, None]).float())
+        st = slot_tok[rows]
+        y = _expert_rows(
+            cfg, x_pad[st].reshape(eg, C, D),
+            None if e_gate is None else e_gate[experts], e_up[experts],
+            e_down[experts], tokens.dtype)
+        out = add_group(out, st, y * slot_w[rows, None], C)
     return out[:T].to(tokens.dtype), aux
 
 
@@ -194,24 +249,15 @@ def _local_moe_ep(cfg, tokens, router_w, e_gate, e_up, e_down, idx: int):
     w_l = torch.where(mine, w, 0.0)
     C = capacity(cfg, T)          # the same global capacity per expert
     slot_tok, slot = dispatch_indices(ids_l, T, m.top_k, E_local + 1, C)
-    n = (E_local + 1) * C
-    slot_w = torch.zeros(n + 1, dtype=tokens.dtype,
+    n = E_local * C
+    slot_w = torch.zeros(n + C + 1, dtype=tokens.dtype,
                          device=tokens.device).scatter_(
-        0, slot, w_l.reshape(-1).to(tokens.dtype))[:E_local * C]
-    slot_tok = slot_tok[:E_local * C]
-    act = nn.activation(cfg.act)
+        0, slot, w_l.reshape(-1).to(tokens.dtype))[:n]
     x_pad = torch.cat([tokens, tokens.new_zeros((1, D))], 0)
-    xg = x_pad[slot_tok].reshape(E_local, C, D)
-    up = _grouped(cfg, xg, e_up)
-    if e_gate is not None:
-        h = act(_grouped(cfg, xg, e_gate)) * up
-    else:
-        h = act(up)
-    y = _grouped(cfg, h.to(tokens.dtype), e_down)
-    out = torch.zeros((T + 1, D), dtype=torch.float32, device=tokens.device)
-    out.index_add_(0, slot_tok,
-                   (y.reshape(E_local * C, D) * slot_w[:, None]).float())
-    return out[:T].to(tokens.dtype), aux
+    y = _expert_rows(cfg, x_pad[slot_tok[:n]].reshape(E_local, C, D),
+                     e_gate, e_up, e_down, tokens.dtype)
+    ss = slot.view(T, m.top_k).sort(dim=1).values
+    return combine(y, slot_w, ss).to(tokens.dtype), aux
 
 
 def _apply_tp(p, cfg, x):

@@ -38,6 +38,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.product import matmul
+
 # bytes received by every position together, by collective; the caller
 # zeroes it (``WIRE.clear()``) and reads it
 WIRE: Counter = Counter()
@@ -427,10 +429,6 @@ def broadcast(x, group: Group, site: str, src: int = 0) -> PerPos:
                   for p, d in enumerate(group.devices))
 
 
-def _matmul(x, w, out_dtype):
-    return (x.float() @ w.float()).to(out_dtype)
-
-
 def gather_seq(x):
     """(B, S/tp, D) seq-sharded -> full sequence on every position of the
     group; backward a reduce-scatter of the gradient.  No-op for a plain
@@ -448,10 +446,10 @@ def column_parallel(x, ws: Sequence, out_dtype=None) -> List:
     dim).  A plain ``x`` takes plain weights: the local matmuls."""
     if not isinstance(x, Shards):
         out_dtype = out_dtype or x.dtype
-        return [_matmul(x, w, out_dtype) for w in ws]
+        return [matmul(x, w, out_dtype) for w in ws]
     out_dtype = out_dtype or x[0].dtype
     xf = gather_seq(x)
-    return [Shards([_matmul(xf[m], w[m], out_dtype)
+    return [Shards([matmul(xf[m], w[m], out_dtype)
                     for m in range(x.group.size)], x.group, x[0].ndim - 1)
             for w in ws]
 
@@ -468,15 +466,15 @@ def row_parallel(x, w, out_dtype=None):
     position its block of K.  A plain ``x`` takes a plain ``w``: the
     local matmul."""
     if not isinstance(x, Shards):
-        return _matmul(x, w, out_dtype or x.dtype)
+        return matmul(x, w, out_dtype)
     out_dtype = out_dtype or x[0].dtype
     g = x.group
     if x[0].shape[-1] != w[0].shape[0]:     # x whole, w in row blocks
         x = Shards([own_cols(t, m, g.size) for m, t in enumerate(x)], g,
                    x[0].ndim - 1)
     if seq_splits(x[0].shape[1], g):
-        parts = [_matmul(x[m], w[m], out_dtype) for m in range(g.size)]
+        parts = [matmul(x[m], w[m], out_dtype) for m in range(g.size)]
         return reduce_scatter(parts, g, 1, "row_parallel")
-    parts = [x[m].float() @ w[m].float() for m in range(g.size)]
+    parts = [matmul(x[m], w[m], torch.float32) for m in range(g.size)]
     return Shards([t.to(out_dtype) for t in all_reduce(
         parts, g, "row_parallel")], g, None)

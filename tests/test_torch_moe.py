@@ -7,7 +7,8 @@ activations: logits within 1e-4 abs, identical greedy tokens, MoE layer
 outputs within 1e-5.  With bf16 activations (the serving dtype) the MoE
 layer agrees within 2e-2 abs on O(1) outputs: both sides round the
 gathered tokens and the hidden h to bf16 at the same points, and differ in
-fp32 summation order only.
+fp32 summation order only.  The combine of the weighted expert rows adds
+in the reference's order and equals its scatter bit for bit.
 
 Routing is discontinuous: a near-tie between the top_k-th and the next
 router score can send a token to another expert on one side only, and
@@ -126,6 +127,48 @@ def test_dispatch_indices_match_reference_with_drops(C):
     assert np.array_equal(np.asarray(slot_j), slot_t.numpy())
     dropped = int((slot_t == E * C).sum())
     assert (dropped > 0) == (C < 40)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 8])
+@pytest.mark.parametrize("top_k", [2, 8])
+def test_combine_is_the_reference_scatter_bit_for_bit(top_k, groups):
+    """The fixed-order combine against the reference's ``out.at[st].add(y
+    * sw, mode="drop")`` over its groups in order, on the tiny DeepSeek's
+    8 experts at top-2 and top-8 with dropped tokens (C=8 of about 10 an
+    expert at top-2, of 40 at top-8): one group (``moe.combine``'s
+    gather) and 2 or 8 groups (``moe.add_group``, one ``index_add_`` an
+    expert), equal bit for bit."""
+    rng = np.random.default_rng(45)
+    T, E, C, D = 40, 8, 8, 16
+    ids = np.stack([rng.choice(E, top_k, replace=False) for _ in range(T)])
+    w = rng.random((T, top_k)).astype(np.float32)
+    y = rng.standard_normal((E * C, D)).astype(np.float32)
+    st_j, slot_j = jmoe.dispatch_indices(jnp.asarray(ids, jnp.int32), T,
+                                         top_k, E, C)
+    sw_j = jnp.zeros((E * C,), jnp.bfloat16).at[slot_j].set(
+        jnp.asarray(w.reshape(-1), jnp.bfloat16), mode="drop")
+    yw_j = (jnp.asarray(y) * sw_j[:, None]).astype(jnp.float32)
+    rows = E * C // groups
+    want = jnp.zeros((T + 1, D), jnp.float32)
+    for g in range(groups):
+        want = want.at[st_j[g * rows:(g + 1) * rows]].add(
+            yw_j[g * rows:(g + 1) * rows], mode="drop")
+
+    st, slot = moe.dispatch_indices(torch.tensor(ids), T, top_k, E, C)
+    sw = torch.zeros(E * C + 1, dtype=torch.bfloat16).scatter_(
+        0, slot, torch.tensor(w.reshape(-1)).bfloat16())[:E * C]
+    ss = slot.view(T, top_k).sort(dim=1).values
+    assert int((slot == E * C).sum()) > 0
+    yt = torch.tensor(y)
+    if groups == 1:
+        got = moe.combine(yt, sw, ss)
+    else:
+        got = torch.zeros((T + 1, D))
+        for g in range(groups):
+            r = slice(g * rows, (g + 1) * rows)
+            got = moe.add_group(got, st[r], yt[r] * sw[r, None], C)
+        got = got[:T]
+    assert np.array_equal(np.asarray(want[:T]), got.numpy())
 
 
 # --- the MoE layer -----------------------------------------------------------
