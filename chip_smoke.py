@@ -114,6 +114,7 @@ the striped serve CLI's output to chiprun_out/serve_cli_striped.txt,
 the mesh train CLI's to chiprun_out/mesh_train_cli.txt and the dense
 mesh serve CLI's to chiprun_out/serve_cli_dense_mesh.txt.
 """
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -1126,6 +1127,254 @@ def check_product_grads():
         torch.cuda.empty_cache()
 
 
+# the attention einsums of ``check_einsum`` (``attention._einsum32`` ->
+# ``product.einsum32``: two bf16 operands as one bf16 x bf16 -> fp32
+# tensor-core GEMM) at the served and trained shapes: (what, equation,
+# the operands' shapes, each a slice of its first ``S`` rows along axis 1
+# where the caller slices one).  The trainer's block pair: qwen3-1.7b at
+# phase 6's B=4, S=2048, 512 x 1024 blocks, 16 heads of 128; DeepSeek's
+# MLA prefill at phase 3's batch 8 x 512 (one 512 block, q/k 192, v
+# padded to 192); its absorbed decode (kv_b's w_uk and w_uv views, the
+# latent scores over phase 3's 576 slots); one 128-token suffix chunk
+# of qwen3-1.7b over its 36 pages of 16 (8 kv heads, groups of 2)
+TRAIN_PAIR = (4, 2048, 16, 128, 512, 1024)
+MLA_PREFILL = (8, 512, 128, 192)
+MLA_DECODE = (8, 576)
+SUFFIX_CHUNK = (128, 576, 8, 2, 128)
+# gemma2-27b's softcapped split-T decode partial: a 2-position model
+# group's time block of its 4,232 slots (phase 3's prompt + gen), all
+# valid
+GEMMA_PARTIAL = dict(B=4, H=32, Kv=16, hd=128, Tl=2116, softcap=50.0)
+
+
+def einsum_cases(gen):
+    """Yields (what, equation, a, b, trained): bf16 operands on the card
+    laid out as the path holds them (the trainer's blocks slices of the
+    sequence, MLA's w_uk / w_uv strided views of kv_b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE).bfloat16()
+    B, S, H, hd, bq, bkv = TRAIN_PAIR
+    q, k, v = (rand(B, S, H, hd) for _ in range(3))
+    yield ("qwen3-1.7b trainer block, scores", "bqhd,bthd->bhqt",
+           q[:, :bq], k[:, :bkv], True)
+    yield ("qwen3-1.7b trainer block, P.V", "bhqt,bthd->bhqd",
+           rand(B, H, bq, bkv), v[:, :bkv], True)
+    del q, k, v
+    B, S, H, d = MLA_PREFILL
+    q, k = rand(B, S, H, d), rand(B, S, H, d)
+    yield ("DeepSeek-V3 MLA prefill, scores", "bqhd,bthd->bhqt", q, k, False)
+    del q
+    yield ("DeepSeek-V3 MLA prefill, P.V", "bhqt,bthd->bhqd",
+           rand(B, H, S, S), k, False)
+    del k
+    cfg = get_config("deepseek-v3-671b")
+    m, H = cfg.mla, cfg.n_heads
+    B, T = MLA_DECODE
+    kv_b = rand(m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim))
+    w_uk, w_uv = mla._kv_b_split({"kv_b": kv_b}, cfg)
+    ckv = rand(B, T, m.kv_lora_rank)
+    yield ("DeepSeek-V3 decode, absorb q (w_uk view)", "bhd,lhd->bhl",
+           rand(B, H, m.qk_nope_head_dim), w_uk, False)
+    yield ("DeepSeek-V3 decode, latent scores", "bhl,btl->bht",
+           rand(B, H, m.kv_lora_rank), ckv, False)
+    yield ("DeepSeek-V3 decode, rope scores", "bhd,btd->bht",
+           rand(B, H, m.qk_rope_head_dim), rand(B, T, m.qk_rope_head_dim),
+           False)
+    yield ("DeepSeek-V3 decode, P.latent", "bht,btl->bhl",
+           rand(B, H, T), ckv, False)
+    yield ("DeepSeek-V3 decode, out (w_uv view)", "bhl,lhv->bhv",
+           rand(B, H, m.kv_lora_rank), w_uv, False)
+    del kv_b, ckv, w_uk, w_uv
+    W, T, Kv, G, hd = SUFFIX_CHUNK
+    kp, vp = rand(1, T, Kv, hd), rand(1, T, Kv, hd)
+    yield ("qwen3-1.7b suffix chunk, scores", "bwkgd,btkd->bkgwt",
+           rand(1, W, Kv * G, hd).reshape(1, W, Kv, G, hd), kp, False)
+    yield ("qwen3-1.7b suffix chunk, P.V", "bkgwt,btkd->bwkgd",
+           rand(1, Kv, G, W, T), vp, False)
+
+
+def _einsum_bound(eq, a, b):
+    """The bound on two fp32 sums of ``eq``'s K exact products in
+    different orders, 2 K 2**-24 (|a| . |b|) elementwise, and K."""
+    ins, out = eq.split("->")
+    ia, ib = ins.split(",")
+    size = dict(zip(ia, a.shape))
+    K = int(np.prod([size[c] for c in ia if c in ib and c not in out]))
+    return torch.einsum(eq, a.float().abs(), b.float().abs()).mul_(
+        2 * K * 2.0 ** -24), K
+
+
+def _einsum_grads(fn, a, b, g):
+    """fn(a, b), and the gradients of a and b under the cotangent g."""
+    a, b = a.detach().requires_grad_(), b.detach().requires_grad_()
+    y = fn(a, b)
+    y.backward(g)
+    return y.detach(), a.grad, b.grad
+
+
+def check_einsum():
+    """The attention's einsum (``attention._einsum32``) on two bf16
+    operands (the tensor cores, fp32 accumulation) against the promoted
+    einsum it replaced, at every case of ``einsum_cases``: the fp32
+    output within the bound on two fp32 summation orders of the same K
+    products, 2 K 2**-24 (|a| . |b|).  At the trainer's block pair also
+    forward and backward under the fp32 cotangent the attention gives
+    it, against the promoted einsum's autograd: each bf16 gradient
+    within one bf16 unit beyond the order bound of its sum.  Then
+    gemma2-27b's softcapped split-T decode partial (``_decode_partial``)
+    against itself with the einsums promoted (``_check_decode_partial``).
+    Times: the route, the promotion (both operands converted, then the
+    einsum on the CUDA cores: TF32 is off), and the bound (the bf16
+    operands read once, the fp32 output written once; 2 K a product at
+    the bf16 rate).  Returns (records, lines)."""
+    from repro_torch.models import attention
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    recs, lines = [], [f"attention einsums on {gpu_info()}"]
+    for what, eq, a, b, trained in einsum_cases(gen):
+        got = attention._einsum32(eq, a, b)
+        want = torch.einsum(eq, a.float(), b.float())
+        lim, K = _einsum_bound(eq, a, b)
+        ok = got.dtype == torch.float32 and within((got - want).abs(), lim)
+        ratio = float(((got - want).abs() / lim.clamp_min(2.0 ** -126))
+                      .max())
+        err = max_err(got, want)
+        n_out = got.numel()
+        del got, want, lim
+        ms = time_ms(lambda: attention._einsum32(eq, a, b))
+        plain_ms = time_ms(lambda: torch.einsum(eq, a.float(), b.float()),
+                           iters=5)
+        b_ms, by = bound(2 * a.numel() + 2 * b.numel() + 4 * n_out,
+                         2 * n_out * K, torch.bfloat16)
+        rec = dict(what=what, eq=eq, a=list(a.shape), b=list(b.shape),
+                   K=K, max_abs_err=err, err_over_bound=ratio, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+        line = (f"einsum {what} {eq} {tuple(a.shape)} x {tuple(b.shape)}: "
+                f"fp32 err {err:.3g} ({ratio:.3g} of its order bound); "
+                f"route {ms:.4f} ms, promoted {plain_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({by})")
+        if not ok:
+            fail(line)
+        if trained:
+            line += "; " + _check_einsum_grads(rec, eq, a, b, gen)
+        recs.append(rec)
+        lines.append(line)
+        del a, b
+        torch.cuda.empty_cache()
+    rec, line = _check_decode_partial(gen)
+    recs.append(rec)
+    lines.append(line)
+    torch.cuda.empty_cache()
+    return recs, lines
+
+
+def _check_einsum_grads(rec, eq, a, b, gen):
+    """Forward and backward of the trainer's einsum under an fp32
+    cotangent, the route against the promoted einsum's autograd: da =
+    einsum(out, b -> a), db = einsum(a, out -> b), each bf16 within one
+    bf16 unit beyond the order bound of its fp32 sum.  Fills ``rec``;
+    returns the line's part."""
+    from repro_torch.models import attention
+    ins, out = eq.split("->")
+    ia, ib = ins.split(",")
+    size = dict(zip(ia, a.shape)) | dict(zip(ib, b.shape))
+    g = torch.randn([size[c] for c in out], generator=gen, device=DEVICE)
+    got = _einsum_grads(lambda x, w: attention._einsum32(eq, x, w), a, b, g)
+    want = _einsum_grads(lambda x, w: torch.einsum(eq, x.float(),
+                                                   w.float()), a, b, g)
+    units = {}
+    for name, x, y, (e2, l, r) in (
+            ("da", got[1], want[1], (f"{out},{ib}->{ia}", g, b)),
+            ("db", got[2], want[2], (f"{ia},{out}->{ib}", a, g))):
+        lim, _ = _einsum_bound(e2, l, r)
+        units[name] = float(_bf16_units(x, y, lim).max())
+        del lim
+    del got, want
+    ms = time_ms(lambda: _einsum_grads(
+        lambda x, w: attention._einsum32(eq, x, w), a, b, g), iters=5)
+    plain_ms = time_ms(lambda: _einsum_grads(
+        lambda x, w: torch.einsum(eq, x.float(), w.float()), a, b, g),
+        iters=3)
+    rec.update(grad_bf16_units_past_bound=units, grad_ms=ms,
+               grad_plain_ms=plain_ms)
+    part = (f"forward and backward (fp32 cotangent) {ms:.3f} ms, promoted "
+            f"{plain_ms:.3f} ms, gradients " + ", ".join(
+                f"{n} {u:.3g}" for n, u in units.items())
+            + " bf16 units past their order bounds")
+    if not all(u <= 1.0 for u in units.values()):
+        fail(part)
+    return part
+
+
+def _check_decode_partial(gen):
+    """gemma2-27b's split-T decode partial (``attention._decode_partial``,
+    softcap 50, scale 1/12, 32 query heads on 16 kv heads) on the route
+    against itself with ``product.einsum32`` swapped for the promotion.
+    Each side rounds its probabilities p = exp(s - m) <= 1 to bf16 before
+    P.V, so a p one rounding apart may round to the next bf16 value:
+    m within the scores' order bound (and a few fp32 roundings after the
+    sum); l = sum p within 2 that bound + (2 Tl + 4) 2**-24 of itself;
+    acc within that relative bound of sum p |v|, plus one bf16 unit of
+    every p (2**-7 p) times |v|.  Returns (record, line)."""
+    from repro_torch.kernels import product
+    from repro_torch.models import attention
+    c = GEMMA_PARTIAL
+    B, H, Kv, hd, Tl = c["B"], c["H"], c["Kv"], c["hd"], c["Tl"]
+    G = H // Kv
+    q = torch.randn(B, 1, H, hd, generator=gen, device=DEVICE).bfloat16()
+    k, v = (torch.randn(B, Tl, Kv * hd, generator=gen, device=DEVICE
+                        ).bfloat16() for _ in range(2))
+    valid = torch.ones(Tl, dtype=torch.bool, device=DEVICE)
+    kw = dict(scale=GEMMA_SCALE, softcap=c["softcap"], n_kv=Kv)
+
+    def plain():
+        route = product.einsum32
+        product.einsum32 = lambda eq, a, b: torch.einsum(eq, a.float(),
+                                                         b.float())
+        try:
+            return attention._decode_partial(q, k, v, valid, **kw)
+        finally:
+            product.einsum32 = route
+    got = attention._decode_partial(q, k, v, valid, **kw)
+    want = plain()
+    qg, kk = q.float().reshape(B, Kv, G, hd), k.float().reshape(B, Tl, Kv,
+                                                               hd)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, kk) * GEMMA_SCALE
+    s_bound = (torch.einsum("bkgd,btkd->bkgt", qg.abs(), kk.abs())
+               * (2 * hd * 2.0 ** -24 * GEMMA_SCALE)
+               + 8 * 2.0 ** -24 * s.abs()).amax(-1)
+    rel = 2 * s_bound + (2 * Tl + 4) * 2.0 ** -24
+    pv = torch.einsum("bkgt,btkd->bkgd", torch.exp(
+        torch.tanh(s / c["softcap"]) * c["softcap"] - want[0][..., None]),
+        v.float().abs().reshape(B, Tl, Kv, hd))
+    limits = (s_bound, rel * want[1], (rel[..., None] + 2.0 ** -7) * pv)
+    del s, qg, kk
+    errs = [max_err(x, y) for x, y in zip(got, want)]
+    ratios = [float(((x - y).abs() / lim.clamp_min(2.0 ** -126)).max())
+              for x, y, lim in zip(got, want, limits)]
+    ok = all(within((x - y).abs(), lim)
+             for x, y, lim in zip(got, want, limits))
+    ms = time_ms(lambda: attention._decode_partial(q, k, v, valid, **kw))
+    plain_ms = time_ms(plain, iters=5)
+    n_out = B * H * (hd + 2)
+    b_ms, by = bound(2 * (q.numel() + k.numel() + v.numel()) + 4 * n_out,
+                     4 * B * H * Tl * hd, torch.bfloat16)
+    rec = dict(what="gemma2-27b decode partial", shape=[B, H, Kv, hd, Tl],
+               max_abs_err=dict(zip(("m", "l", "acc"), errs)),
+               err_over_bound=dict(zip(("m", "l", "acc"), ratios)),
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+    line = (f"gemma2-27b softcapped decode partial (B={B}, H={H}, Kv={Kv}, "
+            f"hd {hd}, {Tl} slots): m, l, acc within "
+            + ", ".join(f"{r:.3g}" for r in ratios) + " of their bounds; "
+            f"route {ms:.4f} ms, promoted {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({by})")
+    if not ok:
+        fail(line)
+    return rec, line
+
+
 # the experts' hidden width in ``check_combine``: the combine adds (T, D)
 # rows and never sees it; the CPU run at grok's 32768 would take minutes
 COMBINE_F = 128
@@ -2050,8 +2299,9 @@ def _ttft_ms(eng, plen, n=3):
 
 
 def _suffix_profile(eng, prompt):
-    """One 128-token chunk pass (positions 384..511) and one 16-wide
-    verify window, each under torch.profiler, against null rows (their
+    """One 128-token chunk pass (positions 384..511, its attention
+    einsums' device time attributed) and one 16-wide verify window, each
+    under torch.profiler, against null rows (their
     writes land on the null page), and the plain suffix attention of one
     layer at the chunk's shapes timed alone (``time_ms``)."""
     from repro_torch.models import attention
@@ -2076,7 +2326,7 @@ def _suffix_profile(eng, prompt):
     attn_ms = time_ms(lambda: attention.attend_prefill_paged(
         q, pool, row, 384, scale=cfg.head_dim ** -0.5,
         softcap=cfg.attn_softcap, n_kv=cfg.n_kv_heads))
-    return dict(chunk=_profile(chunk), verify=_profile(verify),
+    return dict(chunk=_profile(chunk, einsums=True), verify=_profile(verify),
                 attn_ms_layer=attn_ms, attn_ms_pass=attn_ms * cfg.n_layers)
 
 
@@ -2204,7 +2454,9 @@ def serve_paged_features(ops, cfg, params):
             c, v = prof["chunk"], prof["verify"]
             line += (f"; profiled 128-token chunk pass {c['wall_ms']:.3f} ms "
                      f"wall, device busy {c['busy_share']:.3f}, "
-                     f"{c['launches_per_step']:.0f} launches, top {c['top']}"
+                     f"{c['launches_per_step']:.0f} launches, attention "
+                     f"einsums {c['einsum_ms']:.3f} ms of device time "
+                     f"({c['einsum_share']:.3f}), top {c['top']}"
                      f"; 16-wide verify {v['wall_ms']:.3f} ms wall, busy "
                      f"{v['busy_share']:.3f}, top {v['top']}; plain suffix "
                      f"attention at the chunk's shapes "
@@ -2829,9 +3081,15 @@ def serve_dense(ops, cfg, params):
             f"{prof['decode']['busy_share']:.3f}, "
             f"{prof['decode']['launches_per_step']:.0f} launches, top "
             f"{prof['decode']['top']}, conversions of a weight in 4 steps "
-            f"{conv or 0}; profiled prefill "
+            f"{conv or 0}"
+            + (f", of kv_b's w_uk / w_uv views or the latent cache "
+               f"{prof['decode']['latent_conversions'] or 0}"
+               if cfg.mla is not None else "")
+            + f"; profiled prefill "
             f"{prof['prefill']['wall_ms']:.3f} ms wall, device busy "
-            f"{prof['prefill']['busy_share']:.3f}, top "
+            f"{prof['prefill']['busy_share']:.3f}, attention einsums "
+            f"{prof['prefill']['einsum_ms']:.3f} ms of device time "
+            f"({prof['prefill']['einsum_share']:.3f}), top "
             f"{prof['prefill']['top']}")
     torch.cuda.empty_cache()
     return stats, launches, line
@@ -3039,38 +3297,124 @@ def serve_encoder(ops, cfg, params):
     return stats, launches, line
 
 
-def _profile(fn, cpu=True):
+EINSUM_SPAN = "attention einsum"
+RECOMPUTE_SPAN = "remat recompute"
+
+
+class _EinsumSpans:
+    """Within the block, every call of the attention's einsum
+    (``attention._einsum32``, which MLA calls too) runs inside a
+    ``record_function`` span named EINSUM_SPAN and every recompute of a
+    checkpointed cycle (``remat._Frame._recompute``) inside one named
+    RECOMPUTE_SPAN, so that a profile can attribute device time to the
+    einsums (``_einsum_device_us``)."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from repro_torch.models import attention, remat
+        self.undo = [(attention, "_einsum32", attention._einsum32),
+                     (remat._Frame, "_recompute", remat._Frame._recompute)]
+
+        def spanned(name, fn):
+            def call(*args):
+                with record_function(name):
+                    return fn(*args)
+            return call
+        attention._einsum32 = spanned(EINSUM_SPAN, attention._einsum32)
+        remat._Frame._recompute = spanned(RECOMPUTE_SPAN,
+                                          remat._Frame._recompute)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.undo:
+            setattr(obj, name, fn)
+
+
+def _einsum_device_us(events):
+    """(device us, host events counted) of the attention einsums in a
+    profile taken inside ``_EinsumSpans``: every EINSUM_SPAN (the
+    forward's and the recomputes'), and every backward node whose
+    forward op ran in one (the autograd engine's ``evaluate_function``
+    event carries that op's thread and sequence number) less the
+    recomputes it triggered, which hold spans of their own."""
+    spans = [e for e in events if e.name == EINSUM_SPAN]
+    fwd, marks = set(), (EINSUM_SPAN, RECOMPUTE_SPAN)
+    for e in spans:
+        todo = list(e.cpu_children)
+        while todo:
+            c = todo.pop()
+            if c.sequence_nr >= 0:
+                fwd.add((c.thread, c.sequence_nr))
+            todo += c.cpu_children
+    nodes = [e for e in events
+             if e.name.startswith("autograd::engine::evaluate_function")
+             and (e.fwd_thread, e.sequence_nr) in fwd]
+
+    def kernel_us(e):
+        """The kernels launched under ``e``, less a recompute's and the
+        spans' own device-side ranges (the profiler records each span on
+        the device too, as a range around its kernels)."""
+        us, todo = 0.0, [e]
+        while todo:
+            c = todo.pop()
+            us += sum(k.duration for k in c.kernels if k.name not in marks)
+            todo += [d for d in c.cpu_children if d.name != RECOMPUTE_SPAN]
+        return us
+    return (sum(kernel_us(e) for e in spans + nodes),
+            len(spans) + len(nodes))
+
+
+def _profile(fn, cpu=True, einsums=False):
     """Run ``fn`` under torch.profiler; ``fn`` returns the number of
     model steps it ran.  Returns the wall time, the device busy share
     (kernel time over wall time), device launches per step and the
     kernels that take most of the device time (ms per step).  With
     ``cpu=False`` the host's ops are not traced (only the device's
-    kernels are read either way)."""
+    kernels are read either way).  With ``einsums`` also the attention
+    einsums' device time a step (forward, recompute and backward,
+    ``_einsum_device_us``) and its share of the device time."""
     from torch.profiler import ProfilerActivity, profile
     _sync()
+    spans = _EinsumSpans() if einsums else contextlib.nullcontext()
     with profile(activities=[ProfilerActivity.CPU] * cpu
-                 + [ProfilerActivity.CUDA]) as prof:
+                 + [ProfilerActivity.CUDA]) as prof, spans:
         t0 = time.time()
         k = max(fn(), 1)
         _sync()
         wall = time.time() - t0
+    # the device's kernels; a span of ``_EinsumSpans`` is recorded on the
+    # device too, as a range around its kernels, and is not one
+    marks = (EINSUM_SPAN, RECOMPUTE_SPAN)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in marks]
     dev_us = {e.key: e.self_device_time_total for e in kernels}
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:4]
     cards = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.name not in marks:
             c = cards.setdefault(e.device_index, [0.0, 0])
             c[0] += e.self_device_time_total
             c[1] += 1
-    return dict(steps=k, wall_ms=wall * 1e3,
-                busy_share=sum(dev_us.values()) / 1e6 / wall,
-                launches_per_step=sum(e.count for e in kernels) / k,
-                top=[(name[:48], round(us / 1e3 / k, 4)) for name, us in top],
-                by_card={i: dict(busy_share=us / 1e6 / wall,
-                                 launches_per_step=n / k)
-                         for i, (us, n) in sorted(cards.items())})
+    out = dict(steps=k, wall_ms=wall * 1e3,
+               busy_share=sum(dev_us.values()) / 1e6 / wall,
+               launches_per_step=sum(e.count for e in kernels) / k,
+               top=[(name[:48], round(us / 1e3 / k, 4)) for name, us in top],
+               by_card={i: dict(busy_share=us / 1e6 / wall,
+                                launches_per_step=n / k)
+                        for i, (us, n) in sorted(cards.items())})
+    if einsums:
+        ein_us, n = _einsum_device_us(prof.events())
+        # the spans' device-side ranges (first kernel to last, gaps
+        # included), beside the kernels' time: a check, no gate
+        ranges = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.key == EINSUM_SPAN)
+        out.update(einsum_ms=ein_us / 1e3 / k, einsum_events=n,
+                   einsum_share=ein_us / max(sum(dev_us.values()), 1e-9),
+                   einsum_span_ranges_ms=ranges / 1e3 / k)
+    return out
 
 
 def _dense_steps(cfg, params, args):
@@ -3103,14 +3447,16 @@ def _dense_steps(cfg, params, args):
     return run_prefill, run_decode, state
 
 
-def weight_conversions(params, fn):
+def weight_conversions(params, fn, extra=()):
     """{input shape: count} of the dtype conversions (``aten::_to_copy``)
     that ``fn`` makes of a tensor shaped as a parameter of two or more
-    dims (or its transpose), read from a profile of the host's ops with
-    their input shapes (one op a conversion kernel)."""
+    dims (or its transpose), or as one of the ``extra`` shapes, read from
+    a profile of the host's ops with their input shapes (one op a
+    conversion kernel)."""
     from torch.profiler import ProfilerActivity, profile
     shapes = {s for t in _leaves(params) if t.ndim >= 2
               for s in (tuple(t.shape), tuple(t.shape)[::-1])}
+    shapes |= {tuple(s) for s in extra}
     _sync()
     with profile(activities=[ProfilerActivity.CPU],
                  record_shapes=True) as prof:
@@ -3122,17 +3468,39 @@ def weight_conversions(params, fn):
             and tuple(e.input_shapes[0]) in shapes}
 
 
+def latent_shapes(cfg, batch, max_len):
+    """The shapes of MLA's absorbed decode operands that are not
+    parameters: ``kv_b``'s ``w_uk`` and ``w_uv`` views (kv_lora, H,
+    nope / v) and the latent cache and its rope keys (B, T, kv_lora /
+    rope); none for another family."""
+    m = cfg.mla
+    if m is None:
+        return {}
+    return {str(s): s for s in (
+        (m.kv_lora_rank, cfg.n_heads, m.qk_nope_head_dim),
+        (m.kv_lora_rank, cfg.n_heads, m.v_head_dim),
+        (batch, max_len, m.kv_lora_rank),
+        (batch, max_len, m.qk_rope_head_dim))}
+
+
 def _profile_dense(cfg, params, args):
-    """One batched prefill of the first batch's prompts and four decode
-    steps of the dense engine, each profiled on its own, then four more
-    steps with the host's ops and their shapes recorded for
-    ``weight_conversions``.  Returns the profiles (with the conversions)
-    and the logits of the prefill and of the fourth step."""
+    """One batched prefill of the first batch's prompts (its attention
+    einsums' device time attributed) and four decode steps of the dense
+    engine, each profiled on its own, then four more steps with the
+    host's ops and their shapes recorded for ``weight_conversions`` (and,
+    for MLA, ``latent_conversions``: those of ``latent_shapes``).
+    Returns the profiles (with the conversions) and the logits of the
+    prefill and of the fourth step."""
     run_prefill, run_decode, state = _dense_steps(cfg, params, args)
-    prof = dict(prefill=_profile(run_prefill), decode=_profile(run_decode))
+    prof = dict(prefill=_profile(run_prefill, einsums=True),
+                decode=_profile(run_decode))
     logits = (state["prefill"], state["decode"])
-    prof["decode"]["weight_conversions"] = weight_conversions(
-        params, lambda: run_decode(4, start=4))
+    latent = latent_shapes(cfg, args.batch, args.prompt_len + args.gen)
+    conv = weight_conversions(params, lambda: run_decode(4, start=4),
+                              latent.values())
+    prof["decode"]["weight_conversions"] = conv
+    prof["decode"]["latent_conversions"] = {k: n for k, n in conv.items()
+                                            if k in latent}
     return prof, logits
 
 
@@ -4939,7 +5307,7 @@ def _profile_train_step(cfg, out, state_dtype):
     def one():
         step(params, opt, batch)
         return 1
-    return _profile(one)
+    return _profile(one, einsums=True)
 
 
 def train_runs(problems):
@@ -5035,7 +5403,9 @@ def train_runs(problems):
             + ", ".join(f"{l:.4f}" for l in r["losses"])
             + f"; a profiled step {pr['wall_ms']:.1f} ms, busy "
             f"{pr['busy_share']:.3f}, {pr['launches_per_step']:.0f} "
-            f"launches, top {pr['top']}")
+            f"launches, attention einsums {pr['einsum_ms']:.1f} ms of "
+            f"device time ({pr['einsum_share']:.3f}; forward, recompute "
+            f"and backward), top {pr['top']}")
     r = recs["fp32 restart"]
     ck = recs["checkpoint_s"]
     lines.append(
@@ -7091,6 +7461,8 @@ def main():
     lines += fam_lines
     product, product_lines = check_product()
     lines += product_lines
+    einsum, einsum_lines = check_einsum()
+    lines += einsum_lines
     combine, combine_lines = check_combine()
     lines += combine_lines
     for line in lines:
@@ -7187,6 +7559,11 @@ def main():
             "weight_conversions"]
         if arch == "gemma2-27b" and conv:
             fail(f"{arch}: its decode steps convert weights: {conv}")
+        latent = serve_stats[f"{arch} dense"]["profile"]["decode"][
+            "latent_conversions"]
+        if arch == "deepseek-v3-671b" and latent:
+            fail(f"{arch}: its decode steps convert kv_b's views or the "
+                 f"latent cache: {latent}")
         if arch == "deepseek-v3-671b":
             parity[f"{arch} dense, run twice"], line = dense_repeat(
                 cfg, params)
@@ -7270,7 +7647,8 @@ def main():
              kernels=[recs[fn.__name__] for fn in ops.KERNELS],
              flash_local=flash_local,
              path_launches=path_launches, serve=serve_stats, parity=parity,
-             product=product, combine=combine, paper=paper, train=train,
+             product=product, einsum=einsum, combine=combine, paper=paper,
+             train=train,
              mesh=mesh,
              dense_mesh=dmesh,
              dryrun=dry, cards=cards, section_s=laps),

@@ -1,6 +1,8 @@
-"""The reference's product: ``dot_general(x, w, preferred_element_type=
+"""The reference's products: ``dot_general(x, w, preferred_element_type=
 float32)`` cast to the output dtype (``repro/models/modules.py``
-``matmul``), for the models and the collectives alike.
+``matmul``), for the models and the collectives alike, and the
+attention's two-operand ``jnp.einsum(eq, a, b, preferred_element_type=
+float32)`` (``einsum32``: ``repro/models/attention.py`` and ``mla.py``).
 
 Two bf16 operands have their exact products summed in fp32 ("MXU
 semantics"); a bf16 activation against an fp32 parameter is the promoted
@@ -14,6 +16,8 @@ refuses mixed dtypes), which for two bf16 operands is the same exact
 products summed in fp32.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -77,3 +81,95 @@ def matmul(x, w, out_dtype=None):
     if _tensor_core_route(x, w):
         return Product.apply(x, w, out_dtype)
     return _dot32(x, w).to(out_dtype)
+
+
+def _einsum_indices(eq):
+    """(a's, b's and the output's index strings; the batch indices, in
+    both operands and the output; a's and b's free indices, each in one
+    operand and the output; the contracted indices, in both operands and
+    not the output), batch and free in output order, contracted in a's.
+    Takes the equations of the attention: two operands, one letter an
+    axis, no index summed within one operand, no ellipsis."""
+    ins, out = eq.replace(" ", "").split("->")
+    ia, ib = ins.split(",")
+    batch = [c for c in out if c in ia and c in ib]
+    free_a = [c for c in out if c in ia and c not in ib]
+    free_b = [c for c in out if c in ib and c not in ia]
+    contr = [c for c in ia if c in ib and c not in out]
+    for idx, parts in ((ia, batch + free_a + contr),
+                       (ib, batch + free_b + contr),
+                       (out, batch + free_a + free_b)):
+        if not idx.isalpha() or sorted(idx) != sorted(parts):
+            raise ValueError(f"einsum32 takes no equation {eq!r}")
+    return ia, ib, out, batch, free_a, free_b, contr
+
+
+def _as_rows(t, idx, batch, free, contr):
+    """``t`` (indices ``idx``) as (batch, free, contracted), each group
+    flattened: a view where ``t``'s strides allow, else a copy in
+    ``t``'s dtype that keeps its last axis innermost (a free last axis
+    is copied as (batch, contracted, free) and returned transposed)."""
+    size = dict(zip(idx, t.shape))
+    dims = [math.prod(size[c] for c in g) for g in (batch, free, contr)]
+    if idx[-1] in free:
+        order = batch + contr + free
+        return t.permute([idx.index(c) for c in order]).reshape(
+            dims[0], dims[2], dims[1]).transpose(1, 2)
+    order = batch + free + contr
+    return t.permute([idx.index(c) for c in order]).reshape(*dims)
+
+
+def _einsum_dot32(eq, a, b):
+    """``eq`` over ``a`` and ``b`` as one batched product with fp32
+    accumulation, an fp32 tensor: a as (batch, M, K), b as (batch, N, K)
+    read transposed; two bf16 operands on the card take cuBLAS's bf16
+    GEMM with an fp32 output, any other pair the promoted operands."""
+    ia, ib, out, batch, free_a, free_b, contr = _einsum_indices(eq)
+    x = _as_rows(a, ia, batch, free_a, contr)
+    w = _as_rows(b, ib, batch, free_b, contr).transpose(1, 2)
+    if _tensor_core_route(a, b):
+        y = torch.bmm(x, w, out_dtype=torch.float32)
+    else:
+        y = torch.bmm(x.float(), w.float())
+    size = dict(zip(ia, a.shape)) | dict(zip(ib, b.shape))
+    grouped = batch + free_a + free_b
+    return y.reshape([size[c] for c in grouped]).permute(
+        [grouped.index(c) for c in out])
+
+
+class Einsum32(torch.autograd.Function):
+    """``_einsum_dot32(eq, a, b)``, with the reference's transpose rule
+    for its gradient: da = einsum(out, b -> a) of the cotangent and b,
+    db = einsum(a, out -> b), each fp32-accumulated and cast to its
+    operand's dtype.  The cotangent of an fp32 output is fp32, so the
+    backward promotes the bf16 operand for its own product, as the
+    reference's mixed-dtype ``dot_general`` does; a bf16 one takes the
+    tensor cores.  Saves the operands themselves, not their copies."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b):
+        ctx.eq = eq
+        ctx.save_for_backward(a, b)
+        return _einsum_dot32(eq, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ia, ib, out = _einsum_indices(ctx.eq)[:3]
+        da = db = None
+        if ctx.needs_input_grad[1]:
+            da = _einsum_dot32(f"{out},{ib}->{ia}", g, b).to(a.dtype)
+        if ctx.needs_input_grad[2]:
+            db = _einsum_dot32(f"{ia},{out}->{ib}", a, g).to(b.dtype)
+        return None, da, db
+
+
+def einsum32(eq, a, b):
+    """The reference's ``jnp.einsum(eq, a, b, preferred_element_type=
+    jnp.float32)``: the exact products of two (possibly bf16) operands
+    summed in fp32, an fp32 tensor.  Two bf16 operands on the card (or
+    on ``meta``): ``Einsum32``, one tensor-core GEMM; otherwise
+    ``torch.einsum`` of the promoted fp32 operands."""
+    if _tensor_core_route(a, b):
+        return Einsum32.apply(eq, a, b)
+    return torch.einsum(eq, a.float(), b.float())

@@ -48,6 +48,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import product
 from repro_torch.models import modules as nn
 from repro_torch.parallel.sharding import current_env
 
@@ -133,9 +134,12 @@ def _qkv(p, cfg, x, angles):
 
 
 def _einsum32(eq, a, b):
-    """einsum with fp32 accumulation of (possibly bf16) operands — the
-    reference's ``preferred_element_type=jnp.float32``."""
-    return torch.einsum(eq, a.float(), b.float())
+    """The reference's ``jnp.einsum(eq, a, b, preferred_element_type=
+    jnp.float32)``, an fp32 tensor (``product.einsum32``): two bf16
+    operands on the card are one bf16 x bf16 -> fp32 tensor-core GEMM
+    saving the bf16 operands; on the CPU, or any other dtype pair, the
+    einsum of the operands promoted to fp32."""
+    return product.einsum32(eq, a, b)
 
 
 # ---------------------------------------------------------------------------

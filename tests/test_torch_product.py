@@ -214,9 +214,12 @@ def test_meta_bf16_product_makes_no_fp32_copy_of_an_operand(case):
 # temp_size_in_bytes of a DeepSeek-V3 train step (tiny, n_layers 2, bf16
 # parameters, B=4, S=32) on a 1x2 meta mesh: 3,957,440 B with the
 # promoted products and the index_add_ combine; 2,585,532 B with the bf16
-# route and the fixed-order combine, which the tally counts to the byte
+# route for the weight products and the fixed-order combine, the
+# attention's einsums still promoted; 2,278,332 B with the einsums on the
+# bf16 route too (``product.einsum32``), which the tally counts to the
+# byte
 TEMP_PROMOTED = 3_957_440
-TEMP_ROUTE = 2_585_532
+TEMP_ROUTE = 2_278_332
 
 
 def test_dry_run_temp_falls_with_the_bf16_route():
